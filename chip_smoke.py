@@ -5,20 +5,34 @@ Run from the root of a checkout: ``python3 chip_smoke.py`` (no arguments;
 one card).  It imports ``repro_torch`` from ``src/`` and nothing of JAX.
 Phases, each printed with its numbers and wall time:
 
-1. build every CUDA kernel of the path from ``src/repro_torch/kernels/csrc``;
+1. build every CUDA kernel of both paths from
+   ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, in parallel);
 2. hold ``runqlat_hist`` against its plain version on the card (main-path
    shapes exactly, a ragged shape with float weights to tolerance) and time
    it beside the plain version and ``scatter_add_`` on a precomputed index;
 3. run ten ticks at 1,000 nodes on the card and on the CPU with one noise
    bundle: the same state, floats allclose, histogram totals equal;
-4. the main path at full width: train the Random Forest on the card;
+4. the ICO path at full width: train the Random Forest on the card;
    profile 100 ticks and 20 admissions on the 1,000-node cluster of phase
    3 (host ms per tick, the device's busy share, its top kernels); then
-   ICO ``run_experiment`` on a 1,000-node fleet with a 600-pod trace, with
-   the kernel's launch count set to 0 before and read after the run;
+   ICO ``run_experiment`` on a 1,000-node fleet with a 600-pod trace,
+   recording its plan, with ``runqlat_hist``'s launch count set to 0
+   before and read after the run;
 5. the paper-scale ``compare_schedulers`` table (12 nodes, 40 pods);
 6. one 12-node ICO run on the card and on the CPU with one noise stream:
-   the same placements, response times allclose.
+   the same placements, response times allclose; its plan is recorded;
+7. engine parity on that 12-node plan, 3 seeds: the batched engine with
+   the fused tick against the default tick on the same draws, and on the
+   card against the CPU;
+8. the replay path at full width: ``replay_plan_batched`` of the
+   1,000-node ICO plan under 20 seeds with the fused tick (20,480 batched
+   ticks of 20,000 node rows), both kernels' counts set to 0 before and
+   read after; one batched tick's kernel inputs are kept;
+9. ``rollout_tick`` against its plain version on those inputs (R = 20,000)
+   and on a ragged R = 37, and its times beside the plain version's; then
+   the replay's checks: one launch per batched tick, no ``runqlat_hist``
+   launch, and the seed-7 entry reproducing phase 4's run;
+10. a profile of the batched tick at 20 x 1,000 rows, fused and default.
 
 Then it prints the card's name and power limit, one JSON line of kernel
 numbers, and last ``{"ok": true, "device": {...}}``.  Any failure raises
@@ -175,6 +189,162 @@ def phase_profile(torch, c, sched, pods, ticks=100):
         host_ms_per_admission=(time.perf_counter() - t0) * 1e3 / len(pods))
 
 
+def to_device(dev, obj):
+    """A frozen dataclass of tensors (state, fleet, noise bundle) on dev."""
+    return type(obj)(**{k: v.to(dev) for k, v in vars(obj).items()})
+
+
+def phase_engine_parity(torch, cstate, texp, plan, card, seeds=(0, 1, 2)):
+    """The batched engine on a 12-node plan: fused tick against the default
+    tick on the card, then the fused engine on the card against the CPU,
+    every run on the same draws."""
+    cpu = torch.device("cpu")
+    inp = texp.replay_inputs(plan, device=card)
+    chunks = inp["padded_windows"] * inp["cpw"]
+    streams = []
+    for s in seeds:
+        gen = torch.Generator(device=card).manual_seed(100 + s)
+        streams.append([cstate.draw_noise(gen, inp["num_nodes"], cstate.CHUNK)
+                        for _ in range(chunks)])
+
+    def run(inp, streams, fused):
+        return cstate.batched_rollout(
+            inp["state"], inp["profiles"], 0.0, streams, inp["events"],
+            fleet=inp["fleet"], use_fused=fused)
+
+    gf_final, gf = run(inp, streams, True)
+    _, gd = run(inp, streams, False)
+    for k in ("hot", "qps", "cpu_util", "mem_util"):
+        if not torch.equal(gf[k], gd[k]):
+            raise AssertionError(f"engine {k}: fused != default tick")
+    if not torch.allclose(gf["rt"], gd["rt"], rtol=1e-5, atol=1e-5):
+        raise AssertionError("engine rt: fused != default tick")
+    fused_rel = float(((gf["rt"] - gd["rt"]).abs()
+                       / gd["rt"].abs().clamp_min(1e-5)).max())
+
+    cinp = texp.replay_inputs(plan, device=cpu)
+    cstreams = [[[to_device(cpu, n) for n in ch] for ch in st]
+                for st in streams]
+    cf_final, cf = run(cinp, cstreams, True)
+    for k, v in vars(gf_final["state"]).items():
+        if not torch.equal(v.cpu(), getattr(cf_final["state"], k)):
+            raise AssertionError(f"engine state {k}: card != cpu")
+    if not torch.equal(gf["hot"].cpu(), cf["hot"]):
+        raise AssertionError("engine hot: card != cpu")
+    worst = 0.0
+    for k in ("rt", "qps", "cpu_util", "mem_util"):
+        a, b = gf[k].cpu(), cf[k]
+        if not torch.allclose(a, b, rtol=1e-5, atol=1e-5):
+            raise AssertionError(f"engine {k}: card != cpu")
+        worst = max(worst, float(((a - b).abs()
+                                  / b.abs().clamp_min(1e-5)).max()))
+    return dict(seeds=len(seeds), nodes=inp["num_nodes"],
+                batched_ticks=chunks * cstate.CHUNK,
+                hot_windows=int(gf["hot"].any(-1).sum()),
+                fused_vs_default_rt_max_rel=fused_rel,
+                card_vs_cpu_max_rel=worst)
+
+
+def phase_fused_kernel(torch, RT, args, card):
+    """``rollout_tick`` against its plain version on one batched tick of
+    the replay (R = 20,000) and a ragged R = 37, then its time beside the
+    plain version's (order plain, kernel, kernel, plain)."""
+    ragged = [a[:37].clone() for a in args]
+    worst_rel, max_err = 0.0, 0.0
+    for name, inp in (("main", args), ("ragged", ragged)):
+        got = RT.fused_tick(*inp)
+        want = RT.fused_tick_plain(*inp)
+        torch.cuda.synchronize()
+        if not torch.equal(got[0], want[0]):
+            raise AssertionError(f"rollout_tick hist != plain ({name})")
+        if not torch.equal(got[0].sum(-1), inp[2].sum(-1) * 16):
+            raise AssertionError(f"rollout_tick totals != 16 x active ({name})")
+        for a, b in zip(got[1:], want[1:]):
+            rel = float(((a - b).abs() / b.abs().clamp_min(1e-30)).max())
+            worst_rel = max(worst_rel, rel)
+            max_err = max(max_err, float((a - b).abs().max()))
+        if worst_rel > 1e-6:
+            raise AssertionError(f"rollout_tick delay/mean rel {worst_rel}")
+    rows, slots = args[1].shape
+    k = args[3].shape[1] // slots
+    active = int(args[2].count_nonzero())
+    out_bytes = 4 * rows * (200 + 1 + slots)
+    full_bytes = 4 * rows * (8 + 2 * slots + 2 * slots * k) + out_bytes
+    # the uniforms of inactive slots are never read
+    data_bytes = 4 * (rows * (8 + 2 * slots) + 2 * active * k) + out_bytes
+    nops = 12 * active * k + 16 * rows  # per sample: 2 mul, log, div, mul,
+    # div, floor, 2 clamps, cast, add; per row the delay curve
+    bound_ms = max(data_bytes / HBM_BYTES_PER_S, nops / FP32_OPS_PER_S) * 1e3
+    ms = {}
+    for name, fn in (("plain", lambda: RT.fused_tick_plain(*args)),
+                     ("kernel", lambda: RT.fused_tick(*args)),
+                     ("kernel2", lambda: RT.fused_tick(*args)),
+                     ("plain2", lambda: RT.fused_tick_plain(*args))):
+        ms[name] = cuda_ms(fn)
+    return dict(rows=rows, active_slots=active, max_rel_err=worst_rel,
+                max_abs_err=max_err, full_bytes=full_bytes,
+                data_bytes=data_bytes,
+                full_bound_ms=full_bytes / HBM_BYTES_PER_S * 1e3,
+                bound_ms=bound_ms, ms=min(ms["kernel"], ms["kernel2"]),
+                plain_ms=min(ms["plain"], ms["plain2"]), runs=json.dumps(ms))
+
+
+def phase_replay_profile(torch, cstate, texp, RT, plan, card, seeds=20,
+                         windows=2):
+    """The batched tick at 20 seeds x 1,000 nodes, from the plan's final
+    occupancy (every event applied, no expiry): host ms per batched tick
+    without the profiler, then under ``torch.profiler`` the device's busy
+    share, kernels per tick and the top kernels; fused, then default."""
+    from torch.profiler import ProfilerActivity, profile
+
+    inp = texp.replay_inputs(plan, device=card)
+    state = inp["state"]
+    ev = inp["events"]
+    for w in range(ev["op"].shape[0]):
+        for c in range(inp["cpw"]):
+            state = cstate.apply_events(state, {k: v[w, c]
+                                                for k, v in ev.items()})
+    ticks = windows * inp["span"]
+    out = {}
+    for fused in (True, False):
+        def run(n_windows):
+            return cstate.batched_rollout(
+                state, inp["profiles"], 0.0,
+                [cstate.SeedNoise(s, inp["num_nodes"], card)
+                 for s in range(seeds)],
+                cstate.extract_plan([], 0.0, n_windows, inp["cpw"]),
+                fleet=inp["fleet"], use_fused=fused)
+
+        run(1)                                       # warm the path
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(windows)
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3 / ticks
+        before = RT.launches
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run(windows)
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+        rows = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        device_us = sum(e.self_device_time_total for e in rows)
+        top = sorted(rows, key=lambda e: -e.self_device_time_total)[:6]
+        name = "fused" if fused else "default"
+        out[name] = dict(
+            host_ms_per_batched_tick=host_ms,
+            profiled_ms_per_batched_tick=wall_s * 1e3 / ticks,
+            device_busy_share=device_us * 1e-6 / wall_s,
+            device_us_per_batched_tick=device_us / ticks,
+            kernels_per_batched_tick=sum(e.count for e in rows) / ticks,
+            rollout_tick_launches_per_tick=(RT.launches - before) / ticks,
+            top=json.dumps([[e.key[:48], e.self_device_time_total / ticks,
+                             e.count / ticks] for e in top]))
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -187,9 +357,11 @@ def main() -> int:
 
     from repro_torch.cluster import state as cstate
     from repro_torch.cluster import workloads as W
+    from repro_torch.cluster import experiment as texp
     from repro_torch.cluster.experiment import (
         _arrival_trace,
         compare_schedulers,
+        replay_plan_batched,
         run_experiment,
         train_default_predictor,
     )
@@ -198,6 +370,7 @@ def main() -> int:
     from repro_torch.cluster.workloads import Pod
     from repro_torch.core import ICOScheduler, InterferenceQuantifier
     from repro_torch.kernels import build
+    from repro_torch.kernels import rollout_tick as RT
     from repro_torch.kernels import runqlat_hist as K
     from repro_torch.obs import PhaseTimers
 
@@ -209,9 +382,9 @@ def main() -> int:
 
     # 1. build ------------------------------------------------------------
     with timers.phase("build"):
-        build.build(["runqlat_hist"])
-    done("build", ptxas=json.dumps(build.build_logs.get("runqlat_hist", "")
-                                   .strip().splitlines()[-2:]))
+        build.build(["runqlat_hist", "rollout_tick"])
+    done("build", ptxas=json.dumps({
+        k: v.strip().splitlines()[-2:] for k, v in build.build_logs.items()}))
 
     # 2. kernel against its plain version ---------------------------------
     with timers.phase("kernel"):
@@ -223,15 +396,13 @@ def main() -> int:
         c = loaded_cluster(Cluster, make_fleet, Pod, W, 1000, card)
         noise = cstate.draw_noise(torch.Generator(device=card).manual_seed(3),
                                   c.n, cstate.CHUNK)
-
-        def to(dev, obj):
-            return type(obj)(**{k: v.to(dev) for k, v in vars(obj).items()})
-
         gst, gout = cstate._window_core(c.state, c.profiles, c.fleet_params,
                                         0.0, noise)
         cst, cout = cstate._window_core(
-            to(cpu, c.state), {k: v.cpu() for k, v in c.profiles.items()},
-            to(cpu, c.fleet_params), 0.0, [to(cpu, n) for n in noise])
+            to_device(cpu, c.state),
+            {k: v.cpu() for k, v in c.profiles.items()},
+            to_device(cpu, c.fleet_params), 0.0,
+            [to_device(cpu, n) for n in noise])
         for k, v in vars(gst).items():
             if not torch.equal(v.cpu(), getattr(cst, k)):
                 raise AssertionError(f"tick state {k}: card != cpu")
@@ -267,9 +438,11 @@ def main() -> int:
         phase_profile(torch, c, sched, pods[:20])
     done("profile")
     torch.cuda.reset_peak_memory_stats()
+    plan1000: dict = {}
     K.launches = 0
     with timers.phase("ico_1000"):
-        res = run_experiment(sched, pods, gaps, fleet=fleet, seed=7)
+        res = run_experiment(sched, pods, gaps, fleet=fleet, seed=7,
+                             plan_out=plan1000)
         torch.cuda.synchronize()
     launches = K.launches
     wall = timers.totals["ico_1000"]
@@ -309,13 +482,14 @@ def main() -> int:
         rf_cpu = copy.copy(rf)
         rf_cpu.device = cpu
         rf_cpu.forest = {k: v.cpu() for k, v in rf.forest.items()}
+        plan12: dict = {}
         on_card = run_experiment(
             ICOScheduler(InterferenceQuantifier(rf.predict)), pods12, gaps12,
-            seed=7, noise=stream)
+            seed=7, noise=stream, plan_out=plan12)
         on_cpu = run_experiment(
             ICOScheduler(InterferenceQuantifier(rf_cpu.predict)), pods12,
             gaps12, seed=7, device=cpu,
-            noise=[[to(cpu, n) for n in ch] for ch in stream])
+            noise=[[to_device(cpu, n) for n in ch] for ch in stream])
         a, b = dataclasses.asdict(on_card), dataclasses.asdict(on_cpu)
         if (a["placed"], a["rejected"]) != (b["placed"], b["rejected"]):
             raise AssertionError(f"card {a} != cpu {b}")
@@ -324,6 +498,77 @@ def main() -> int:
                 raise AssertionError(f"{f}: card {a[f]} != cpu {b[f]}")
     done("card_vs_cpu", placed=a["placed"], rejected=a["rejected"],
          avg_rt_card=a["avg_rt"], avg_rt_cpu=b["avg_rt"])
+
+    # 7. the batched engine: fused against default, card against CPU -------
+    with timers.phase("engine_parity"):
+        parity = phase_engine_parity(torch, cstate, texp, plan12, card)
+    done("engine_parity", **parity)
+
+    # 8. the replay path at full width: 20 seeds x 1,000 nodes -------------
+    grab: dict = {"calls": 0}
+    real_fused_tick = RT.fused_tick
+
+    def keep_one_tick(*args, **kw):
+        grab["calls"] += 1
+        if grab["calls"] == 5000:   # a batched tick well into the trace
+            grab["args"] = [a.clone() for a in args]
+        return real_fused_tick(*args, **kw)
+
+    sim_seeds, window_ticks = tuple(range(20)), 40
+    torch.cuda.reset_peak_memory_stats()
+    RT.fused_tick = keep_one_tick
+    try:
+        K.launches = 0
+        RT.launches = 0
+        with timers.phase("replay_1000"):
+            rep = replay_plan_batched(plan1000, sim_seeds=sim_seeds,
+                                      window_ticks=window_ticks,
+                                      use_fused=True)
+            torch.cuda.synchronize()
+        fused_launches, hist_launches = RT.launches, K.launches
+    finally:
+        RT.fused_tick = real_fused_tick
+    rwall = timers.totals["replay_1000"]
+    bticks = rep["padded_windows"] * window_ticks
+    p99 = np.array([e["p99_rt"] for e in rep["seeds"]])
+    by_seed = {e["sim_seed"]: e for e in rep["seeds"]}
+    done("replay_1000", seeds=len(sim_seeds), nodes=fleet.num_nodes,
+         t_end=plan1000["t_end"], num_windows=rep["num_windows"],
+         padded_windows=rep["padded_windows"], batched_ticks=bticks,
+         replay_wall_s=rep["wall_s"], batched_ticks_per_s=bticks / rwall,
+         node_ticks_per_s=len(sim_seeds) * bticks * fleet.num_nodes / rwall,
+         max_memory_allocated=torch.cuda.max_memory_allocated(),
+         rollout_tick_launches=fused_launches,
+         runqlat_hist_launches=hist_launches,
+         p99_mean=float(p99.mean()), p99_std=float(p99.std()),
+         seed7=json.dumps({k: by_seed[7][k]
+                           for k in ("avg_rt", "p90_rt", "p99_rt")}),
+         hot_windows=json.dumps([e["hot_windows"] for e in rep["seeds"]]))
+
+    # 9. rollout_tick against its plain version on a replay tick -----------
+    with timers.phase("fused_kernel"):
+        fnums = phase_fused_kernel(torch, RT, grab["args"], card)
+    done("fused_kernel", **fnums)
+    if fused_launches != bticks:
+        raise AssertionError(
+            f"{fused_launches} rollout_tick launches for {bticks} ticks")
+    if hist_launches != 0:
+        raise AssertionError(f"{hist_launches} runqlat_hist launches in the "
+                             "fused replay")
+    for f in ("avg_rt", "p90_rt", "p99_rt"):
+        if not np.isclose(by_seed[7][f], getattr(res, f), rtol=1e-3):
+            raise AssertionError(
+                f"replay seed 7 {f} {by_seed[7][f]} != ico_1000 "
+                f"{getattr(res, f)}")
+    if not np.isfinite(p99).all():
+        raise AssertionError(f"bad replay p99 {p99}")
+
+    # 10. where the batched tick's time goes -------------------------------
+    with timers.phase("replay_profile"):
+        prof = phase_replay_profile(torch, cstate, texp, RT, plan1000, card)
+    for name, nums in prof.items():
+        say("replay_profile", path=name, **nums)
+    done("replay_profile")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -337,7 +582,14 @@ def main() -> int:
         "launches": launches, "max_abs_err": knums["max_abs_err"],
         "ms": knums["ms"], "plain_ms": knums["plain_ms"],
         "bound_ms": knums["bound_ms"], "bound_by": "bytes",
-        "library_ms": knums["library_ms"]}]}))
+        "library_ms": knums["library_ms"]}, {
+        "name": "rollout_tick", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rollout_tick.cu",
+        "replaces": "src/repro/kernels/rollout_tick.py:85",
+        "launches": fused_launches, "max_abs_err": fnums["max_abs_err"],
+        "ms": fnums["ms"], "plain_ms": fnums["plain_ms"],
+        "bound_ms": fnums["bound_ms"], "bound_by": "bytes",
+        "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -6,6 +6,10 @@ identical pod-arrival traces under ICO / RR / HUP / LQP and reports online
 avg/p90/p99 response time plus cross-node CPU/MEM utilization spread.
 Rejected pods wait in a bounded retry queue, per Algorithm 1.
 
+``run_experiment(plan_out=...)`` records a run's placement plan, and
+``replay_plan_batched`` re-evaluates that plan under many simulation seeds
+in one batched rollout (common-random-placements replay).
+
 The simulation runs on the cluster's device; response-time samples stay
 there until the end of the run, when the statistics are taken on the host
 with numpy exactly as the JAX driver takes them.
@@ -13,11 +17,13 @@ with numpy exactly as the JAX driver takes them.
 from __future__ import annotations
 
 import dataclasses
+import time
 from collections import deque
 
 import numpy as np
 import torch
 
+from repro_torch.cluster import state as cstate
 from repro_torch.cluster import workloads as W
 from repro_torch.cluster.dataset import _random_pod, generate_latency_dataset
 from repro_torch.cluster.simulator import Cluster
@@ -138,6 +144,7 @@ def run_experiment(
     recorder=None,
     device=None,
     noise=None,
+    plan_out: dict | None = None,
 ) -> ExperimentResult:
     """Replay one arrival trace under a scheduler.
 
@@ -148,12 +155,16 @@ def run_experiment(
     device: where the simulation runs (``None`` -> the CUDA card).
     noise: optional per-chunk tick-noise stream for the cluster (see
         ``Cluster``); ``None`` draws from the cluster's generator.
+    plan_out: optional dict, filled on exit with the run's replayable plan
+        (the cluster's mutation log and the trace geometry) for
+        ``replay_plan_batched``.
     """
     if recorder is not None:
         raise NotImplementedError(
             "run_experiment: the trace recorder is not ported yet")
     cluster = Cluster(num_nodes=num_nodes, seed=seed, fleet=fleet,
                       device=device, noise=noise)
+    num_nodes = cluster.n  # a fleet overrides the scalar argument
     cluster.rollout(30)
     rt_all: list[torch.Tensor] = []
     cpu_series, mem_series = [], []
@@ -206,6 +217,15 @@ def run_experiment(
         rt = np.full(1, np.nan)  # no online pod ever ran
     cpu = torch.stack(cpu_series).cpu().numpy()  # (T, N)
     mem = torch.stack(mem_series).cpu().numpy()
+    if plan_out is not None:
+        plan_out.update(
+            log=list(cluster.log),
+            t_end=float(cluster.t),
+            num_nodes=num_nodes,
+            seed=seed,
+            settle_ticks=settle_ticks,
+            fleet=fleet,
+        )
     return ExperimentResult(
         scheduler=scheduler.name,
         avg_rt=float(rt.mean()),
@@ -217,6 +237,149 @@ def run_experiment(
         rejected=rejected,
         queued_retries=queued_retries,
     )
+
+
+def replay_inputs(plan: dict, window_ticks: int = 40, bucket: bool = True,
+                  *, device=None) -> dict:
+    """What a replay of ``plan`` (a ``run_experiment`` ``plan_out``) runs
+    on: the empty initial state and fleet parameters on ``device``, the
+    workload profiles, the ``extract_plan`` events in windows of
+    ``window_ticks``, and the geometry (``t_end``, ``num_windows``,
+    ``padded_windows``, ``cpw`` chunks per window, ``span`` ticks per
+    window).  A plan recorded from a fleet run carries its ``Fleet``, from
+    which the same per-node capacities and delay curves are rebuilt."""
+    device = resolve_device(device)
+    t_end = int(round(plan["t_end"]))
+    num_nodes = plan["num_nodes"]
+    fleet = plan.get("fleet")
+    cpw = max(1, window_ticks // cstate.CHUNK)
+    num_windows = -(-(t_end // cstate.CHUNK) // cpw)
+    events = cstate.extract_plan(plan["log"], 0.0, num_windows, cpw,
+                                 bucket=bucket)
+    if fleet is not None:
+        state0 = cstate.ClusterState.create(
+            num_nodes, fleet.cores(), fleet.mem_gb(), device=device)
+        fleet_params = fleet.params(device=device)
+    else:
+        state0 = cstate.ClusterState.create(num_nodes, device=device)
+        fleet_params = None  # batched_rollout defaults to uniform params
+    return {
+        "state": state0, "fleet": fleet_params, "events": events,
+        "profiles": {k: torch.as_tensor(v, device=device)
+                     for k, v in W.online_arrays().items()},
+        "num_nodes": num_nodes, "t_end": t_end, "num_windows": num_windows,
+        "padded_windows": events["op"].shape[0], "cpw": cpw,
+        "span": cpw * cstate.CHUNK,
+        "settle_ticks": plan.get("settle_ticks", 40),
+    }
+
+
+def replay_plan_batched(
+    plan: dict,
+    sim_seeds=tuple(range(20)),
+    window_ticks: int = 40,
+    bucket: bool = True,
+    devices: int = None,
+    use_fused: bool = False,
+    *,
+    device=None,
+    noise=None,
+) -> dict:
+    """Re-evaluate one run's placement/action plan under many sim seeds.
+
+    ``plan`` is the ``plan_out`` dict of a ``run_experiment`` call.  The
+    plan is replayed verbatim -- identical placements, migrations,
+    evictions and resizes at identical times -- against ``len(sim_seeds)``
+    independent telemetry streams in ONE ``state.batched_rollout`` call.
+    Seed ``s`` draws what ``Cluster(seed=s)`` draws (``state.SeedNoise``),
+    so the entry under the reference run's seed reproduces that run.
+
+    ``bucket=True`` pads the plan to its power-of-two size class; the
+    padded windows lie past ``t_end`` and are masked out below.
+    ``devices`` is JAX's shard request (single-device result, see
+    ``batched_rollout``); ``use_fused`` is JAX's ``use_pallas``: run the
+    fused ``rollout_tick`` kernel tick.  ``device`` is where the replay
+    runs (``None`` -> the CUDA card); ``noise`` optionally replaces the
+    per-seed streams (one per seed, as ``batched_rollout`` takes them).
+
+    Returns ``{"seeds": [...], "wall_s": float, "num_windows": int,
+    "padded_windows": int}``; each per-seed entry carries avg/p90/p99 RT,
+    arrival-phase cross-node cpu/mem util std (window-level) and the
+    folded detector's hot-window count.  Warmup ticks (< 30) and padding
+    past ``t_end`` are left out of the RT pool.  The RT series stays on the
+    device: only each seed's positive samples in the valid ticks are
+    copied to the host.  ``wall_s`` covers the rollout and that copy.
+    """
+    inp = replay_inputs(plan, window_ticks, bucket, device=device)
+    dev = inp["state"].device
+    num_nodes, span, t_end = inp["num_nodes"], inp["span"], inp["t_end"]
+    padded_windows = inp["padded_windows"]
+    streams = (list(noise) if noise is not None
+               else [cstate.SeedNoise(s, num_nodes, dev) for s in sim_seeds])
+
+    t0 = time.time()
+    _, outs = cstate.batched_rollout(
+        inp["state"], inp["profiles"], 0.0, streams, inp["events"],
+        fleet=inp["fleet"], devices=devices, use_fused=use_fused)
+    tick_idx = (np.arange(padded_windows)[:, None] * span
+                + np.arange(span)[None, :])          # (W, span) global tick
+    valid = (tick_idx >= 30) & (tick_idx < t_end)    # skip warmup + padding
+    valid_t = torch.as_tensor(valid, device=dev)
+    pools = []
+    for i in range(len(streams)):
+        r = outs["rt"][i][valid_t]                   # (ticks, N, S_ON)
+        pools.append(r[r > 0].cpu().numpy())
+    wall_s = time.time() - t0
+
+    cpu = outs["cpu_util"].cpu().numpy()             # (B, W, N)
+    mem = outs["mem_util"].cpu().numpy()
+    hot = outs["hot"].cpu().numpy()
+    w_start = np.arange(padded_windows) * span
+    util_wins = ((w_start >= 30)
+                 & (w_start + span <= t_end - inp["settle_ticks"]))
+    if not util_wins.any():
+        util_wins = np.ones(padded_windows, bool)    # degenerate short trace
+
+    seeds_out = []
+    for i, (s, samples) in enumerate(zip(sim_seeds, pools)):
+        if samples.size == 0:
+            samples = np.full(1, np.nan)
+        seeds_out.append({
+            "sim_seed": int(s),
+            "avg_rt": float(samples.mean()),
+            "p90_rt": float(np.percentile(samples, 90)),
+            "p99_rt": float(np.percentile(samples, 99)),
+            "cpu_util_std": float((100 * cpu[i][util_wins]).std(axis=1).mean()),
+            "mem_util_std": float((100 * mem[i][util_wins]).std(axis=1).mean()),
+            # padded windows simulate past t_end and could trip the
+            # detector; only the real prefix counts
+            "hot_windows": int(hot[i][:inp["num_windows"]].any(-1).sum()),
+        })
+    return {"seeds": seeds_out, "wall_s": wall_s,
+            "num_windows": inp["num_windows"],
+            "padded_windows": padded_windows}
+
+
+def run_experiment_batched(
+    scheduler,
+    pods: list[Pod],
+    gaps: list[int],
+    num_nodes: int = 12,
+    seed: int = 7,
+    sim_seeds=tuple(range(20)),
+    window_ticks: int = 40,
+    **run_kwargs,
+) -> tuple[ExperimentResult, dict]:
+    """One reference ``run_experiment`` and a batched replay of its plan
+    across ``sim_seeds`` on the same device.  Returns (reference_result,
+    ``replay_plan_batched`` output)."""
+    plan: dict = {}
+    ref = run_experiment(scheduler, pods, gaps, num_nodes=num_nodes,
+                         seed=seed, plan_out=plan, **run_kwargs)
+    batch = replay_plan_batched(plan, sim_seeds=sim_seeds,
+                                window_ticks=window_ticks,
+                                device=run_kwargs.get("device"))
+    return ref, batch
 
 
 def compare_schedulers(

@@ -7,9 +7,9 @@ mutation to the pure transforms of ``repro_torch.cluster.state``, and
 advances time through ``state.rollout_chunks``.
 
 Tick randomness comes from a per-chunk noise stream: by default
-``state.chunk_noise_stream`` over a ``torch.Generator`` on the cluster's
-device seeded with ``seed``; a caller may pass its own stream (``noise=``),
-which is how the tests replay JAX's draws.
+``state.SeedNoise``, a ``torch.Generator`` on the cluster's device seeded
+with ``seed``; a caller may pass its own stream (``noise=``), which is how
+the tests replay JAX's draws.
 """
 from __future__ import annotations
 
@@ -72,11 +72,8 @@ class Cluster:
         self.n = num_nodes
         self.fleet = fleet
         self.rng = np.random.default_rng(seed)
-        self.generator = torch.Generator(device=self.device)
-        self.generator.manual_seed(seed)
         self.noise = (iter(noise) if noise is not None
-                      else cstate.chunk_noise_stream(self.generator,
-                                                     num_nodes))
+                      else cstate.SeedNoise(seed, num_nodes, self.device))
         self.t = 0.0
         self.profiles = {k: torch.as_tensor(v, device=self.device)
                          for k, v in W.online_arrays().items()}

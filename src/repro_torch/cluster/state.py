@@ -13,13 +13,22 @@ Port of ``repro.cluster.state`` (the main-path part):
   telemetry.  ``_window_core`` runs one tick per noise bundle and reduces
   them; ``rollout_chunks`` runs whole ``CHUNK``-tick chunks;
   ``merge_summaries`` is the host merge of the JAX package.
+* Event replay -- ``extract_plan`` buckets the shell's mutation log into
+  padded per-chunk event arrays (the JAX package's numpy arrays) and
+  ``apply_events`` replays one chunk's events through the pure transforms.
+* The batched replay engine -- ``scan_windows`` runs a whole plan window
+  by window with the detector's node track and the forecaster's moments
+  folded in; ``batched_rollout`` runs it under many seeds at once by
+  folding the seed axis into the node axis (B seeds x N nodes = B*N rows).
+  ``use_fused`` swaps the tick for ``_tick_fused``, whose delay curve,
+  Erlang(2) draw and node histogram are one ``rollout_tick`` kernel launch.
 
 Randomness has one seam, the ``TickNoise`` bundle: every draw ``_tick``
 makes, as standard normals and uniforms in [tiny, 1).  By default the
 bundles come from a ``torch.Generator`` on the device
-(``draw_noise`` / ``chunk_noise_stream``); tests inject bundles that JAX
-drew from the same key, which makes the two packages compute on the same
-inputs.
+(``draw_noise``, ``SeedNoise`` per simulation seed);
+tests inject bundles that JAX drew from the same key, which makes the two
+packages compute on the same inputs.
 
 Inside a window the per-tick histograms and means are accumulated in place
 rather than stacked: stacking 10 ticks of (N, 14, 200) would hold 112 MB at
@@ -34,7 +43,14 @@ import math
 import numpy as np
 import torch
 
+from repro_torch.control.detector import DetectorConfig, node_track_step
+from repro_torch.control.forecast import (
+    NUM_FEATURES,
+    ForecastConfig,
+    _forecast_update,
+)
 from repro_torch.core import metric
+from repro_torch.kernels import rollout_tick
 
 S_ON = 8    # online slots per node
 S_OFF = 6   # offline slots per node
@@ -313,17 +329,23 @@ _NUM_NORMALS = sum(c for _, c in _NORMAL_COLS)
 _NUM_UNIFORMS = (S_ON + S_OFF) * SAMPLES_PER_TICK * 2
 
 
-def draw_noise(generator: torch.Generator, num_nodes: int,
-               num_ticks: int) -> list[TickNoise]:
-    """``num_ticks`` bundles from two bulk draws on the generator's device."""
+def _draw_raw(generator: torch.Generator, num_nodes: int, num_ticks: int):
+    """The two bulk draws behind ``num_ticks`` bundles: (T, N, normals)
+    and (T, N, uniforms), on the generator's device."""
     device = generator.device
     z = torch.randn((num_ticks, num_nodes, _NUM_NORMALS),
                     generator=generator, device=device)
     u = torch.rand((num_ticks, num_nodes, _NUM_UNIFORMS),
                    generator=generator, device=device).clamp_min_(_TINY)
+    return z, u
+
+
+def _bundles(z: torch.Tensor, u: torch.Tensor) -> list[TickNoise]:
+    """Split bulk draws into one ``TickNoise`` of views per tick."""
+    num_nodes = z.shape[1]
     split = S_ON * SAMPLES_PER_TICK * 2
     out = []
-    for i in range(num_ticks):
+    for i in range(z.shape[0]):
         cols, c0 = {}, 0
         for name, width in _NORMAL_COLS:
             cols[name] = z[i, :, c0:c0 + width]
@@ -337,15 +359,59 @@ def draw_noise(generator: torch.Generator, num_nodes: int,
     return out
 
 
-def chunk_noise_stream(generator: torch.Generator, num_nodes: int):
-    """Endless per-chunk noise: each item is ``CHUNK`` tick bundles.
+def draw_noise(generator: torch.Generator, num_nodes: int,
+               num_ticks: int) -> list[TickNoise]:
+    """``num_ticks`` bundles from two bulk draws on the generator's device."""
+    return _bundles(*_draw_raw(generator, num_nodes, num_ticks))
 
-    The counterpart of JAX ``chunk_key_stream``: the stream is consumed
-    chunk by chunk, so every rollout path that runs the same chunks draws
-    the same numbers.
+
+class SeedNoise:
+    """One simulation seed's endless per-chunk noise stream: each item is
+    ``CHUNK`` tick bundles.
+
+    A ``torch.Generator`` on ``device`` seeded with ``seed`` and one
+    ``draw_noise(generator, num_nodes, CHUNK)`` per chunk.  The counterpart
+    of JAX ``chunk_key_stream``: ``Cluster(seed=seed)`` draws from it, and
+    so does a replay under that seed, which therefore reproduces the run.
+    ``draw`` hands out a chunk's raw draws, which lets ``batched_noise``
+    concatenate many seeds once per chunk.
     """
+
+    def __init__(self, seed: int, num_nodes: int, device):
+        self.generator = torch.Generator(device=device)
+        self.generator.manual_seed(int(seed))
+        self.num_nodes = num_nodes
+
+    def draw(self):
+        return _draw_raw(self.generator, self.num_nodes, CHUNK)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self) -> list[TickNoise]:
+        return _bundles(*self.draw())
+
+
+def batched_noise(streams):
+    """Merge B per-seed chunk streams into one over B*N rows: row
+    ``n + b*N`` of every bundle is node ``n`` of seed ``b``.
+
+    ``SeedNoise`` streams are concatenated as raw draws, two
+    concatenations per chunk; any other streams (for example JAX's draws
+    injected by the tests) field by field.
+    """
+    if all(isinstance(s, SeedNoise) for s in streams):
+        while True:
+            raw = [s.draw() for s in streams]
+            yield _bundles(torch.cat([z for z, _ in raw], dim=1),
+                           torch.cat([u for _, u in raw], dim=1))
+    its = [iter(s) for s in streams]
+    names = [f.name for f in dataclasses.fields(TickNoise)]
     while True:
-        yield draw_noise(generator, num_nodes, CHUNK)
+        chunks = [next(it) for it in its]
+        yield [TickNoise(**{k: torch.cat([getattr(c[i], k) for c in chunks])
+                            for k in names})
+               for i in range(len(chunks[0]))]
 
 
 # --------------------------------------------------------------------------
@@ -554,3 +620,424 @@ def merge_summaries(parts: list[dict]):
         else:
             merged[k] = sum(vals[1:], vals[0]) / len(vals)
     return merged
+
+
+# --------------------------------------------------------------------------
+# event replay: op-coded mutations applied between chunks
+# --------------------------------------------------------------------------
+
+EV_PLACE_ON, EV_PLACE_OFF, EV_EVICT_ON, EV_EVICT_OFF, EV_MIGRATE_ON, \
+    EV_MIGRATE_OFF, EV_RESIZE_ON, EV_RESIZE_OFF, EV_NOOP = range(9)
+
+_OP_CODES = {
+    "place_on": EV_PLACE_ON,
+    "place_off": EV_PLACE_OFF,
+    "evict_on": EV_EVICT_ON,
+    "evict_off": EV_EVICT_OFF,
+    "migrate_on": EV_MIGRATE_ON,
+    "migrate_off": EV_MIGRATE_OFF,
+    "resize_on": EV_RESIZE_ON,
+    "resize_off": EV_RESIZE_OFF,
+}
+
+
+def _apply_event(state: ClusterState, op: int, n, s: int, d, ds: int,
+                 f: np.ndarray) -> ClusterState:
+    if op == EV_PLACE_ON:
+        return place_online(state, n, s, int(f[0]), float(f[1]), float(f[2]))
+    if op == EV_PLACE_OFF:
+        return place_offline(state, n, s, float(f[0]), float(f[1]),
+                             float(f[2]), float(f[3]), int(f[4]))
+    if op == EV_EVICT_ON:
+        return evict_online(state, n, s)
+    if op == EV_EVICT_OFF:
+        return evict_offline(state, n, s)
+    if op == EV_MIGRATE_ON:
+        return migrate_online(state, n, s, d, ds)
+    if op == EV_MIGRATE_OFF:
+        return migrate_offline(state, n, s, d, ds)
+    if op == EV_RESIZE_ON:
+        return resize_online(state, n, s, float(f[0]))
+    if op == EV_RESIZE_OFF:
+        return resize_offline(state, n, s, float(f[0]), float(f[1]),
+                              float(f[2]), int(f[4]))
+    raise ValueError(f"unknown event op code {op}")
+
+
+def apply_events(state: ClusterState, events: dict,
+                 batch: int = 1) -> ClusterState:
+    """Apply one chunk's padded event list (numpy leaves shaped (E, ...))
+    in order, skipping ``EV_NOOP`` padding.
+
+    The plan is host data shared by every seed, so the events are walked on
+    the host and applied through the pure transforms.  With ``batch`` B the
+    state holds B seeds of N = R / B node rows each, and an event on node
+    ``n`` applies to rows ``n + b*N`` for every seed ``b``.
+    """
+    ops = events["op"]
+    live = np.flatnonzero(ops != EV_NOOP)
+    if live.size == 0:
+        return state
+    offsets = None
+    if batch > 1:
+        offsets = torch.arange(batch, device=state.device) * (
+            state.num_nodes // batch)
+
+    def rows(node):
+        return int(node) if offsets is None else offsets + int(node)
+
+    for e in live:
+        state = _apply_event(state, int(ops[e]), rows(events["node"][e]),
+                             int(events["slot"][e]), rows(events["dst"][e]),
+                             int(events["dslot"][e]), events["f"][e])
+    return state
+
+
+def _next_pow2(n: int) -> int:
+    return 1 if n <= 1 else 1 << (int(n) - 1).bit_length()
+
+
+def extract_plan(log, t0: float, num_windows: int,
+                 chunks_per_window: int, bucket: bool = False) -> dict:
+    """Bucket a ``Cluster`` mutation log into padded per-chunk event arrays.
+
+    ``log`` entries are the shell's host tuples ``(op, t, node, slot,
+    *params)`` (``(op, t, src, ss, dst, ds)`` for migrations).  An event
+    logged at time ``t`` applies before the chunk covering ``t``.  Returns
+    numpy ``{"op", "node", "slot", "dst", "dslot", "f"}`` with leading
+    shape (num_windows, chunks_per_window, E_max), the JAX package's
+    arrays.  ``bucket=True`` rounds E_max and the window count up to powers
+    of two, padding with NOOP events and event-free windows; the padded
+    windows lie past the plan's span, so the real prefix is unchanged.
+    """
+    buckets: list[list] = [[] for _ in range(num_windows * chunks_per_window)]
+    for entry in log:
+        c = int((entry[1] - t0) // CHUNK)
+        if c < 0 or c >= len(buckets):
+            raise ValueError(
+                f"log entry at t={entry[1]} outside the planned span "
+                f"[{t0}, {t0 + len(buckets) * CHUNK})")
+        buckets[c].append(entry)
+    emax = max(1, max((len(b) for b in buckets), default=1))
+    if bucket:
+        emax = _next_pow2(emax)
+        num_windows = _next_pow2(num_windows)
+    shape = (num_windows, chunks_per_window, emax)
+    plan = {
+        "op": np.full(shape, EV_NOOP, np.int32),
+        "node": np.zeros(shape, np.int32),
+        "slot": np.zeros(shape, np.int32),
+        "dst": np.zeros(shape, np.int32),
+        "dslot": np.zeros(shape, np.int32),
+        "f": np.zeros(shape + (5,), np.float32),
+    }
+    for c, evs in enumerate(buckets):
+        w, cw = divmod(c, chunks_per_window)
+        for e, entry in enumerate(evs):
+            kind = entry[0]
+            plan["op"][w, cw, e] = _OP_CODES[kind]
+            plan["node"][w, cw, e] = entry[2]
+            plan["slot"][w, cw, e] = entry[3]
+            if kind in ("migrate_on", "migrate_off"):
+                plan["dst"][w, cw, e] = entry[4]
+                plan["dslot"][w, cw, e] = entry[5]
+            else:
+                vals = entry[4:]
+                plan["f"][w, cw, e, :len(vals)] = vals
+    return plan
+
+
+# --------------------------------------------------------------------------
+# the fused-kernel tick (lite outputs only)
+# --------------------------------------------------------------------------
+
+
+def _tick_fused(st: ClusterState, profiles, fleet: FleetParams, t,
+                noise: TickNoise):
+    """``_tick`` with the delay curve, the Erlang(2) draw and the node
+    histogram in one ``rollout_tick`` kernel launch (JAX ``_tick_pallas``).
+
+    It reads the same ``TickNoise`` bundle as ``_tick``, so the two paths
+    compute on the same draws, and packs the kernel's inputs as the JAX
+    tick does.  Only the lite outputs the window scan reads are produced:
+    RT, QPS, CPU and memory utilization, node histogram.
+    """
+    on_active = st.on_active
+    on_type = st.on_type
+    qps_t = st.on_qps_mean * _season(t, st.on_phase) * (1.0 + 0.06 * noise.qps)
+    qps_t = torch.where(on_active, torch.clamp_min(qps_t, 0.0), 0.0)
+
+    cpu_on = torch.where(
+        on_active,
+        profiles["cpu_per_qps"][on_type] * qps_t + profiles["cpu_base"][on_type],
+        0.0)
+    thr_on = torch.where(on_active,
+                         profiles["threads_per_qps"][on_type] * qps_t, 0.0)
+    mem_on = torch.where(
+        on_active,
+        profiles["mem_per_qps"][on_type] * qps_t + profiles["mem_base"][on_type],
+        0.0)
+
+    off_active = st.off_active
+    cpu_off = torch.where(off_active, st.off_cores, 0.0)
+    thr_off = torch.where(off_active, st.off_threads, 0.0)
+    mem_off = torch.where(off_active, st.off_mem, 0.0)
+    burst_off = torch.where(off_active, st.off_burst, 0.0)
+
+    cores = st.cpu_sum
+    cpu_on_sum = cpu_on.sum(-1)
+    total_cpu = cpu_on_sum + cpu_off.sum(-1) + OS_BASE_CORES
+    pressure_cpu = cpu_on_sum + (cpu_off * burst_off).sum(-1) + OS_BASE_CORES
+    rho_p = pressure_cpu / cores
+    threads_total = thr_on.sum(-1) + thr_off.sum(-1) + 2.0
+
+    rows = cores.shape[0]
+    nodev = torch.stack(
+        [rho_p, threads_total, cores, fleet.delay_base, fleet.delay_scale,
+         fleet.rho_knee, fleet.oversub_slope, noise.delay], dim=-1)
+    jit_all = 1.0 + 0.18 * torch.cat([noise.jit_on, noise.jit_off], 1)
+    act_all = torch.cat([on_active, off_active], 1).float()
+    u = torch.cat([noise.u_on.reshape(rows, -1, 2),
+                   noise.u_off.reshape(rows, -1, 2)], dim=1)
+    node_hist, _delay, mean_all = rollout_tick.fused_tick(
+        nodev, jit_all, act_all, u[..., 0].contiguous(),
+        u[..., 1].contiguous(), gamma_shape=GAMMA_SHAPE,
+        clip_max=2.5 * metric.OVERFLOW_EDGE)
+    mean_on = mean_all[:, :S_ON]
+
+    cpu_util = torch.minimum(total_cpu, cores) / cores
+    mem_used = mem_on.sum(-1) + mem_off.sum(-1) + 2.0
+    mem_util = torch.minimum(mem_used, st.mem_sum) / st.mem_sum
+
+    base_rt = profiles["base_rt"][on_type]
+    sat = torch.clamp_min(qps_t / profiles["qps_cap"][on_type] - 0.8, 0.0)
+    mem_press = torch.clamp_max(mem_used / st.mem_sum, 1.2)
+    cache_term = 0.06 * base_rt * mem_press[:, None]
+    rt = base_rt * (1.0 + 1.5 * sat) \
+        + profiles["rt_per_runqlat"][on_type] * mean_on \
+        + cache_term \
+        + 0.06 * base_rt * noise.rt
+    rt = torch.where(on_active, torch.clamp_min(rt, 0.5), 0.0)
+
+    new_rem = torch.where(off_active, st.off_remaining - 1, st.off_remaining)
+    st = st.replace(off_remaining=new_rem,
+                    off_active=off_active & (new_rem > 0))
+    return st, {"rt": rt, "qps": qps_t, "cpu_util": cpu_util,
+                "mem_util": mem_util, "node_hist": node_hist}
+
+
+_LITE_MEANS = ("qps", "cpu_util", "mem_util")
+
+
+def _window_lite(state: ClusterState, profiles, fleet, t0: float,
+                 noise: list[TickNoise], rt_out: torch.Tensor, *,
+                 use_fused: bool = False):
+    """One chunk of the window scan, reduced to the lite dict it reads.
+
+    ``use_fused`` runs ``_tick_fused`` (JAX ``_window_lite_pallas``);
+    otherwise ``_window_core`` runs the default ``_tick`` and its per-slot
+    histograms are summed per node.  The (T, R, S_ON) RT series is written
+    into ``rt_out`` (a view of the caller's output), not stacked.  Returns
+    (new_state, lite) with the tick means of qps / cpu_util / mem_util and
+    the summed node histogram.  Histogram bins hold small integer counts,
+    so both paths sum to the same bits.
+    """
+    if not use_fused:
+        state, s = _window_core(state, profiles, fleet, t0, noise)
+        rt_out.copy_(s["rt"])
+        return state, {
+            "qps": s["qps"], "cpu_util": s["cpu_util"],
+            "mem_util": s["mem_util"],
+            "node_hist": s["hist_on"].sum(1) + s["hist_off"].sum(1),
+        }
+    num_ticks = len(noise)
+    ts = torch.arange(num_ticks, dtype=torch.float32,
+                      device=state.device) + t0
+    acc: dict[str, torch.Tensor] = {}
+    for i in range(num_ticks):
+        state, out = _tick_fused(state, profiles, fleet, ts[i], noise[i])
+        rt_out[i].copy_(out["rt"])
+        for k in _LITE_MEANS + ("node_hist",):
+            if k in acc:
+                acc[k].add_(out[k])
+            else:  # the tick's own tensor: nothing else reads it
+                acc[k] = out[k]
+    lite = {k: acc[k] / num_ticks for k in _LITE_MEANS}
+    lite["node_hist"] = acc["node_hist"]
+    return state, lite
+
+
+# --------------------------------------------------------------------------
+# the window scan with the detector and forecaster folded in
+# --------------------------------------------------------------------------
+
+
+def fold_configs(det_cfg=None, fc_cfg=None) -> tuple[dict, dict]:
+    """Scalar bundles for the folded detector node track and forecaster
+    moment update (defaults are ``DetectorConfig`` / ``ForecastConfig``)."""
+    d = det_cfg or DetectorConfig()
+    f = fc_cfg or ForecastConfig()
+    det = dict(decay=d.decay, alpha=d.baseline_alpha, slack=d.slack,
+               drift_thr=d.drift_threshold, q=d.quantile,
+               abs_thr=d.abs_threshold, warmup=d.warmup)
+    fc = dict(decay=f.decay, ridge=f.ridge, alpha=f.err_alpha,
+              qps_floor=f.qps_floor)
+    return det, fc
+
+
+def init_fold_state(num_nodes: int, *, device):
+    """Zeroed carry for the folded detector node track and forecaster
+    moments: (det hist, det mu, det cusum, det steps, fc A, fc b, fc err,
+    fc count).  ``steps`` is a host integer shared by every row."""
+    def z(shape, dtype=torch.float32):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    return (z((num_nodes, metric.NUM_BINS)), z((num_nodes,)), z((num_nodes,)),
+            0,
+            z((num_nodes, S_ON, NUM_FEATURES, NUM_FEATURES)),
+            z((num_nodes, S_ON, NUM_FEATURES)), z((num_nodes, S_ON)),
+            z((num_nodes, S_ON), torch.int32))
+
+
+def scan_windows(state: ClusterState, profiles, fleet, t0: float, noise,
+                 events: dict, det: dict, fc: dict, fold0, *,
+                 use_fused: bool = False, batch: int = 1):
+    """One experiment timeline: per window, for each of its chunks apply
+    that chunk's events and roll CHUNK ticks; then fold the window's node
+    histograms into the detector's CUSUM track and its mean QPS into the
+    forecaster's harmonic moments.
+
+    ``noise`` yields one list of CHUNK ``TickNoise`` bundles per chunk
+    (rows as the state's); ``events`` leaves are (W, C, E, ...) numpy.
+    ``use_fused`` (JAX's ``use_pallas``) runs the fused ``rollout_tick``
+    kernel tick instead of the default ``_tick``.  ``batch`` says how many
+    seeds the R state rows hold (see ``apply_events``).
+
+    Returns (final, outs): ``final`` holds the state, the end time and the
+    fold carry; ``outs`` holds the RT series (W, C*CHUNK, R, S_ON),
+    window-mean qps (W, R, S_ON), cpu/mem util (W, R) and the detector's
+    hotspot flags (W, R).
+    """
+    num_windows, cpw = events["op"].shape[:2]
+    rows, device = state.num_nodes, state.device
+    dh, dmu, dcu, dsteps, A, b, err, cnt = fold0
+    outs = {
+        "rt": torch.empty((num_windows, cpw * CHUNK, rows, S_ON),
+                          dtype=torch.float32, device=device),
+        "qps": torch.empty((num_windows, rows, S_ON), dtype=torch.float32,
+                           device=device),
+        "cpu_util": torch.empty((num_windows, rows), dtype=torch.float32,
+                                device=device),
+        "mem_util": torch.empty((num_windows, rows), dtype=torch.float32,
+                                device=device),
+        "hot": torch.empty((num_windows, rows), dtype=torch.bool,
+                           device=device),
+    }
+    t = float(t0)
+    for w in range(num_windows):
+        acc: dict[str, torch.Tensor] = {}
+        for c in range(cpw):
+            state = apply_events(state, {k: v[w, c] for k, v in events.items()},
+                                 batch)
+            state, lite = _window_lite(
+                state, profiles, fleet, t, next(noise),
+                outs["rt"][w, c * CHUNK:(c + 1) * CHUNK], use_fused=use_fused)
+            t += CHUNK
+            for k in _LITE_MEANS + ("node_hist",):
+                if k in acc:
+                    acc[k].add_(lite[k])
+                else:  # a fresh tensor of this chunk's reduction
+                    acc[k] = lite[k]
+        qps = acc["qps"] / cpw
+        dh, _avg, _pt, dmu, dcu, _trip, _dt, _at, _raw, hot = node_track_step(
+            dh, dmu, dcu, dsteps, acc["node_hist"], det["decay"], det["alpha"],
+            det["slack"], det["drift_thr"], det["q"], det["abs_thr"],
+            det["warmup"])
+        dsteps += 1
+        A, b, err, cnt, _pred = _forecast_update(
+            A, b, err, cnt, torch.full((), t, dtype=torch.float32,
+                                       device=device),
+            qps, state.on_active, fc["decay"], fc["ridge"], fc["alpha"],
+            fc["qps_floor"])
+        outs["qps"][w] = qps
+        outs["cpu_util"][w] = acc["cpu_util"] / cpw
+        outs["mem_util"][w] = acc["mem_util"] / cpw
+        outs["hot"][w] = hot
+    final = {"state": state, "t": t, "det_hist": dh, "det_mu": dmu,
+             "det_cusum": dcu, "det_steps": dsteps, "fc_A": A, "fc_b": b,
+             "fc_err": err, "fc_count": cnt}
+    return final, outs
+
+
+def _tile(x: torch.Tensor, batch: int) -> torch.Tensor:
+    return x.repeat(batch, *([1] * (x.dim() - 1)))
+
+
+def batched_rollout(state: ClusterState, profiles, t0, noise, events,
+                    det_cfg=None, fc_cfg=None, fleet: FleetParams = None,
+                    devices: int = None, use_fused: bool = False):
+    """Evaluate one placement/action plan under many simulation seeds.
+
+    The seed axis folds into the node axis: no operation of the window
+    scan crosses node rows, so B seeds of N nodes run as one state of B*N
+    rows (row ``n + b*N`` is node ``n`` of seed ``b``) and every kernel
+    launch covers all of them.
+
+    state: one ``ClusterState`` shared by every seed, or a stacked one
+        with a leading (B,) axis on every field.  Neither is written.
+    noise: B per-seed chunk-noise streams (``SeedNoise``, or any iterable
+        of per-chunk ``TickNoise`` lists), the counterpart of JAX's
+        (B, W, C, 2) keys.
+    events: ``extract_plan`` output, shared across the batch.
+    fleet: per-node delay-curve parameters shared across the batch;
+        ``None`` means ``FleetParams.uniform``.
+    devices: JAX's shard count, kept for its clamp semantics: sharding
+        seeds across cards is not ported, so every value gives the
+        single-device result, which is what JAX returns on one device.
+    use_fused: run the fused ``rollout_tick`` kernel tick (JAX's
+        ``use_pallas``); the default ``_tick`` is the reference.
+
+    Returns (final, outs) with a leading B axis on every per-seed leaf:
+    ``outs`` has the RT series (B, W, C*CHUNK, N, S_ON), window-mean
+    qps (B, W, N, S_ON), cpu/mem util and hotspot flags (B, W, N).  These
+    are views of row-major buffers (the RT buffer is written tick by tick),
+    so they are not contiguous.
+    """
+    del devices  # single-device result for any shard request (see above)
+    batch = len(noise)
+    stacked = state.cpu_sum.dim() == 2
+    num_nodes = state.cpu_sum.shape[-1]
+    device = state.device
+    if stacked:
+        if state.cpu_sum.shape[0] != batch:
+            raise ValueError(
+                f"stacked state has {state.cpu_sum.shape[0]} seeds, noise "
+                f"has {batch}")
+        flat = ClusterState(**{k: v.reshape(batch * num_nodes, *v.shape[2:])
+                               for k, v in vars(state).items()})
+    else:
+        flat = ClusterState(**{k: _tile(v, batch)
+                               for k, v in vars(state).items()})
+    if fleet is None:
+        fleet = FleetParams.uniform(num_nodes, device=device)
+    fleet = FleetParams(**{k: _tile(v, batch) for k, v in vars(fleet).items()})
+    det, fc = fold_configs(det_cfg, fc_cfg)
+    final, outs = scan_windows(
+        flat, profiles, fleet, float(t0), batched_noise(list(noise)), events,
+        det, fc, init_fold_state(batch * num_nodes, device=device),
+        use_fused=use_fused, batch=batch)
+
+    def seeds_first(x: torch.Tensor, lead: int) -> torch.Tensor:
+        # (lead..., B*N, rest...) -> (B, lead..., N, rest...)
+        shape = x.shape[:lead] + (batch, num_nodes) + x.shape[lead + 1:]
+        return x.view(shape).movedim(lead, 0)
+
+    outs = {k: seeds_first(v, 2 if k == "rt" else 1) for k, v in outs.items()}
+    fold = {k: seeds_first(v, 0) for k, v in final.items()
+            if isinstance(v, torch.Tensor)}
+    fold["state"] = ClusterState(**{k: seeds_first(v, 0)
+                                    for k, v in vars(final["state"]).items()})
+    fold["t"] = torch.full((batch,), final["t"], dtype=torch.float32,
+                           device=device)
+    fold["det_steps"] = final["det_steps"]
+    return fold, outs

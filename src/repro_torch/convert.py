@@ -40,6 +40,17 @@ def state_from_numpy(obj, *, device):
     })
 
 
+def fold_from_numpy(fold, *, device) -> tuple:
+    """A JAX ``scan_windows`` fold carry (det hist, mu, cusum, steps,
+    fc A, b, err, count) -> the port's: tensors, with ``steps`` as the
+    host integer the port's window loop counts with."""
+    hist, mu, cusum, steps, A, b, err, count = fold
+    f32 = [_tensor(a, torch.float32, device) for a in (hist, mu, cusum)]
+    return (*f32, int(np.asarray(steps)),
+            *[_tensor(a, torch.float32, device) for a in (A, b, err)],
+            _tensor(count, torch.int32, device))
+
+
 def forest_from_numpy(rf, *, device) -> RandomForestRegressor:
     """A fitted JAX ``RandomForestRegressor`` -> the port's, with the same
     flattened trees."""

@@ -3,4 +3,5 @@
 | kernel | replaces | source |
 | --- | --- | --- |
 | ``runqlat_hist`` | ``repro/kernels/runqlat_hist.py::runqlat_hist_pallas`` | ``csrc/runqlat_hist.cu`` |
+| ``rollout_tick`` | ``repro/kernels/rollout_tick.py::fused_tick`` | ``csrc/rollout_tick.cu`` |
 """

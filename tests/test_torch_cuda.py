@@ -1,4 +1,4 @@
-"""The port's CUDA kernel and device path against their plain versions.
+"""The port's CUDA kernels and device paths against their plain versions.
 
 Only torch and ``repro_torch`` are imported here (no JAX), so this file
 runs on a machine with a card: ``python -m pytest -m cuda
@@ -13,8 +13,9 @@ import torch
 from repro_torch.cluster import state as tstate
 from repro_torch.cluster.fleet import make_fleet
 from repro_torch.cluster.simulator import Cluster
-from repro_torch.cluster.workloads import Pod
+from repro_torch.cluster.workloads import Pod, online_arrays
 from repro_torch.kernels import build
+from repro_torch.kernels import rollout_tick as RT
 from repro_torch.kernels import runqlat_hist as K
 
 
@@ -102,6 +103,103 @@ def test_ticks_on_card_match_cpu_with_the_same_noise(card):
                                        rtol=0, atol=0)
         else:
             torch.testing.assert_close(v.cpu(), cout[k], rtol=1e-5, atol=1e-5)
+
+
+def _packed_tick(rows, seed, device):
+    """``fused_tick`` inputs as ``_tick_fused`` packs them, drawn with a
+    CPU generator: pressures across the knee, ~60% of slots active."""
+    g = torch.Generator().manual_seed(seed)
+
+    def u(*shape, lo=0.0, hi=1.0):
+        return torch.rand(shape, generator=g) * (hi - lo) + lo
+
+    nodev = torch.stack([
+        u(rows, lo=0.05, hi=1.3), u(rows, lo=2.0, hi=60.0),
+        torch.tensor([16.0, 32.0, 96.0])[torch.randint(3, (rows,), generator=g)],
+        u(rows, lo=2.0, hi=4.0), u(rows, lo=40.0, hi=70.0),
+        torch.full((rows,), 0.05), u(rows, lo=0.1, hi=0.2),
+        torch.randn((rows,), generator=g)], dim=-1)
+    jit = 1.0 + 0.18 * torch.randn((rows, 14), generator=g)
+    act = (u(rows, 14) < 0.6).float()
+    tiny = float(np.finfo(np.float32).tiny)
+    u1, u2 = (u(rows, 224).clamp_min_(tiny) for _ in range(2))
+    return [t.contiguous().to(device) for t in (nodev, jit, act, u1, u2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [20000, 37])
+def test_fused_kernel_equals_plain(card, rows):
+    """R = 20,000 is a 20-seed x 1,000-node batched tick; 37 is ragged.
+    Histograms bit for bit; delay and mean within 1e-6 relative."""
+    inp = _packed_tick(rows, rows, card)
+    before = RT.launches
+    hist, delay, mean = RT.fused_tick(*inp)
+    torch.cuda.synchronize()
+    assert RT.launches == before + 1
+    want = RT.fused_tick_plain(*inp)
+    torch.testing.assert_close(hist, want[0], rtol=0, atol=0)
+    torch.testing.assert_close(hist.sum(-1), inp[2].sum(-1) * 16,
+                               rtol=0, atol=0)
+    torch.testing.assert_close(delay, want[1], rtol=1e-6, atol=0)
+    torch.testing.assert_close(mean, want[2], rtol=1e-6, atol=0)
+
+
+@pytest.mark.cuda
+def test_fused_cuda_tensor_never_takes_the_plain_version(card, monkeypatch):
+    def refuse(*a, **k):
+        raise AssertionError("plain version called for a CUDA tensor")
+
+    inp = _packed_tick(9, 0, card)
+    monkeypatch.setattr(RT, "fused_tick_plain", refuse)
+    RT.fused_tick(*inp)
+    with pytest.raises(ValueError):
+        RT.fused_tick(*inp[:4], inp[4].cpu())        # mixed devices
+
+
+_LOG = [("place_on", 0.0, n, s, (n + s) % 4, 150.0 + 40 * s, 0.3 * n)
+        for n in range(12) for s in range(3)] + [
+    ("place_off", 10.0, n, 0, 8.0, 12.8, 20.0, 1.8, 60) for n in range(0, 12, 2)
+] + [("migrate_on", 30.0, 0, 0, 13, 0), ("evict_on", 50.0, 1, 1)]
+
+
+def _replay(device, noise, fused=True):
+    events = tstate.extract_plan(_LOG, 0.0, 3, 2)
+    profiles = {k: torch.as_tensor(v, device=device)
+                for k, v in online_arrays().items()}
+    return tstate.batched_rollout(
+        tstate.ClusterState.create(16, device=device), profiles, 0.0,
+        noise, events, use_fused=fused)
+
+
+@pytest.mark.cuda
+def test_fused_batched_rollout_card_matches_cpu(card):
+    """Three seeds x 16 nodes on the fused path, the same draws on both."""
+    streams = []
+    for s in range(3):
+        gen = torch.Generator(device=card).manual_seed(s)
+        streams.append([tstate.draw_noise(gen, 16, 10) for _ in range(6)])
+    gfinal, gout = _replay(card, streams)
+    cpu = torch.device("cpu")
+    cstreams = [[[tstate.TickNoise(**{k: v.to(cpu) for k, v in vars(n).items()})
+                  for n in chunk] for chunk in st] for st in streams]
+    cfinal, cout = _replay(cpu, cstreams)
+    for k, v in vars(gfinal["state"]).items():
+        torch.testing.assert_close(v.cpu(), getattr(cfinal["state"], k),
+                                   rtol=0, atol=0)
+    torch.testing.assert_close(gout["hot"].cpu(), cout["hot"], rtol=0, atol=0)
+    for k in ("rt", "qps", "cpu_util", "mem_util"):
+        torch.testing.assert_close(gout[k].cpu(), cout[k], rtol=1e-5,
+                                   atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_one_fused_launch_per_batched_tick(card):
+    streams = [tstate.SeedNoise(s, 16, card) for s in range(4)]
+    fused, hist = RT.launches, K.launches
+    _replay(card, streams)
+    torch.cuda.synchronize()
+    assert RT.launches - fused == 3 * 2 * 10      # windows x chunks x ticks
+    assert K.launches == hist
 
 
 def test_build_without_nvcc_raises(tmp_path, monkeypatch):

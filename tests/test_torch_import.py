@@ -25,6 +25,10 @@ def test_every_port_module_imports_without_jax_or_repro():
     mods = _port_modules()
     assert "repro_torch.cluster.experiment" in mods
     assert "repro_torch.kernels.runqlat_hist" in mods
+    for mod in ("repro_torch.kernels.rollout_tick",
+                "repro_torch.control.detector",
+                "repro_torch.control.forecast"):
+        assert mod in mods, mod
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}:\n"
