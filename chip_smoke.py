@@ -26,12 +26,16 @@ Phases, each printed with its numbers and wall time:
    card against the CPU;
 8. the replay path at full width: ``replay_plan_batched`` of the
    1,000-node ICO plan under 20 seeds with the fused tick (20,480 batched
-   ticks of 20,000 node rows), both kernels' counts set to 0 before and
-   read after; one batched tick's kernel inputs are kept;
-9. ``rollout_tick`` against its plain version on those inputs (R = 20,000)
-   and on a ragged R = 37, and its times beside the plain version's; then
-   the replay's checks: one launch per batched tick, no ``runqlat_hist``
-   launch, and the seed-7 entry reproducing phase 4's run;
+   ticks of 20,000 node rows, of which the first 11,390 are the plan's
+   real span and the rest bucket padding), both kernels' counts set to 0
+   before and read after; rates are printed over all ticks and over the
+   real ones;
+9. ``rollout_tick`` against its plain version on the inputs of the
+   replay's 5,000th batched tick (R = 20,000), kept by an untimed rerun of
+   the replay's first windows, and on a ragged R = 37, and its times
+   beside the plain version's; then the replay's checks: one launch per
+   batched tick, no ``runqlat_hist`` launch, and the seed-7 entry
+   reproducing phase 4's run;
 10. a profile of the batched tick at 20 x 1,000 rows, fused and default.
 
 Then it prints the card's name and power limit, one JSON line of kernel
@@ -289,6 +293,33 @@ def phase_fused_kernel(torch, RT, args, card):
                 plain_ms=min(ms["plain"], ms["plain2"]), runs=json.dumps(ms))
 
 
+def capture_replay_tick(torch, cstate, texp, RT, plan, seeds, tick, card):
+    """The ``rollout_tick`` inputs of the replay's ``tick``-th batched tick
+    (counted from 1): the replay's first windows rerun, untimed, with the
+    kernel's wrapper wrapped to keep that call's arguments."""
+    inp = texp.replay_inputs(plan, device=card)
+    windows = -(-tick // inp["span"])
+    grab: dict = {"calls": 0}
+    real_fused_tick = RT.fused_tick
+
+    def keep_one_tick(*args, **kw):
+        grab["calls"] += 1
+        if grab["calls"] == tick:
+            grab["args"] = [a.clone() for a in args]
+        return real_fused_tick(*args, **kw)
+
+    RT.fused_tick = keep_one_tick
+    try:
+        cstate.batched_rollout(
+            inp["state"], inp["profiles"], 0.0,
+            [cstate.SeedNoise(s, inp["num_nodes"], card) for s in seeds],
+            {k: v[:windows] for k, v in inp["events"].items()},
+            fleet=inp["fleet"], use_fused=True)
+    finally:
+        RT.fused_tick = real_fused_tick
+    return grab["args"]
+
+
 def phase_replay_profile(torch, cstate, texp, RT, plan, card, seeds=20,
                          windows=2):
     """The batched tick at 20 seeds x 1,000 nodes, from the plan's final
@@ -505,38 +536,29 @@ def main() -> int:
     done("engine_parity", **parity)
 
     # 8. the replay path at full width: 20 seeds x 1,000 nodes -------------
-    grab: dict = {"calls": 0}
-    real_fused_tick = RT.fused_tick
-
-    def keep_one_tick(*args, **kw):
-        grab["calls"] += 1
-        if grab["calls"] == 5000:   # a batched tick well into the trace
-            grab["args"] = [a.clone() for a in args]
-        return real_fused_tick(*args, **kw)
-
     sim_seeds, window_ticks = tuple(range(20)), 40
     torch.cuda.reset_peak_memory_stats()
-    RT.fused_tick = keep_one_tick
-    try:
-        K.launches = 0
-        RT.launches = 0
-        with timers.phase("replay_1000"):
-            rep = replay_plan_batched(plan1000, sim_seeds=sim_seeds,
-                                      window_ticks=window_ticks,
-                                      use_fused=True)
-            torch.cuda.synchronize()
-        fused_launches, hist_launches = RT.launches, K.launches
-    finally:
-        RT.fused_tick = real_fused_tick
+    K.launches = 0
+    RT.launches = 0
+    with timers.phase("replay_1000"):
+        rep = replay_plan_batched(plan1000, sim_seeds=sim_seeds,
+                                  window_ticks=window_ticks, use_fused=True)
+        torch.cuda.synchronize()
+    fused_launches, hist_launches = RT.launches, K.launches
     rwall = timers.totals["replay_1000"]
     bticks = rep["padded_windows"] * window_ticks
+    real_ticks = int(plan1000["t_end"])   # the plan's span; the rest is padding
     p99 = np.array([e["p99_rt"] for e in rep["seeds"]])
     by_seed = {e["sim_seed"]: e for e in rep["seeds"]}
     done("replay_1000", seeds=len(sim_seeds), nodes=fleet.num_nodes,
          t_end=plan1000["t_end"], num_windows=rep["num_windows"],
          padded_windows=rep["padded_windows"], batched_ticks=bticks,
+         padding_share=1 - real_ticks / bticks,
          replay_wall_s=rep["wall_s"], batched_ticks_per_s=bticks / rwall,
          node_ticks_per_s=len(sim_seeds) * bticks * fleet.num_nodes / rwall,
+         real_batched_ticks_per_s=real_ticks / rwall,
+         real_node_ticks_per_s=(len(sim_seeds) * real_ticks
+                                * fleet.num_nodes / rwall),
          max_memory_allocated=torch.cuda.max_memory_allocated(),
          rollout_tick_launches=fused_launches,
          runqlat_hist_launches=hist_launches,
@@ -547,7 +569,9 @@ def main() -> int:
 
     # 9. rollout_tick against its plain version on a replay tick -----------
     with timers.phase("fused_kernel"):
-        fnums = phase_fused_kernel(torch, RT, grab["args"], card)
+        args = capture_replay_tick(torch, cstate, texp, RT, plan1000,
+                                   sim_seeds, 5000, card)
+        fnums = phase_fused_kernel(torch, RT, args, card)
     done("fused_kernel", **fnums)
     if fused_launches != bticks:
         raise AssertionError(

@@ -294,9 +294,11 @@ def replay_plan_batched(
     Seed ``s`` draws what ``Cluster(seed=s)`` draws (``state.SeedNoise``),
     so the entry under the reference run's seed reproduces that run.
 
-    ``bucket=True`` pads the plan to its power-of-two size class; the
+    ``bucket=True`` pads the plan to its power-of-two size class, as JAX
+    does so that plans of one class share a compiled executable; the port
+    compiles nothing, so here the padding only costs time and memory.  The
     padded windows lie past ``t_end`` and are masked out below.
-    ``devices`` is JAX's shard request (single-device result, see
+    ``devices`` is JAX's shard request (clamped to the visible cards; see
     ``batched_rollout``); ``use_fused`` is JAX's ``use_pallas``: run the
     fused ``rollout_tick`` kernel tick.  ``device`` is where the replay
     runs (``None`` -> the CUDA card); ``noise`` optionally replaces the

@@ -419,14 +419,10 @@ def batched_noise(streams):
 # --------------------------------------------------------------------------
 
 
-def _tick(st: ClusterState, profiles, fleet: FleetParams, t,
-          noise: TickNoise | None = None,
-          generator: torch.Generator | None = None):
-    """One tick.  ``t`` is a 0-d float32 tensor; ``noise`` defaults to a
-    bundle drawn from ``generator``.  Returns (new_state, outputs)."""
-    if noise is None:
-        noise = draw_noise(generator, st.num_nodes, 1)[0]
-
+def _load(st: ClusterState, profiles, t, noise: TickNoise) -> dict:
+    """The tick's load model, shared by ``_tick`` and ``_tick_fused``: QPS
+    with seasonality and noise, per-slot CPU / thread / memory demand, the
+    node's run-queue pressure and utilization."""
     on_active = st.on_active
     on_type = st.on_type
     qps_noise = 1.0 + 0.06 * noise.qps
@@ -456,11 +452,59 @@ def _tick(st: ClusterState, profiles, fleet: FleetParams, t,
     cpu_on_sum = cpu_on.sum(-1)
     total_cpu = cpu_on_sum + cpu_off.sum(-1) + OS_BASE_CORES
     pressure_cpu = cpu_on_sum + (cpu_off * burst_off).sum(-1) + OS_BASE_CORES
-    rho = total_cpu / cores
-    rho_p = pressure_cpu / cores
-    threads_total = thr_on.sum(-1) + thr_off.sum(-1) + 2.0
+    mem_used = mem_on.sum(-1) + mem_off.sum(-1) + 2.0
+    return {
+        "qps": qps_t,
+        "cpu_off": cpu_off,
+        "mem_off": mem_off,
+        "total_cpu": total_cpu,
+        "rho_p": pressure_cpu / cores,
+        "threads_total": thr_on.sum(-1) + thr_off.sum(-1) + 2.0,
+        "mem_used": mem_used,
+        "cpu_util": torch.minimum(total_cpu, cores) / cores,
+        "mem_util": torch.minimum(mem_used, st.mem_sum) / st.mem_sum,
+    }
 
-    delay = delay_curve(rho_p, base=fleet.delay_base,
+
+def _online_rt(st: ClusterState, profiles, qps_t, mean_on, mem_used,
+               noise: TickNoise):
+    """Online response time: service + queueing delay (the slots' mean
+    runqlat ``mean_on``) + cache contention.  Returns (rt, mem_press)."""
+    on_type = st.on_type
+    base_rt = profiles["base_rt"][on_type]
+    sat = torch.clamp_min(qps_t / profiles["qps_cap"][on_type] - 0.8, 0.0)
+    mem_press = torch.clamp_max(mem_used / st.mem_sum, 1.2)
+    cache_term = 0.06 * base_rt * mem_press[:, None]
+    rt = base_rt * (1.0 + 1.5 * sat) \
+        + profiles["rt_per_runqlat"][on_type] * mean_on \
+        + cache_term \
+        + 0.06 * base_rt * noise.rt
+    return torch.where(st.on_active, torch.clamp_min(rt, 0.5), 0.0), mem_press
+
+
+def _age(st: ClusterState) -> ClusterState:
+    """Age offline jobs by one tick; a job whose time runs out stops."""
+    new_rem = torch.where(st.off_active, st.off_remaining - 1,
+                          st.off_remaining)
+    return st.replace(off_remaining=new_rem,
+                      off_active=st.off_active & (new_rem > 0))
+
+
+def _tick(st: ClusterState, profiles, fleet: FleetParams, t,
+          noise: TickNoise | None = None,
+          generator: torch.Generator | None = None):
+    """One tick.  ``t`` is a 0-d float32 tensor; ``noise`` defaults to a
+    bundle drawn from ``generator``.  Returns (new_state, outputs)."""
+    if noise is None:
+        noise = draw_noise(generator, st.num_nodes, 1)[0]
+
+    ld = _load(st, profiles, t, noise)
+    qps_t, total_cpu, mem_used = ld["qps"], ld["total_cpu"], ld["mem_used"]
+    threads_total = ld["threads_total"]
+    cores = st.cpu_sum
+    rho = total_cpu / cores
+
+    delay = delay_curve(ld["rho_p"], base=fleet.delay_base,
                         scale=fleet.delay_scale, knee=fleet.rho_knee)
     delay = delay * (1.0 + fleet.oversub_slope
                      * torch.clamp_min(threads_total / cores - 1.0, 0.0))
@@ -476,26 +520,14 @@ def _tick(st: ClusterState, profiles, fleet: FleetParams, t,
         w = active[..., None].expand(samples.shape).float()
         return samples, w, mean
 
+    on_active, off_active = st.on_active, st.off_active
     s_on, w_on, mean_on = pod_samples(noise.jit_on, noise.u_on, on_active)
     s_off, w_off, _ = pod_samples(noise.jit_off, noise.u_off, off_active)
     hist_on = metric.histogram(s_on, w_on)     # (N, S_ON, 200)
     hist_off = metric.histogram(s_off, w_off)  # (N, S_OFF, 200)
 
-    cpu_util = torch.minimum(total_cpu, cores) / cores
-    mem_used = mem_on.sum(-1) + mem_off.sum(-1) + 2.0
-    mem_util = torch.minimum(mem_used, st.mem_sum) / st.mem_sum
     n_pods = on_active.sum(-1) + off_active.sum(-1)
-
-    # online response time: service + queueing delay + cache contention
-    base_rt = profiles["base_rt"][on_type]
-    sat = torch.clamp_min(qps_t / profiles["qps_cap"][on_type] - 0.8, 0.0)
-    mem_press = torch.clamp_max(mem_used / st.mem_sum, 1.2)
-    cache_term = 0.06 * base_rt * mem_press[:, None]
-    rt = base_rt * (1.0 + 1.5 * sat) \
-        + profiles["rt_per_runqlat"][on_type] * mean_on \
-        + cache_term \
-        + 0.06 * base_rt * noise.rt
-    rt = torch.where(on_active, torch.clamp_min(rt, 0.5), 0.0)
+    rt, mem_press = _online_rt(st, profiles, qps_t, mean_on, mem_used, noise)
 
     # hardware events (Table III), load-dependent with noise
     hw_noise = 1.0 + 0.05 * noise.hw
@@ -518,13 +550,13 @@ def _tick(st: ClusterState, profiles, fleet: FleetParams, t,
 
     # perf metrics (12 cols, Table III order)
     qps_node = qps_t.sum(-1)
-    off_cpu_sum = cpu_off.sum(-1)
+    off_cpu_sum = ld["cpu_off"].sum(-1)
     perf = torch.stack([
-        cpu_util,
-        mem_util,
+        ld["cpu_util"],
+        ld["mem_util"],
         0.25 * mem_used,             # mem_cache
         1500.0 * total_cpu,          # mem_pgfault
-        3.0 * mem_off.sum(-1),       # mem_pgmajfault
+        3.0 * ld["mem_off"].sum(-1),  # mem_pgmajfault
         0.8 * mem_used,              # working_set
         0.7 * mem_used,              # memory_rss
         0.002 * qps_node,            # net_recv_avg (MB/s)
@@ -539,8 +571,8 @@ def _tick(st: ClusterState, profiles, fleet: FleetParams, t,
         "hist_off": hist_off,
         "rt": rt,
         "qps": qps_t,
-        "cpu_util": cpu_util,
-        "mem_util": mem_util,
+        "cpu_util": ld["cpu_util"],
+        "mem_util": ld["mem_util"],
         "mem_used": mem_used,
         "cpu_demand": total_cpu,
         "hw": hw,
@@ -548,12 +580,7 @@ def _tick(st: ClusterState, profiles, fleet: FleetParams, t,
         "delay": delay,
         "mean_on": mean_on,
     }
-
-    # age offline jobs
-    new_rem = torch.where(off_active, st.off_remaining - 1, st.off_remaining)
-    st = st.replace(off_remaining=new_rem,
-                    off_active=off_active & (new_rem > 0))
-    return st, out
+    return _age(st), out
 
 
 _SUM_KEYS = ("hist_on", "hist_off")
@@ -752,78 +779,42 @@ def extract_plan(log, t0: float, num_windows: int,
 # --------------------------------------------------------------------------
 
 
+def _fused_args(st: ClusterState, fleet: FleetParams, ld: dict,
+                noise: TickNoise):
+    """The ``rollout_tick`` kernel's packed inputs for one tick (JAX
+    ``_tick_pallas``'s layout): ``nodev`` (R, 8), jitter and active masks
+    (R, S_ON + S_OFF), the two uniforms of each sample (R, 224) each."""
+    rows = st.num_nodes
+    nodev = torch.stack(
+        [ld["rho_p"], ld["threads_total"], st.cpu_sum, fleet.delay_base,
+         fleet.delay_scale, fleet.rho_knee, fleet.oversub_slope, noise.delay],
+        dim=-1)
+    jit_all = 1.0 + 0.18 * torch.cat([noise.jit_on, noise.jit_off], 1)
+    act_all = torch.cat([st.on_active, st.off_active], 1).float()
+    u = torch.cat([noise.u_on.reshape(rows, -1, 2),
+                   noise.u_off.reshape(rows, -1, 2)], dim=1)
+    return (nodev, jit_all, act_all, u[..., 0].contiguous(),
+            u[..., 1].contiguous())
+
+
 def _tick_fused(st: ClusterState, profiles, fleet: FleetParams, t,
                 noise: TickNoise):
     """``_tick`` with the delay curve, the Erlang(2) draw and the node
     histogram in one ``rollout_tick`` kernel launch (JAX ``_tick_pallas``).
 
-    It reads the same ``TickNoise`` bundle as ``_tick``, so the two paths
-    compute on the same draws, and packs the kernel's inputs as the JAX
-    tick does.  Only the lite outputs the window scan reads are produced:
-    RT, QPS, CPU and memory utilization, node histogram.
+    It reads the same ``TickNoise`` bundle and the same load and RT model
+    as ``_tick``, so the two paths compute on the same draws.  Only the
+    lite outputs the window scan reads are produced: RT, QPS, CPU and
+    memory utilization, node histogram.
     """
-    on_active = st.on_active
-    on_type = st.on_type
-    qps_t = st.on_qps_mean * _season(t, st.on_phase) * (1.0 + 0.06 * noise.qps)
-    qps_t = torch.where(on_active, torch.clamp_min(qps_t, 0.0), 0.0)
-
-    cpu_on = torch.where(
-        on_active,
-        profiles["cpu_per_qps"][on_type] * qps_t + profiles["cpu_base"][on_type],
-        0.0)
-    thr_on = torch.where(on_active,
-                         profiles["threads_per_qps"][on_type] * qps_t, 0.0)
-    mem_on = torch.where(
-        on_active,
-        profiles["mem_per_qps"][on_type] * qps_t + profiles["mem_base"][on_type],
-        0.0)
-
-    off_active = st.off_active
-    cpu_off = torch.where(off_active, st.off_cores, 0.0)
-    thr_off = torch.where(off_active, st.off_threads, 0.0)
-    mem_off = torch.where(off_active, st.off_mem, 0.0)
-    burst_off = torch.where(off_active, st.off_burst, 0.0)
-
-    cores = st.cpu_sum
-    cpu_on_sum = cpu_on.sum(-1)
-    total_cpu = cpu_on_sum + cpu_off.sum(-1) + OS_BASE_CORES
-    pressure_cpu = cpu_on_sum + (cpu_off * burst_off).sum(-1) + OS_BASE_CORES
-    rho_p = pressure_cpu / cores
-    threads_total = thr_on.sum(-1) + thr_off.sum(-1) + 2.0
-
-    rows = cores.shape[0]
-    nodev = torch.stack(
-        [rho_p, threads_total, cores, fleet.delay_base, fleet.delay_scale,
-         fleet.rho_knee, fleet.oversub_slope, noise.delay], dim=-1)
-    jit_all = 1.0 + 0.18 * torch.cat([noise.jit_on, noise.jit_off], 1)
-    act_all = torch.cat([on_active, off_active], 1).float()
-    u = torch.cat([noise.u_on.reshape(rows, -1, 2),
-                   noise.u_off.reshape(rows, -1, 2)], dim=1)
+    ld = _load(st, profiles, t, noise)
     node_hist, _delay, mean_all = rollout_tick.fused_tick(
-        nodev, jit_all, act_all, u[..., 0].contiguous(),
-        u[..., 1].contiguous(), gamma_shape=GAMMA_SHAPE,
+        *_fused_args(st, fleet, ld, noise), gamma_shape=GAMMA_SHAPE,
         clip_max=2.5 * metric.OVERFLOW_EDGE)
-    mean_on = mean_all[:, :S_ON]
-
-    cpu_util = torch.minimum(total_cpu, cores) / cores
-    mem_used = mem_on.sum(-1) + mem_off.sum(-1) + 2.0
-    mem_util = torch.minimum(mem_used, st.mem_sum) / st.mem_sum
-
-    base_rt = profiles["base_rt"][on_type]
-    sat = torch.clamp_min(qps_t / profiles["qps_cap"][on_type] - 0.8, 0.0)
-    mem_press = torch.clamp_max(mem_used / st.mem_sum, 1.2)
-    cache_term = 0.06 * base_rt * mem_press[:, None]
-    rt = base_rt * (1.0 + 1.5 * sat) \
-        + profiles["rt_per_runqlat"][on_type] * mean_on \
-        + cache_term \
-        + 0.06 * base_rt * noise.rt
-    rt = torch.where(on_active, torch.clamp_min(rt, 0.5), 0.0)
-
-    new_rem = torch.where(off_active, st.off_remaining - 1, st.off_remaining)
-    st = st.replace(off_remaining=new_rem,
-                    off_active=off_active & (new_rem > 0))
-    return st, {"rt": rt, "qps": qps_t, "cpu_util": cpu_util,
-                "mem_util": mem_util, "node_hist": node_hist}
+    rt, _ = _online_rt(st, profiles, ld["qps"], mean_all[:, :S_ON],
+                       ld["mem_used"], noise)
+    return _age(st), {"rt": rt, "qps": ld["qps"], "cpu_util": ld["cpu_util"],
+                      "mem_util": ld["mem_util"], "node_hist": node_hist}
 
 
 _LITE_MEANS = ("qps", "cpu_util", "mem_util")
@@ -969,6 +960,19 @@ def scan_windows(state: ClusterState, profiles, fleet, t0: float, noise,
     return final, outs
 
 
+def _check_shards(devices, device: torch.device) -> None:
+    """Clamp JAX's ``devices`` shard request to the cards visible from
+    ``device`` and refuse a request that would really shard."""
+    if devices is None or devices <= 1:
+        return
+    visible = torch.cuda.device_count() if device.type == "cuda" else 1
+    if min(devices, visible) > 1:
+        raise NotImplementedError(
+            f"devices={devices} would shard the seeds across "
+            f"{min(devices, visible)} cards; seed sharding is not ported, "
+            "pass devices=None for the single-card result")
+
+
 def _tile(x: torch.Tensor, batch: int) -> torch.Tensor:
     return x.repeat(batch, *([1] * (x.dim() - 1)))
 
@@ -991,9 +995,11 @@ def batched_rollout(state: ClusterState, profiles, t0, noise, events,
     events: ``extract_plan`` output, shared across the batch.
     fleet: per-node delay-curve parameters shared across the batch;
         ``None`` means ``FleetParams.uniform``.
-    devices: JAX's shard count, kept for its clamp semantics: sharding
-        seeds across cards is not ported, so every value gives the
-        single-device result, which is what JAX returns on one device.
+    devices: JAX's shard count, clamped as JAX clamps it to the cards
+        the runtime exposes (one for a CPU state).  A request that clamps
+        to one card gives the single-device result, as JAX's does; one
+        that would shard across several raises, because sharding seeds
+        across cards is not ported yet.
     use_fused: run the fused ``rollout_tick`` kernel tick (JAX's
         ``use_pallas``); the default ``_tick`` is the reference.
 
@@ -1003,7 +1009,7 @@ def batched_rollout(state: ClusterState, profiles, t0, noise, events,
     are views of row-major buffers (the RT buffer is written tick by tick),
     so they are not contiguous.
     """
-    del devices  # single-device result for any shard request (see above)
+    _check_shards(devices, state.device)
     batch = len(noise)
     stacked = state.cpu_sum.dim() == 2
     num_nodes = state.cpu_sum.shape[-1]

@@ -10,7 +10,8 @@ histogram and runs a one-sided CUSUM on its Eq. (2) average:
 where ``mu`` is a slow EWMA baseline.  A node is flagged when the CUSUM
 crosses the drift threshold or its decayed tail quantile crosses an
 absolute ceiling; a flag consumes the accumulated drift.  The streaming
-detector class waits for the control-plane slice.
+detector class, and the config fields only it reads, wait for the
+control-plane slice.
 """
 from __future__ import annotations
 
@@ -30,10 +31,6 @@ class DetectorConfig:
     quantile: float = 95.0    # tracked tail quantile
     abs_threshold: float = 400.0   # acute p-quantile ceiling (latency units)
     warmup: int = 2           # updates before flags are allowed
-    proactive_threshold: float = 60.0  # forecast-CUSUM level for a proactive
-                                       # flag (read by the control plane)
-    attribution_floor: float = 5.0     # min slot score to name a culprit
-                                       # (read by the control plane)
 
 
 def node_track_step(hist, mu, cusum, steps: int, node_hists, decay, alpha,

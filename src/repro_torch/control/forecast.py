@@ -9,7 +9,8 @@ of its window-mean QPS onto diurnal harmonics
 
 with moments A = sum decay^k x x^T and b = sum decay^k x y.  The update
 scores the previous fit at time t, then folds in the observation.  The
-forecast service and its trust gate wait for the control-plane slice.
+forecast service and its trust gate, and the config fields only they
+read, wait for the control-plane slice.
 """
 from __future__ import annotations
 
@@ -28,13 +29,7 @@ class ForecastConfig:
     decay: float = 0.995      # per-window decay of the regression moments
     ridge: float = 1.0        # Tikhonov term on the normal-equation solve
     err_alpha: float = 0.3    # EWMA rate of the one-step relative error
-    min_windows: int = 6      # observations before a pod's fit is trusted
-    max_rel_err: float = 0.25  # confidence gate on the one-step rel. error
     qps_floor: float = 25.0   # rel-error denominator floor (QPS units)
-    max_leverage: float = 0.1  # extrapolation guard on the forecast time
-    rho_cap: float = 0.85     # ceiling on the forecast pressure
-    min_predicted_drift: float = 3.0   # projected runqlat increase under
-                                       # which a forecast is withheld
 
 
 def _features(t: torch.Tensor) -> torch.Tensor:

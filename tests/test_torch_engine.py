@@ -150,10 +150,18 @@ def test_node_track_step_matches_jax(steps):
 
 
 def test_detector_config_matches_jax():
-    assert dataclasses.asdict(tdet.DetectorConfig()) == \
-        dataclasses.asdict(jdet.DetectorConfig())
-    assert dataclasses.asdict(tfc.ForecastConfig()) == \
-        dataclasses.asdict(jfc.ForecastConfig())
+    """Each field of the port's configs has JAX's default and changes what
+    ``fold_configs`` hands the window scan (no field is inert)."""
+    base = tstate.fold_configs()
+    for i, (port_cls, jax_cfg) in enumerate(
+            ((tdet.DetectorConfig, jdet.DetectorConfig()),
+             (tfc.ForecastConfig, jfc.ForecastConfig()))):
+        for f in dataclasses.fields(port_cls):
+            default = getattr(port_cls(), f.name)
+            assert default == getattr(jax_cfg, f.name), f.name
+            cfg = port_cls(**{f.name: default + 1})
+            got = tstate.fold_configs(**{("det_cfg", "fc_cfg")[i]: cfg})
+            assert got[i] != base[i], f.name
     assert tfc.NUM_FEATURES == jfc.NUM_FEATURES
     assert tfc.TICKS_PER_DAY == jstate.TICKS_PER_DAY
 
@@ -327,9 +335,23 @@ def test_bucketed_plan_prefix_is_bitwise():
 
 
 def test_shard_request_gives_the_single_device_result():
+    """devices=4 clamps to the one device a CPU state has."""
     _, ref = _own()
     _, got = _own(devices=4)
     _assert_outs_equal(got, ref)
+
+
+def test_shard_request_across_cards_is_refused(monkeypatch):
+    """A request that would shard over several visible cards raises; one
+    that clamps to a single card passes."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
+    card = torch.device("cuda")
+    with pytest.raises(NotImplementedError, match="not ported"):
+        tstate._check_shards(2, card)
+    tstate._check_shards(1, card)
+    tstate._check_shards(None, card)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    tstate._check_shards(4, card)
 
 
 def test_seed_axis_varies():
