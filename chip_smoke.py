@@ -36,7 +36,23 @@ Phases, each printed with its numbers and wall time:
    beside the plain version's; then the replay's checks: one launch per
    batched tick, no ``runqlat_hist`` launch, and the seed-7 entry
    reproducing phase 4's run;
-10. a profile of the batched tick at 20 x 1,000 rows, fused and default.
+10. a profile of the batched tick at 20 x 1,000 rows, fused and default;
+11. ``flash_attention`` against its plain version at zamba2-1.2b's prefill
+    shapes (B 4, S 1024, H 32, hd 64, bf16, causal) and at a ragged shape
+    (S 1000, 9 heads over 3 KV heads, float32, with and without a sliding
+    window), timed beside the plain version and PyTorch's
+    ``scaled_dot_product_attention``;
+12. ``ssd`` against its plain version (y and final state) at the same
+    prefill's shapes (B 4, T 1024, H 64, P 64, N 64, bf16) and at a ragged
+    T of 1000, timed beside the plain version;
+13. the serving path at full width: zamba2-1.2b (1.17 B parameters, random
+    bf16 weights from a generator seeded 0) behind ``ServeEngine(max_batch
+    =4)``, 16 requests with prompts of 256-1,024 tokens and 32 new tokens
+    each, both kernels' counts set to 0 before and read after; then one
+    cohort's prefill with ``use_kernels=False`` against the kernel path,
+    in bf16 and with the same weights in float32, prefill(x[:-1]) +
+    decode(x[-1]) against the full forward, and a profile of one
+    cohort's prefill and of eight decode steps.
 
 Then it prints the card's name and power limit, one JSON line of kernel
 numbers, and last ``{"ok": true, "device": {...}}``.  Any failure raises
@@ -52,6 +68,7 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12           # float32 outside the tensor cores
+BF16_OPS_PER_S = 989e12          # bf16 dense tensor cores
 MIX = {"std32": 6, "hi96": 1, "lo16": 3}
 
 
@@ -157,35 +174,42 @@ def loaded_cluster(Cluster, make_fleet, Pod, W, num_nodes, device, seed=0):
     return c
 
 
-def phase_profile(torch, c, sched, pods, ticks=100):
-    """Where time goes at 1,000 nodes: host ms per tick, then one rollout
-    under ``torch.profiler`` for the device's busy share and its kernels,
-    then host ms per admission (one view and one ICO decision)."""
+def device_profile(torch, fn, per, unit):
+    """Run ``fn()`` once under ``torch.profiler``: wall ms, device time and
+    kernel launches per ``unit`` (``per`` units in the run), the device's
+    busy share, and the top six kernels by device time."""
     from torch.profiler import ProfilerActivity, profile
 
-    c.rollout(20)                                   # warm the path
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    c.rollout(ticks)
-    torch.cuda.synchronize()
-    tick_ms = (time.perf_counter() - t0) * 1e3 / ticks
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        c.rollout(ticks)
+        fn()
         torch.cuda.synchronize()
         wall_s = time.perf_counter() - t0
     rows = [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA]
     device_us = sum(e.self_device_time_total for e in rows)
     top = sorted(rows, key=lambda e: -e.self_device_time_total)[:6]
+    return {f"profiled_ms_per_{unit}": wall_s * 1e3 / per,
+            "device_busy_share": device_us * 1e-6 / wall_s,
+            f"device_us_per_{unit}": device_us / per,
+            f"kernels_per_{unit}": sum(e.count for e in rows) / per,
+            "top": json.dumps([[e.key[:48], e.self_device_time_total / per,
+                                e.count / per] for e in top])}
+
+
+def phase_profile(torch, c, sched, pods, ticks=100):
+    """Where time goes at 1,000 nodes: host ms per tick, then one rollout
+    under ``torch.profiler`` for the device's busy share and its kernels,
+    then host ms per admission (one view and one ICO decision)."""
+    c.rollout(20)                                   # warm the path
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    c.rollout(ticks)
+    torch.cuda.synchronize()
+    tick_ms = (time.perf_counter() - t0) * 1e3 / ticks
     say("profile", ticks=ticks, host_ms_per_tick=tick_ms,
-        profiled_ms_per_tick=wall_s * 1e3 / ticks,
-        device_busy_share=device_us * 1e-6 / wall_s,
-        device_us_per_tick=device_us / ticks,
-        kernels_per_tick=sum(e.count for e in rows) / ticks,
-        top=json.dumps([[e.key[:48], e.self_device_time_total / ticks,
-                         e.count / ticks] for e in top]))
+        **device_profile(torch, lambda: c.rollout(ticks), ticks, "tick"))
     t0 = time.perf_counter()
     for pod in pods:
         sched.select_node(pod, c.view())
@@ -326,8 +350,6 @@ def phase_replay_profile(torch, cstate, texp, RT, plan, card, seeds=20,
     occupancy (every event applied, no expiry): host ms per batched tick
     without the profiler, then under ``torch.profiler`` the device's busy
     share, kernels per tick and the top kernels; fused, then default."""
-    from torch.profiler import ProfilerActivity, profile
-
     inp = texp.replay_inputs(plan, device=card)
     state = inp["state"]
     ev = inp["events"]
@@ -353,27 +375,345 @@ def phase_replay_profile(torch, cstate, texp, RT, plan, card, seeds=20,
         torch.cuda.synchronize()
         host_ms = (time.perf_counter() - t0) * 1e3 / ticks
         before = RT.launches
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            run(windows)
-            torch.cuda.synchronize()
-            wall_s = time.perf_counter() - t0
-        rows = [e for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA]
-        device_us = sum(e.self_device_time_total for e in rows)
-        top = sorted(rows, key=lambda e: -e.self_device_time_total)[:6]
-        name = "fused" if fused else "default"
-        out[name] = dict(
-            host_ms_per_batched_tick=host_ms,
-            profiled_ms_per_batched_tick=wall_s * 1e3 / ticks,
-            device_busy_share=device_us * 1e-6 / wall_s,
-            device_us_per_batched_tick=device_us / ticks,
-            kernels_per_batched_tick=sum(e.count for e in rows) / ticks,
-            rollout_tick_launches_per_tick=(RT.launches - before) / ticks,
-            top=json.dumps([[e.key[:48], e.self_device_time_total / ticks,
-                             e.count / ticks] for e in top]))
+        prof = device_profile(torch, lambda: run(windows), ticks,
+                              "batched_tick")
+        out["fused" if fused else "default"] = dict(
+            host_ms_per_batched_tick=host_ms, **prof,
+            rollout_tick_launches_per_tick=(RT.launches - before) / ticks)
     return out
+
+
+def _close(torch, got, want, rtol, atol, what):
+    """Max abs error of got against want; raises past rtol/atol."""
+    got, want = got.float(), want.float()
+    err = float((got - want).abs().max()) if got.numel() else 0.0
+    if not torch.allclose(got, want, rtol=rtol, atol=atol):
+        raise AssertionError(f"{what}: max abs err {err} past rtol {rtol} "
+                             f"atol {atol}")
+    return err
+
+
+def _timed(fns):
+    """CUDA-event times of each named call, in the order given."""
+    return {name: cuda_ms(fn) for name, fn in fns}
+
+
+# bf16 outputs: kernel and plain version round float32 values that differ
+# in their last bits, so they agree to a bf16 ulp; float32 to summation order
+KERNEL_TOL = {"bfloat16": (1e-2, 1e-2), "float32": (2e-5, 2e-5)}
+
+
+def phase_flash_kernel(torch, FA, card):
+    """``flash_attention`` against its plain version at the serve phase's
+    prefill shapes and a ragged GQA shape with and without a window, each
+    timed beside the plain version and SDPA (order plain, kernel, kernel,
+    plain, library)."""
+    import torch.nn.functional as F
+
+    g = torch.Generator(device=card).manual_seed(1)
+    cases = [("main", 4, 1024, 32, 32, 64, torch.bfloat16, 0),
+             ("ragged", 1, 1000, 9, 3, 64, torch.float32, 0),
+             ("ragged_window", 1, 1000, 9, 3, 64, torch.float32, 100)]
+    out = {}
+    for name, B, S, H, KV, hd, dtype, window in cases:
+        q, k, v = (torch.randn((B, S, h, hd), generator=g, device=card,
+                               dtype=torch.float32).to(dtype)
+                   for h in (H, KV, KV))
+        got = FA.flash_attention(q, k, v, causal=True, sliding_window=window)
+        want = FA.flash_attention_plain(q, k, v, causal=True,
+                                        sliding_window=window)
+        torch.cuda.synchronize()
+        rtol, atol = KERNEL_TOL[str(dtype).split(".")[-1]]
+        err = _close(torch, got, want, rtol, atol, f"flash {name}")
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        i = torch.arange(S, device=card)
+        keep = (i[:, None] >= i[None, :]) & (
+            i[None, :] > i[:, None] - window - 1 if window else True)
+        sdpa = dict(is_causal=True) if not window else dict(attn_mask=keep)
+        ms = _timed([
+            ("plain", lambda: FA.flash_attention_plain(
+                q, k, v, sliding_window=window)),
+            ("kernel", lambda: FA.flash_attention(
+                q, k, v, sliding_window=window)),
+            ("kernel2", lambda: FA.flash_attention(
+                q, k, v, sliding_window=window)),
+            ("plain2", lambda: FA.flash_attention_plain(
+                q, k, v, sliding_window=window)),
+            ("library", lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, enable_gqa=KV != H, **sdpa))])
+        nbytes = q.element_size() * 2 * (q.numel() + k.numel())  # q,k,v; o
+        pairs = int(keep.sum())                    # attended (query, key)
+        nops = 4 * hd * B * H * pairs              # QK^T and PV
+        peak = BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S
+        byte_ms, op_ms = nbytes / HBM_BYTES_PER_S * 1e3, nops / peak * 1e3
+        out[name] = dict(
+            shape=f"B{B} S{S} H{H}/{KV} hd{hd} {dtype} window{window}",
+            max_abs_err=err, bytes=nbytes, flops=nops,
+            bound_ms=max(byte_ms, op_ms),
+            bound_by="bytes" if byte_ms >= op_ms else "operations",
+            ms=min(ms["kernel"], ms["kernel2"]),
+            plain_ms=min(ms["plain"], ms["plain2"]),
+            library_ms=ms["library"], runs=json.dumps(ms))
+    return out
+
+
+def _ssd_flops(B, T, H, P, N, L=64):
+    """The four chunk products' operations (the two triangular ones over
+    the lower triangle), over whole chunks of L steps."""
+    tri = L * (L + 1) // 2
+    per_chunk = 2 * (2 * L * P * N + tri * N + tri * P)
+    return B * H * -(-T // L) * per_chunk
+
+
+def phase_ssd_kernel(torch, SSD, card):
+    """``ssd`` (y and final state) against its plain version at the serve
+    phase's prefill shapes and a ragged T, each timed beside the plain
+    version (order plain, kernel, kernel, plain)."""
+    g = torch.Generator(device=card).manual_seed(2)
+    out = {}
+    for name, T in (("main", 1024), ("ragged", 1000)):
+        B, H, P, N = 4, 64, 64, 64
+        x = torch.randn((B, T, H, P), generator=g, device=card).bfloat16()
+        dt = torch.rand((B, T, H), generator=g, device=card) * 0.19 + 0.01
+        A = -torch.linspace(1.0, 16.0, H, device=card)   # as init_params
+        Bm = torch.randn((B, T, N), generator=g, device=card).bfloat16()
+        Cm = torch.randn((B, T, N), generator=g, device=card).bfloat16()
+        args = (x, dt, A, Bm, Cm)
+        y, state = SSD.ssd(*args)
+        wy, wstate = SSD.ssd_plain(*args)
+        torch.cuda.synchronize()
+        err = max(
+            _close(torch, y, wy, *KERNEL_TOL["bfloat16"], f"ssd y {name}"),
+            _close(torch, state, wstate, 1e-4, 1e-4, f"ssd state {name}"))
+        ms = _timed([("plain", lambda: SSD.ssd_plain(*args)),
+                     ("kernel", lambda: SSD.ssd(*args)),
+                     ("kernel2", lambda: SSD.ssd(*args)),
+                     ("plain2", lambda: SSD.ssd_plain(*args))])
+        nbytes = (2 * 2 * x.numel() + 2 * 2 * Bm.numel() + 4 * dt.numel()
+                  + 4 * A.numel() + 4 * state.numel())
+        nops = _ssd_flops(B, T, H, P, N)
+        byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        op_ms = nops / BF16_OPS_PER_S * 1e3
+        out[name] = dict(
+            shape=f"B{B} T{T} H{H} P{P} N{N} bf16", max_abs_err=err,
+            bytes=nbytes, flops=nops, bound_ms=max(byte_ms, op_ms),
+            bound_by="bytes" if byte_ms >= op_ms else "operations",
+            ms=min(ms["kernel"], ms["kernel2"]),
+            plain_ms=min(ms["plain"], ms["plain2"]), runs=json.dumps(ms))
+    return out
+
+
+# Kernel path against plain path over a whole prefill of zamba2-1.2b.
+# float32 (the algorithm): each kernel sums the same terms as its plain
+# version in another order, and 38 layers carry float32 rounding on.
+# bfloat16 (the served type): each kernel output is within a bf16 ulp of
+# the plain one and 38 layers carry those ulps on as a random walk; the
+# first card run measured single values of the O(1) logits and caches
+# 0.14-0.19 apart with a mean error of 0.024 (~3 ulps) while the float32
+# run of the same weights agreed far more closely, so the bf16 limits
+# are about 1.3x those: 0.25 on any value, 0.04 on the mean.
+PREFILL_TOL = {"float32": (2e-3, 2e-3, 2e-4),     # rtol, atol, mean
+               "bfloat16": (5e-2, 2.5e-1, 4e-2)}
+
+
+def _cache_leaves(cache):
+    for i, layer in enumerate(cache.layers):
+        for key, sub in layer.items():
+            items = sub.items() if isinstance(sub, dict) else [(None, sub)]
+            for k2, t in items:
+                yield f"{i}/{key}" + (f"/{k2}" if k2 else ""), t
+
+
+def kernel_vs_plain_prefill(torch, model, tokens, max_seq, dtype_name,
+                            launches):
+    """One prefill with the kernels, one with ``use_kernels=False``: the
+    greedy tokens, and every logit and cache value within PREFILL_TOL.
+    In bfloat16 a row may pick another token only where the plain path's
+    top two logits lie within the largest logit error (a near tie)."""
+    cfg = model.cfg
+    k_logits, k_cache = model.prefill(tokens, max_seq)
+    model.cfg = dataclasses.replace(cfg, use_kernels=False)
+    try:
+        before = launches()
+        p_logits, p_cache = model.prefill(tokens, max_seq)
+        if launches() != before:
+            raise AssertionError("use_kernels=False launched a kernel")
+    finally:
+        model.cfg = cfg
+    rtol, atol, mean_tol = PREFILL_TOL[dtype_name]
+    pairs = [("logits", k_logits, p_logits)] + [
+        (path, t, dict(_cache_leaves(p_cache))[path])
+        for path, t in _cache_leaves(k_cache)]
+    worst, worst_err, mean_err = "", 0.0, 0.0
+    for path, a, b in pairs:
+        e = (a.float() - b.float()).abs()
+        if float(e.max()) >= worst_err:
+            worst, worst_err = path, float(e.max())
+        mean_err = max(mean_err, float(e.mean()))
+        if bool((e > atol + rtol * b.float().abs()).any()):
+            raise AssertionError(f"{dtype_name} kernel vs plain prefill, "
+                                 f"{path}: max abs err {float(e.max())}")
+    if mean_err > mean_tol:
+        raise AssertionError(f"{dtype_name} kernel vs plain prefill: mean "
+                             f"abs err {mean_err}")
+    logit_err = float((k_logits.float() - p_logits.float()).abs().max())
+    top2 = p_logits.float().topk(2, dim=-1).values
+    margin = top2[:, 0] - top2[:, 1]
+    differ = k_logits.argmax(-1) != p_logits.argmax(-1)
+    if dtype_name == "float32" and bool(differ.any()):
+        raise AssertionError(f"float32 greedy tokens differ: {differ}")
+    if bool((differ & (margin > 2 * logit_err)).any()):
+        raise AssertionError(f"greedy token differs past a near tie: "
+                             f"margins {margin.tolist()}")
+    if not bool(torch.isfinite(k_logits).all()):
+        raise AssertionError("non-finite logits")
+    return {f"{dtype_name}_greedy_rows_equal": int((~differ).sum()),
+            f"{dtype_name}_plain_top2_margins": json.dumps(
+                [round(float(m), 5) for m in margin]),
+            f"{dtype_name}_logits_max_abs_err": logit_err,
+            f"{dtype_name}_worst_leaf": worst,
+            f"{dtype_name}_worst_max_abs_err": worst_err,
+            f"{dtype_name}_max_mean_abs_err": mean_err,
+            f"{dtype_name}_cache_leaves": len(pairs) - 1}
+
+
+def phase_serve(torch, np, FA, SSD, card, requests=16, max_batch=4,
+                new_tokens=32):
+    """Serve zamba2-1.2b at full width; then the kernel path against the
+    plain path on one cohort's prefill, and prefill + decode against the
+    full forward."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.serve import ServeEngine
+
+    cfg = get_config("zamba2-1.2b")
+    held_before = torch.cuda.memory_allocated()   # by earlier phases
+    t0 = time.perf_counter()
+    model = Model(cfg, device=card).init_params(
+        torch.Generator(device=card).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    lens = rng.integers(256, 1025, requests)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)) for n in lens]
+
+    def launches():
+        return FA.launches + SSD.launches
+
+    tm = dict(prefill_s=0.0, decode_s=0.0, prefill_tokens=0,
+              decode_tokens=0, decode_steps=0, decode_launches=0)
+    cohorts = []
+    prefill, decode_step = model.prefill, model.decode_step
+
+    def timed_prefill(tokens, max_seq=None):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = prefill(tokens, max_seq)
+        torch.cuda.synchronize()
+        tm["prefill_s"] += time.perf_counter() - t
+        tm["prefill_tokens"] += tokens.numel()
+        cohorts.append((tokens, max_seq))
+        return res
+
+    def timed_decode(token, cache):
+        before = launches()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = decode_step(token, cache)
+        torch.cuda.synchronize()
+        tm["decode_s"] += time.perf_counter() - t
+        tm["decode_tokens"] += token.shape[0]
+        tm["decode_steps"] += 1
+        tm["decode_launches"] += launches() - before
+        return res
+
+    model.prefill, model.decode_step = timed_prefill, timed_decode
+    eng = ServeEngine(model, max_batch=max_batch)
+    for p in prompts:
+        eng.submit(p, max_new_tokens=new_tokens)
+    torch.cuda.reset_peak_memory_stats()
+    FA.launches = 0
+    SSD.launches = 0
+    t0 = time.perf_counter()
+    stats = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fa_launches, ssd_launches = FA.launches, SSD.launches
+    del model.prefill, model.decode_step
+    n_attn = sum(s.kind == "mamba_shared_attn" for s in cfg.layer_specs())
+    n_ssd = cfg.num_layers
+    nums = dict(
+        params=sum(p.numel() for p in model.parameters()), init_s=init_s,
+        requests=requests, finished=stats["finished"], cohorts=len(cohorts),
+        prompt_lens=json.dumps([int(n) for n in lens]), wall_s=wall,
+        avg_latency_s=stats["avg_latency"], p90_latency_s=stats["p90_latency"],
+        avg_ttft_s=stats["avg_ttft"], runqlat_avg=stats["runqlat_avg"],
+        prefill_s=tm["prefill_s"], prefill_tokens=tm["prefill_tokens"],
+        prefill_tokens_per_s=tm["prefill_tokens"] / tm["prefill_s"],
+        decode_s=tm["decode_s"], decode_steps=tm["decode_steps"],
+        decode_tokens_per_s=tm["decode_tokens"] / tm["decode_s"],
+        decode_ms_per_step=tm["decode_s"] * 1e3 / tm["decode_steps"],
+        max_memory_allocated=torch.cuda.max_memory_allocated(),
+        held_by_earlier_phases=held_before,
+        flash_attention_launches=fa_launches, ssd_launches=ssd_launches,
+        decode_kernel_launches=tm["decode_launches"])
+    say("serve_zamba2", **nums)
+    if stats["finished"] != requests or any(
+            len(r.tokens) != new_tokens for r in eng.finished):
+        raise AssertionError("not every request got its tokens")
+    if not all(0 <= t < cfg.vocab_size for r in eng.finished
+               for t in r.tokens):
+        raise AssertionError("a token outside the vocabulary")
+    if fa_launches != n_attn * len(cohorts) or \
+            ssd_launches != n_ssd * len(cohorts):
+        raise AssertionError(
+            f"{fa_launches} flash / {ssd_launches} ssd launches for "
+            f"{len(cohorts)} cohorts ({n_attn} / {n_ssd} per prefill)")
+    if tm["decode_launches"]:
+        raise AssertionError(f"{tm['decode_launches']} kernel launches "
+                             "while decoding")
+
+    # one cohort's prefill, kernel path against plain path, in the served
+    # bf16 and in float32 (the same weights widened)
+    tokens, max_seq = cohorts[0]
+    cons = dict(cohort=json.dumps(list(tokens.shape)))
+    cons.update(kernel_vs_plain_prefill(torch, model, tokens, max_seq,
+                                        "bfloat16", launches))
+    wide = Model(dataclasses.replace(cfg, dtype=torch.float32), device=card)
+    with torch.no_grad():
+        for a, b in zip(wide.parameters(), model.parameters()):
+            a.copy_(b)
+    cons.update(kernel_vs_plain_prefill(torch, wide, tokens, max_seq,
+                                        "float32", launches))
+    del wide
+
+    # prefill(x[:-1]) + decode(x[-1]) against the full forward (bf16), as
+    # tests/test_archs_smoke.py holds the JAX models
+    full = model(tokens)[:, -1]
+    _, cache = model.prefill(tokens[:, :-1], tokens.shape[1])
+    dec, _ = model.decode_step(tokens[:, -1:], cache)
+    cons["decode_vs_forward_max_abs_err"] = float(
+        (dec.float() - full.float()).abs().max())
+    say("serve_zamba2", **cons)
+    if not torch.allclose(dec.float(), full.float(), rtol=0.1, atol=0.15):
+        raise AssertionError("prefill + decode vs forward: "
+                             f"{cons['decode_vs_forward_max_abs_err']}")
+
+    # where the time goes: one cohort's prefill, then 8 decode steps
+    say("serve_profile", part="prefill", tokens=tokens.numel(),
+        **device_profile(torch, lambda: model.prefill(tokens, max_seq), 1,
+                         "prefill"))
+    _, cache = model.prefill(tokens, tokens.shape[1] + 9)
+    tok = tokens[:, -1:]
+    model.decode_step(tok, cache)                  # warm the path
+
+    def decode(steps=8):
+        for _ in range(steps):
+            model.decode_step(tok, cache)
+
+    say("serve_profile", part="decode",
+        **device_profile(torch, decode, 8, "step"))
+    return nums
 
 
 def main() -> int:
@@ -401,8 +741,10 @@ def main() -> int:
     from repro_torch.cluster.workloads import Pod
     from repro_torch.core import ICOScheduler, InterferenceQuantifier
     from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import rollout_tick as RT
     from repro_torch.kernels import runqlat_hist as K
+    from repro_torch.kernels import ssd as SSD
     from repro_torch.obs import PhaseTimers
 
     card, cpu = torch.device("cuda"), torch.device("cpu")
@@ -413,7 +755,8 @@ def main() -> int:
 
     # 1. build ------------------------------------------------------------
     with timers.phase("build"):
-        build.build(["runqlat_hist", "rollout_tick"])
+        build.build(["runqlat_hist", "rollout_tick", "flash_attention",
+                     "ssd"])
     done("build", ptxas=json.dumps({
         k: v.strip().splitlines()[-2:] for k, v in build.build_logs.items()}))
 
@@ -594,6 +937,24 @@ def main() -> int:
         say("replay_profile", path=name, **nums)
     done("replay_profile")
 
+    # 11-13. the serving path: both kernels, then zamba2-1.2b at full width
+    # (float32 products in full float32 for every plain version)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with timers.phase("flash_kernel"):
+        flash = phase_flash_kernel(torch, FA, card)
+    for name, nums in flash.items():
+        say("flash_kernel", case=name, **nums)
+    done("flash_kernel")
+    with timers.phase("ssd_kernel"):
+        ssdk = phase_ssd_kernel(torch, SSD, card)
+    for name, nums in ssdk.items():
+        say("ssd_kernel", case=name, **nums)
+    done("ssd_kernel")
+    with timers.phase("serve_zamba2"):
+        serve = phase_serve(torch, np, FA, SSD, card)
+    done("serve_zamba2")
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True,
@@ -613,7 +974,24 @@ def main() -> int:
         "launches": fused_launches, "max_abs_err": fnums["max_abs_err"],
         "ms": fnums["ms"], "plain_ms": fnums["plain_ms"],
         "bound_ms": fnums["bound_ms"], "bound_by": "bytes",
-        "library_ms": None}]}))
+        "library_ms": None}, {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:81",
+        "launches": serve["flash_attention_launches"],
+        "max_abs_err": max(c["max_abs_err"] for c in flash.values()),
+        "ms": flash["main"]["ms"], "plain_ms": flash["main"]["plain_ms"],
+        "bound_ms": flash["main"]["bound_ms"],
+        "bound_by": flash["main"]["bound_by"],
+        "library_ms": flash["main"]["library_ms"]}, {
+        "name": "ssd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd.cu",
+        "replaces": "src/repro/kernels/ssd.py:66",
+        "launches": serve["ssd_launches"],
+        "max_abs_err": max(c["max_abs_err"] for c in ssdk.values()),
+        "ms": ssdk["main"]["ms"], "plain_ms": ssdk["main"]["plain_ms"],
+        "bound_ms": ssdk["main"]["bound_ms"],
+        "bound_by": ssdk["main"]["bound_by"], "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

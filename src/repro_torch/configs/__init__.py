@@ -1,0 +1,59 @@
+"""Architecture configs of the port (port of ``repro.configs``).
+
+Each module exports ``CONFIG`` (full size) and ``smoke_config()`` (a
+reduced config of the same family for CPU tests).  This slice ports the
+two architectures the serving path runs; the other names of the JAX
+package raise ``NotImplementedError`` naming the slice that brings them.
+"""
+from __future__ import annotations
+
+import importlib
+
+ARCHS = ["smollm_135m", "zamba2_1p2b"]
+
+# architectures of the JAX package that later slices bring
+LATER = {
+    "rwkv6_7b": "the rwkv6-7b slice (RWKV-6 block and the wkv kernel)",
+    "qwen3_moe_235b_a22b": "the MoE slice",
+    "dbrx_132b": "the MoE slice",
+    "qwen2_vl_72b": "the vlm slice (M-RoPE, embedding inputs)",
+    "gemma3_4b": "the sliding-window model slice",
+    "deepseek_coder_33b": "the remaining dense models",
+    "internlm2_20b": "the remaining dense models",
+    "hubert_xlarge": "the encoder slice",
+}
+
+_ALIASES = {
+    "rwkv6-7b": "rwkv6_7b",
+    "qwen3-moe-235b-a22b": "qwen3_moe_235b_a22b",
+    "dbrx-132b": "dbrx_132b",
+    "qwen2-vl-72b": "qwen2_vl_72b",
+    "gemma3-4b": "gemma3_4b",
+    "deepseek-coder-33b": "deepseek_coder_33b",
+    "internlm2-20b": "internlm2_20b",
+    "smollm-135m": "smollm_135m",
+    "zamba2-1.2b": "zamba2_1p2b",
+    "hubert-xlarge": "hubert_xlarge",
+}
+
+
+def canonical(name: str) -> str:
+    return _ALIASES.get(name, name.replace("-", "_").replace(".", "p"))
+
+
+def _module(name: str):
+    arch = canonical(name)
+    if arch in LATER:
+        raise NotImplementedError(
+            f"{name} is not ported yet: it arrives with {LATER[arch]}")
+    if arch not in ARCHS:
+        raise ValueError(f"unknown architecture {name!r}")
+    return importlib.import_module(f"repro_torch.configs.{arch}")
+
+
+def get_config(name: str):
+    return _module(name).CONFIG
+
+
+def get_smoke_config(name: str):
+    return _module(name).smoke_config()

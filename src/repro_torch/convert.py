@@ -1,4 +1,5 @@
-"""Carry state, forests and views from the JAX package into the port.
+"""Carry state, forests, views and model weights from the JAX package into
+the port.
 
 Each function reads only attributes and numpy-convertible arrays of the
 object it is given, so this module imports nothing of ``repro`` or
@@ -16,6 +17,7 @@ import torch
 from repro_torch.cluster.state import ClusterState, FleetParams
 from repro_torch.cluster.view import ClusterView
 from repro_torch.core.predictors.forest import RandomForestRegressor
+from repro_torch.models.model import Model
 
 _STATE_DTYPES = {
     "on_active": torch.bool, "on_type": torch.int32,
@@ -90,3 +92,45 @@ def view_from_numpy(view, *, device, fleet=None) -> ClusterView:
             kw[f.name] = _tensor(v, _VIEW_DTYPES.get(f.name, torch.float32),
                                  device)
     return ClusterView(fleet=fleet, **kw)
+
+
+def _fill(module, tree, where: str) -> None:
+    """Copy ``tree[name]`` into each of ``module``'s own parameters."""
+    own = dict(module.named_parameters(recurse=False))
+    if set(own) != set(tree):
+        raise ValueError(f"{where}: parameters {sorted(own)} != JAX's "
+                         f"{sorted(tree)}")
+    for name, p in own.items():
+        a = np.asarray(tree[name])
+        if tuple(a.shape) != tuple(p.shape):
+            raise ValueError(f"{where}.{name}: shape {a.shape} != "
+                             f"{tuple(p.shape)}")
+        p.data.copy_(torch.as_tensor(np.array(a, dtype=np.float32)))
+
+
+def model_params_from_numpy(cfg, tree, *, device) -> Model:
+    """JAX ``models.model.init_params``' pytree -> the port's ``Model``.
+
+    ``tree["groups"][i]`` stacks pattern position i over the ``repeats``
+    axis: its entry r becomes layer ``r * len(pattern) + i``, as JAX's scan
+    applies it; ``tree["tail"][j]`` follows them.  ``shared``, ``embed``,
+    ``lm_head`` and ``final_norm`` map one to one.  Arrays may be JAX's or
+    numpy's; bfloat16 values pass through float32 exactly.
+    """
+    model = Model(cfg, device=device)
+    n = len(cfg.pattern)
+    for i, group in enumerate(tree["groups"]):
+        for r in range(cfg.repeats):
+            _fill(model.layers[r * n + i],
+                  {k: np.asarray(v)[r] for k, v in group.items()},
+                  f"groups[{i}][{r}]")
+    for j, layer in enumerate(tree["tail"]):
+        _fill(model.layers[cfg.repeats * n + j], layer, f"tail[{j}]")
+    if (model.shared is None) != ("shared" not in tree):
+        raise ValueError("shared block present in one model only")
+    if model.shared is not None:
+        _fill(model.shared, tree["shared"], "shared")
+    top = {k: v for k, v in tree.items()
+           if k in ("embed", "lm_head", "final_norm")}
+    _fill(model, top, "model")
+    return model

@@ -4,4 +4,6 @@
 | --- | --- | --- |
 | ``runqlat_hist`` | ``repro/kernels/runqlat_hist.py::runqlat_hist_pallas`` | ``csrc/runqlat_hist.cu`` |
 | ``rollout_tick`` | ``repro/kernels/rollout_tick.py::fused_tick`` | ``csrc/rollout_tick.cu`` |
+| ``flash_attention`` | ``repro/kernels/flash_attention.py::flash_attention_pallas`` | ``csrc/flash_attention.cu`` |
+| ``ssd`` | ``repro/kernels/ssd.py::ssd_pallas`` | ``csrc/ssd.cu`` |
 """

@@ -19,6 +19,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -72,6 +74,15 @@ def build(names) -> dict[str, Path]:
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return targets
+
+
+def device_and_stream(t) -> tuple[int, int]:
+    """The CUDA device index of tensor ``t`` and the handle of PyTorch's
+    current stream on it, as a launch function takes them."""
+    dev = t.device.index
+    if dev is None:
+        dev = torch.cuda.current_device()
+    return dev, torch.cuda.current_stream(dev).cuda_stream
 
 
 def load(name: str) -> ctypes.CDLL:

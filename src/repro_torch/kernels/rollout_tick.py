@@ -109,8 +109,7 @@ def _launch(nodev, jit_all, act_all, u1, u2, gamma_shape, clip_max):
     mean = torch.empty((rows, slots), dtype=torch.float32, device=dev)
     if rows == 0:
         return hist, delay, mean
-    index = dev.index if dev.index is not None else torch.cuda.current_device()
-    stream = torch.cuda.current_stream(index).cuda_stream
+    index, stream = build.device_and_stream(nodev)
     err = fn(nodev.data_ptr(), jit_all.data_ptr(), act_all.data_ptr(),
              u1.data_ptr(), u2.data_ptr(), hist.data_ptr(), delay.data_ptr(),
              mean.data_ptr(), rows, slots, u1.shape[1] // slots,

@@ -75,10 +75,7 @@ def _launch(samples: torch.Tensor, weights: torch.Tensor | None):
     if num_series == 0:
         return out
     spb = max(1, min(_MAX_SERIES_PER_BLOCK, _SAMPLES_PER_BLOCK // max(n, 1)))
-    dev = samples.device.index
-    if dev is None:
-        dev = torch.cuda.current_device()
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    dev, stream = build.device_and_stream(samples)
     err = fn(samples.data_ptr(),
              None if weights is None else weights.data_ptr(),
              out.data_ptr(), num_series, n, spb, dev, stream)

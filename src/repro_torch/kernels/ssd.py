@@ -1,0 +1,151 @@
+"""The Mamba-2 SSD chunked scan: wrapper, plain version and launch count.
+
+``ssd`` is the port of ``repro/kernels/ssd.py::ssd_pallas`` (body
+``_ssd_kernel``): per (batch, head), a scalar decay ``exp(dt * A)`` per
+step, a (P x N) float32 state carried across chunks of ``CHUNK`` steps,
+and inside a chunk the lower-triangular decay matrix.  With a single B/C
+group shared across heads:
+
+    S_t = exp(dt_t A) S_{t-1} + dt_t x_t B_t^T,    y_t = S_t C_t
+
+It returns ``y`` (like x) and the final state (B, H, P, N) float32, which
+``ssd_pallas`` keeps in VMEM scratch and drops; the model's prefill needs
+it for the decode cache, as JAX's ``models/ssd.py::ssd_chunked`` returns
+it.  The kernel is CUDA C++ in ``csrc/ssd.cu`` (design and bound are
+noted there).
+
+``ssd_plain`` follows ``ssd_chunked``'s arithmetic and chunking: chunks of
+``min(CHUNK, T)`` steps, a ragged T zero-padded to whole chunks (a padded
+step has dt = 0, so it neither decays nor feeds the state).  For tensors
+on the CPU the wrapper takes it; for CUDA tensors it launches the kernel
+or raises.  ``launches`` counts kernel launches and nothing else.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import build
+
+CHUNK = 64
+MAX_DIM = 64            # the kernel's bound on P and N
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+launches = 0
+
+
+def ssd_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+              B_: torch.Tensor, C: torch.Tensor):
+    """x: (B,T,H,P), dt: (B,T,H) (>0), A: (H,) (<0), B_/C: (B,T,N).
+
+    Returns (y (B,T,H,P) like x, final_state (B,H,P,N) float32).
+    """
+    Bsz, T, H, P = x.shape
+    N = B_.shape[-1]
+    Lc = min(CHUNK, T)
+    nc = -(-T // Lc)
+    pad = nc * Lc - T
+
+    def chunks(a, tail):  # (B, T, *tail) float32 -> (B, nc, Lc, *tail)
+        a = F.pad(a.float(), (0, 0) * len(tail) + (0, pad))
+        return a.reshape(Bsz, nc, Lc, *tail)
+
+    xf = chunks(x, (H, P)).permute(1, 0, 3, 2, 4)          # (nc,B,H,Lc,P)
+    dtf = chunks(dt, (H,)).permute(1, 0, 3, 2)             # (nc,B,H,Lc)
+    Bf = chunks(B_, (N,)).permute(1, 0, 2, 3)              # (nc,B,Lc,N)
+    Cf = chunks(C, (N,)).permute(1, 0, 2, 3)
+    loga = dtf * A.float()[None, None, :, None]            # <= 0
+    cum = torch.cumsum(loga, dim=-1)                       # inclusive
+    tot = torch.exp(cum[..., -1:])                         # (nc,B,H,1)
+    tmask = torch.tril(torch.ones((Lc, Lc), dtype=torch.bool,
+                                  device=x.device))
+    S = torch.zeros((Bsz, H, P, N), dtype=torch.float32, device=x.device)
+    ys = []
+    for c in range(nc):
+        xc, dtc, Bc, Cc, cumc = xf[c], dtf[c], Bf[c], Cf[c], cum[c]
+        # inter-chunk: y[t] = exp(cum[t]) * S_0 C_t
+        SC = torch.einsum("bhpn,btn->bhtp", S, Cc)
+        y_inter = torch.exp(cumc)[..., None] * SC
+        # intra-chunk: decay(t, s) = exp(cum[t] - cum[s]) for s <= t
+        dmat = torch.exp(cumc[..., :, None] - cumc[..., None, :])
+        dmat = torch.where(tmask, dmat, 0.0)               # (b,h,t,s)
+        bc = torch.einsum("btn,bsn->bts", Cc, Bc)
+        w = dmat * bc[:, None] * dtc[:, :, None, :]
+        y_intra = torch.einsum("bhts,bhsp->bhtp", w, xc)
+        # state: S' = tot * S + sum_s exp(cum[-1] - cum[s]) dt_s x_s B_s^T
+        decay_s = torch.exp(cumc[..., -1:] - cumc) * dtc
+        xw = xc * decay_s[..., None]
+        S = S * tot[c][..., None] + torch.einsum("bhsp,bsn->bhpn", xw, Bc)
+        ys.append(y_inter + y_intra)
+    y = torch.stack(ys).permute(1, 0, 3, 2, 4).reshape(Bsz, nc * Lc, H, P)
+    return y[:, :T].to(x.dtype), S
+
+
+def _check(x, dt, A, B_, C) -> None:
+    if x.dim() != 4:
+        raise ValueError(f"x must be (B, T, H, P), got {tuple(x.shape)}")
+    Bsz, T, H, P = x.shape
+    if dt.shape != (Bsz, T, H) or A.shape != (H,):
+        raise ValueError(f"dt {tuple(dt.shape)} / A {tuple(A.shape)} do not "
+                         f"match x {tuple(x.shape)}")
+    if B_.dim() != 3 or B_.shape[:2] != (Bsz, T) or C.shape != B_.shape:
+        raise ValueError(f"B/C must be (B, T, N), got {tuple(B_.shape)}, "
+                         f"{tuple(C.shape)}")
+    if len({t.device for t in (x, dt, A, B_, C)}) != 1:
+        raise ValueError("ssd: every input must lie on one device")
+
+
+def _entry():
+    fn = build.load("ssd").ssd_launch
+    if fn.argtypes is None:  # pointers and the stream as c_void_p, not int
+        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch(x, dt, A, B_, C):
+    global launches
+    Bsz, T, H, P = x.shape
+    N = B_.shape[-1]
+    if x.dtype not in _DTYPES or B_.dtype != x.dtype or C.dtype != x.dtype:
+        raise ValueError(f"ssd kernel: x, B, C must share float32 or "
+                         f"bfloat16, got {x.dtype}, {B_.dtype}, {C.dtype}")
+    if dt.dtype != torch.float32 or A.dtype != torch.float32:
+        raise ValueError(f"ssd kernel: dt and A must be float32, got "
+                         f"{dt.dtype}, {A.dtype}")
+    if not (0 < P <= MAX_DIM and 0 < N <= MAX_DIM):
+        raise ValueError(f"ssd kernel takes P, N <= {MAX_DIM}, got P={P}, "
+                         f"N={N}")
+    for name, t in (("x", x), ("dt", dt), ("A", A), ("B", B_), ("C", C)):
+        if not t.is_contiguous():
+            raise ValueError(f"ssd: {name} must be contiguous")
+    if x.numel() >= 2**31:
+        raise ValueError("ssd: too large for 32-bit indexing")
+    fn = _entry()
+    y = torch.empty_like(x)
+    state = torch.empty((Bsz, H, P, N), dtype=torch.float32, device=x.device)
+    if x.numel() == 0:
+        return y, state.zero_()
+    dev, stream = build.device_and_stream(x)
+    err = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B_.data_ptr(),
+             C.data_ptr(), y.data_ptr(), state.data_ptr(), Bsz, T, H, P, N,
+             _DTYPES[x.dtype], dev, stream)
+    if err != 0:
+        raise RuntimeError(f"ssd launch failed: CUDA error {err}")
+    launches += 1
+    return y, state
+
+
+def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, B_: torch.Tensor,
+        C: torch.Tensor):
+    """x: (B,T,H,P), dt: (B,T,H), A: (H,), B_/C: (B,T,N) ->
+    (y like x, final_state (B,H,P,N) float32)."""
+    _check(x, dt, A, B_, C)
+    if x.device.type == "cpu":
+        return ssd_plain(x, dt, A, B_, C)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd: unsupported device {x.device}")
+    return _launch(x, dt, A, B_, C)

@@ -1,0 +1,76 @@
+"""Attention: RoPE, full-sequence attention through the flash kernel, and
+single-token decode attention over the KV cache.
+
+Port of ``repro.models.attention`` without M-RoPE.  JAX's ``attention()``
+runs its pure-jnp ``flash_mha`` (or ``_sliding_window`` past the window);
+the port routes the same call to the ``flash_attention`` wrapper, which
+computes the same function: the Hopper kernel on CUDA tensors, its plain
+version on the CPU.  The layout stays JAX's (B, S, H, hd) and GQA keeps
+JAX's head order (query head h reads KV head h // (H // KV)).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from repro_torch.kernels import flash_attention as FA
+
+NEG_INF = FA.NEG_INF
+
+
+def rope_freqs(head_dim: int, theta: float,
+               device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (B, S, H, hd); positions: (B, S).  Rotates in float32."""
+    inv = rope_freqs(x.shape[-1], theta, x.device)
+    angles = positions.float()[..., None] * inv          # (B, S, hd/2)
+    sin = torch.sin(angles)[..., None, :]
+    cos = torch.cos(angles)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, sliding_window: int = 0,
+              use_kernel: bool = True) -> torch.Tensor:
+    """Multi-head attention over full sequences (prefill).
+
+    q: (B, S, H, hd); k, v: (B, S, KV, hd) with H % KV == 0.  On a CUDA
+    tensor ``use_kernel=False`` takes the kernel's plain version.
+    """
+    if use_kernel:
+        return FA.flash_attention(q, k, v, causal=causal,
+                                  sliding_window=sliding_window)
+    return FA.flash_attention_plain(q, k, v, causal=causal,
+                                    sliding_window=sliding_window)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, cache_len: int, *,
+                     sliding_window: int = 0) -> torch.Tensor:
+    """Single-token attention: q (B, 1, H, hd), caches (B, S, KV, hd) of
+    which the first ``cache_len`` positions are filled.  Plain torch (no
+    TPU kernel exists for it); JAX masks positions >= cache_len, the port
+    reads only the filled ones."""
+    B, _, H, hd = q.shape
+    KV = k_cache.shape[2]
+    G = H // KV
+    k = k_cache[:, :cache_len].float()
+    v = v_cache[:, :cache_len].float()
+    qg = q.reshape(B, KV, G, hd).float()
+    s = torch.einsum("bkgd,bskd->bkgs", qg, k) * (1.0 / math.sqrt(hd))
+    if sliding_window > 0:
+        # the query sits at position cache_len - 1 and sees `window` keys back
+        pos = torch.arange(cache_len, device=q.device)
+        s = torch.where(pos >= cache_len - 1 - sliding_window, s, NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", p, v)
+    return out.reshape(B, 1, H, hd).to(q.dtype)

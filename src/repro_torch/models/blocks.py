@@ -1,0 +1,218 @@
+"""Layer kinds of the slice as ``nn.Module``s, and their caches.
+
+Port of ``repro.models.blocks`` for the dense, mamba and mamba_shared_attn
+kinds.  Every layer is called as ``layer(cfg, x, mode, cache, start)``
+and returns ``(x, cache)``:
+
+* ``TRAIN``: full sequence, no cache (``cache`` is None);
+* ``PREFILL``: full sequence from position 0, filling ``cache``;
+* ``DECODE``: one token at position ``start``, reading and updating it.
+
+Parameters keep the JAX package's names and its (in, out) layouts, so a
+JAX parameter tree maps onto them name for name.  The Zamba2 shared block
+is one ``DenseLayer`` owned by the model and passed to every
+``MambaSharedLayer``, each with its own attention cache.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from repro_torch.models import attention as A
+from repro_torch.models import ssd as S
+from repro_torch.models.common import (
+    DENSE,
+    MAMBA,
+    MAMBA_SHARED_ATTN,
+    LayerSpec,
+    ModelConfig,
+    init_dense,
+    rms_norm,
+)
+from repro_torch.models.ffn import swiglu
+
+TRAIN, PREFILL, DECODE = "train", "prefill", "decode"
+
+
+def new_param(shape, dtype, device) -> nn.Parameter:
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
+                        requires_grad=False)
+
+
+# ------------------------------------------------------------ dense layer --
+
+class DenseLayer(nn.Module):
+    """GQA attention + SwiGLU MLP (JAX ``init_dense_layer`` /
+    ``apply_dense_layer``)."""
+
+    def __init__(self, cfg: ModelConfig, spec: LayerSpec, device):
+        super().__init__()
+        D, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        f32, dt = torch.float32, cfg.dtype
+        self.spec = spec
+        self.ln1 = new_param((D,), f32, device)
+        self.wq = new_param((D, H * hd), dt, device)
+        self.wk = new_param((D, KV * hd), dt, device)
+        self.wv = new_param((D, KV * hd), dt, device)
+        self.wo = new_param((H * hd, D), dt, device)
+        self.ln2 = new_param((D,), f32, device)
+        self.w_gate = new_param((D, cfg.d_ff), dt, device)
+        self.w_up = new_param((D, cfg.d_ff), dt, device)
+        self.w_down = new_param((cfg.d_ff, D), dt, device)
+
+    def init_params(self, g: torch.Generator) -> None:
+        self.ln1.zero_()
+        self.ln2.zero_()
+        for w in (self.wq, self.wk, self.wv, self.wo, self.w_gate,
+                  self.w_up, self.w_down):
+            init_dense(w, g)
+
+    def _attn(self, cfg, x, mode, cache, start):
+        B, T, D = x.shape
+        H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        theta = self.spec.rope_theta
+        pos = torch.arange(start, start + T, device=x.device)[None]
+        h = rms_norm(x, self.ln1, cfg.norm_eps)
+        q = A.apply_rope((h @ self.wq).reshape(B, T, H, hd), pos, theta)
+        k = A.apply_rope((h @ self.wk).reshape(B, T, KV, hd), pos, theta)
+        v = (h @ self.wv).reshape(B, T, KV, hd)
+        if mode == DECODE:
+            cache["k"][:, start] = k[:, 0]
+            cache["v"][:, start] = v[:, 0]
+            out = A.decode_attention(q, cache["k"], cache["v"], start + 1,
+                                     sliding_window=self.spec.sliding_window)
+        else:
+            out = A.attention(q, k, v, causal=True,
+                              sliding_window=self.spec.sliding_window,
+                              use_kernel=cfg.use_kernels)
+            if mode == PREFILL:
+                cache["k"][:, :T] = k
+                cache["v"][:, :T] = v
+        return x + out.reshape(B, T, H * hd) @ self.wo
+
+    def forward(self, cfg, x, mode, cache, start, shared=None):
+        x = self._attn(cfg, x, mode, cache, start)
+        h = rms_norm(x, self.ln2, cfg.norm_eps)
+        return x + swiglu(h, self.w_gate, self.w_up, self.w_down), cache
+
+
+def _attn_cache(cfg, B, S_, device) -> dict:
+    shape = (B, S_, cfg.num_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+            "v": torch.zeros(shape, dtype=cfg.dtype, device=device)}
+
+
+# ------------------------------------------------------------ mamba layer --
+
+def mamba_dims(cfg: ModelConfig):
+    d_in = cfg.ssm_expand * cfg.d_model
+    H = d_in // cfg.ssm_head_dim
+    N = cfg.ssm_state
+    return d_in, H, N, d_in + 2 * N
+
+
+class MambaLayer(nn.Module):
+    """Mamba-2 SSD block (JAX ``init_mamba_layer`` / ``apply_mamba_layer``)."""
+
+    def __init__(self, cfg: ModelConfig, spec: LayerSpec, device):
+        super().__init__()
+        D = cfg.d_model
+        d_in, H, N, conv_ch = mamba_dims(cfg)
+        f32, dt = torch.float32, cfg.dtype
+        self.spec = spec
+        self.ln = new_param((D,), f32, device)
+        self.in_proj = new_param((D, 2 * d_in + 2 * N + H), dt, device)
+        self.conv_w = new_param((cfg.ssm_conv, conv_ch), dt, device)
+        self.A_log = new_param((H,), f32, device)
+        self.dt_bias = new_param((H,), f32, device)
+        self.D_skip = new_param((H,), f32, device)
+        self.gnorm = new_param((d_in,), f32, device)
+        self.out_proj = new_param((d_in, D), dt, device)
+
+    def init_params(self, g: torch.Generator) -> None:
+        H = self.A_log.shape[0]
+        self.ln.zero_()
+        init_dense(self.in_proj, g)
+        init_dense(self.conv_w, g, scale=0.5)
+        self.A_log.copy_(torch.log(torch.linspace(1.0, 16.0, H)))
+        self.dt_bias.fill_(-2.0)
+        self.D_skip.fill_(1.0)
+        self.gnorm.zero_()
+        init_dense(self.out_proj, g)
+
+    def forward(self, cfg, x, mode, cache, start, shared=None):
+        B, T, D = x.shape
+        d_in, H, N, conv_ch = mamba_dims(cfg)
+        h = rms_norm(x, self.ln, cfg.norm_eps)
+        z, xbc, dt = (h @ self.in_proj).split([d_in, conv_ch, H], dim=-1)
+        prev = cache["conv"] if mode == DECODE else None
+        xbc, conv_state = S.causal_conv1d(xbc, self.conv_w, prev)
+        xs, B_, C = xbc.split([d_in, N, N], dim=-1)
+        dt = F.softplus(dt.float() + self.dt_bias)
+        A_ = -torch.exp(self.A_log)
+        xh = xs.reshape(B, T, H, cfg.ssm_head_dim)
+        if mode == DECODE:
+            y, ssm = S.ssd_decode(xh, dt, A_, B_, C, cache["ssm"])
+        else:
+            y, ssm = S.ssd_chunked(xh, dt, A_, B_, C,
+                                   use_kernel=cfg.use_kernels)
+        y = y + self.D_skip[None, None, :, None].to(y.dtype) * xh
+        y = rms_norm(y.reshape(B, T, d_in), self.gnorm, cfg.norm_eps)
+        y = y * F.silu(z.float()).to(y.dtype)
+        x = x + y.to(x.dtype) @ self.out_proj
+        if mode != TRAIN:
+            cache["ssm"], cache["conv"] = ssm, conv_state
+        return x, cache
+
+
+def _mamba_cache(cfg, B, device) -> dict:
+    d_in, H, N, conv_ch = mamba_dims(cfg)
+    return {
+        "ssm": torch.zeros((B, H, cfg.ssm_head_dim, N), dtype=torch.float32,
+                           device=device),
+        "conv": torch.zeros((B, cfg.ssm_conv - 1, conv_ch), dtype=cfg.dtype,
+                            device=device),
+    }
+
+
+class MambaSharedLayer(MambaLayer):
+    """Mamba block followed by the Zamba2 shared attention+MLP block (JAX
+    ``apply_mamba_shared``): one parameter set for every application, one
+    cache per application."""
+
+    def forward(self, cfg, x, mode, cache, start, shared=None):
+        sub = cache or {"mamba": None, "shared_attn": None}
+        x, _ = super().forward(cfg, x, mode, sub["mamba"], start)
+        x, _ = shared(cfg, x, mode, sub["shared_attn"], start)
+        return x, cache
+
+
+# --------------------------------------------------------------- registry --
+
+LAYERS = {DENSE: DenseLayer, MAMBA: MambaLayer,
+          MAMBA_SHARED_ATTN: MambaSharedLayer}
+
+# kinds of the JAX package that later slices bring
+LATER = {"moe": "the MoE slice", "rwkv": "the rwkv6-7b slice",
+         "enc": "the encoder slice"}
+
+
+def layer_class(kind: str):
+    if kind in LATER:
+        raise NotImplementedError(
+            f"layer kind {kind!r} is not ported yet: it arrives with "
+            f"{LATER[kind]}")
+    return LAYERS[kind]
+
+
+def cache_spec(cfg: ModelConfig, spec: LayerSpec, B: int, S_: int,
+               device) -> dict:
+    """Zero-initialised cache of one layer of the given kind."""
+    layer_class(spec.kind)
+    if spec.kind == DENSE:
+        return _attn_cache(cfg, B, S_, device)
+    if spec.kind == MAMBA:
+        return _mamba_cache(cfg, B, device)
+    return {"mamba": _mamba_cache(cfg, B, device),
+            "shared_attn": _attn_cache(cfg, B, S_, device)}

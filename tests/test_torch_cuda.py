@@ -14,9 +14,14 @@ from repro_torch.cluster import state as tstate
 from repro_torch.cluster.fleet import make_fleet
 from repro_torch.cluster.simulator import Cluster
 from repro_torch.cluster.workloads import Pod, online_arrays
+from repro_torch.configs import get_smoke_config
 from repro_torch.kernels import build
+from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import rollout_tick as RT
 from repro_torch.kernels import runqlat_hist as K
+from repro_torch.kernels import ssd as SSD
+from repro_torch.models.model import Model
+from repro_torch.serve import ServeEngine
 
 
 @pytest.fixture
@@ -211,3 +216,137 @@ def test_build_without_nvcc_raises(tmp_path, monkeypatch):
     monkeypatch.setattr(build, "_loaded", {})
     with pytest.raises(RuntimeError, match="nvcc"):
         build.load("runqlat_hist")
+
+
+@pytest.fixture
+def exact_f32():
+    """float32 products in full float32 (no TF32) for the plain versions."""
+    old = (torch.backends.cuda.matmul.allow_tf32,
+           torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    yield
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = old
+
+
+def _qkv(B, S, H, KV, hd, dtype, device, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn((B, S, h, hd), generator=g).to(dtype).to(device)
+            for h in (H, KV, KV)]
+
+
+# bfloat16 output: the kernel and the plain version round the same float32
+# value, which differs in its last float32 bits, so a bf16 ulp at most.
+FLASH_TOL = {torch.float32: dict(rtol=2e-5, atol=2e-5),
+             torch.bfloat16: dict(rtol=1e-2, atol=1e-2)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,KV,hd,dtype,causal,window", [
+    (2, 256, 4, 4, 64, torch.bfloat16, True, 0),
+    (1, 1000, 9, 3, 64, torch.float32, True, 0),
+    (1, 1000, 9, 3, 64, torch.float32, True, 100),
+    (1, 77, 2, 1, 128, torch.float32, False, 0),
+    (2, 130, 4, 2, 128, torch.bfloat16, True, 0),
+    (1, 300, 2, 2, 64, torch.float32, False, 50),
+])
+def test_flash_kernel_equals_plain(card, exact_f32, B, S, H, KV, hd, dtype,
+                                   causal, window):
+    q, k, v = _qkv(B, S, H, KV, hd, dtype, card, seed=S + H)
+    before = FA.launches
+    got = FA.flash_attention(q, k, v, causal=causal, sliding_window=window)
+    torch.cuda.synchronize()
+    assert FA.launches == before + 1
+    want = FA.flash_attention_plain(q, k, v, causal=causal,
+                                    sliding_window=window)
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", ["hd", "contiguous", "dtype", "device"])
+def test_flash_wrapper_raises_on_bad_inputs(card, bad):
+    q, k, v = _qkv(1, 64, 2, 2, 64, torch.float32, card)
+    if bad == "hd":
+        q, k, v = _qkv(1, 64, 2, 2, 32, torch.float32, card)
+    elif bad == "contiguous":
+        q = q.transpose(1, 2).contiguous().transpose(1, 2)
+    elif bad == "dtype":
+        q, k, v = (t.half() for t in (q, k, v))
+    else:
+        k = k.cpu()
+    with pytest.raises(ValueError):
+        FA.flash_attention(q, k, v)
+
+
+def _ssd_inputs(B, T, H, P, N, dtype, device, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((B, T, H, P), generator=g)
+    dt = torch.rand((B, T, H), generator=g) * 0.19 + 0.01
+    A = -(torch.rand((H,), generator=g) * 1.5 + 0.5)
+    Bm = torch.randn((B, T, N), generator=g)
+    Cm = torch.randn((B, T, N), generator=g)
+    return (x.to(dtype).to(device), dt.to(device), A.to(device),
+            Bm.to(dtype).to(device), Cm.to(dtype).to(device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,P,N,dtype", [
+    (2, 1024, 8, 64, 64, torch.bfloat16),
+    (1, 1000, 4, 64, 64, torch.float32),
+    (2, 37, 3, 16, 8, torch.float32),
+    (1, 130, 2, 32, 16, torch.bfloat16),
+])
+def test_ssd_kernel_equals_plain(card, exact_f32, B, T, H, P, N, dtype):
+    """y within a bf16 ulp (float32: 1e-4; both sum the same float32 terms
+    in another order), the final float32 state within 1e-4."""
+    inp = _ssd_inputs(B, T, H, P, N, dtype, card, seed=T)
+    before = SSD.launches
+    y, state = SSD.ssd(*inp)
+    torch.cuda.synchronize()
+    assert SSD.launches == before + 1
+    wy, wstate = SSD.ssd_plain(*inp)
+    tol = dict(rtol=1e-2, atol=1e-2) if dtype == torch.bfloat16 else \
+        dict(rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(y.float(), wy.float(), **tol)
+    torch.testing.assert_close(state, wstate, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", ["P", "dt_dtype", "contiguous"])
+def test_ssd_wrapper_raises_on_bad_inputs(card, bad):
+    x, dt, A, Bm, Cm = _ssd_inputs(1, 64, 2, 16, 8, torch.float32, card)
+    if bad == "P":
+        x, dt, A, Bm, Cm = _ssd_inputs(1, 64, 2, 96, 8, torch.float32, card)
+    elif bad == "dt_dtype":
+        dt = dt.bfloat16()
+    else:
+        x = x.transpose(1, 2).contiguous().transpose(1, 2)
+    with pytest.raises(ValueError):
+        SSD.ssd(x, dt, A, Bm, Cm)
+
+
+@pytest.mark.cuda
+def test_small_serve_run_goes_through_both_kernels(card):
+    """The zamba2 smoke model has hd 16, which the flash kernel does not
+    take, so the served model widens its heads to 64 (and the SSM's P to
+    64); one cohort's prefill launches each kernel once per layer that
+    runs it, and decode launches none."""
+    import dataclasses
+
+    cfg = dataclasses.replace(get_smoke_config("zamba2-1.2b"), head_dim=64,
+                              ssm_head_dim=64)
+    model = Model(cfg, device=card).init_params(
+        torch.Generator(device=card).manual_seed(0))
+    eng = ServeEngine(model, max_batch=4)
+    rng = np.random.default_rng(0)
+    for _ in range(4):
+        eng.submit(rng.integers(0, cfg.vocab_size, int(rng.integers(5, 90))),
+                   max_new_tokens=4)
+    fa, ssd = FA.launches, SSD.launches
+    stats = eng.run()
+    assert stats["finished"] == 4
+    assert all(len(r.tokens) == 4 for r in eng.finished)
+    assert FA.launches - fa == 2           # shared-attention applications
+    assert SSD.launches - ssd == 5         # mamba layers

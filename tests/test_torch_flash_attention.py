@@ -1,0 +1,147 @@
+"""The port's flash attention (``repro_torch.kernels.flash_attention``)
+against the JAX package: its plain version against ``ref.
+flash_attention_ref`` and the model's ``repro.models.attention.attention``
+on the same numpy-made inputs, plus the wrapper's routing and checks.
+
+Tolerances: float32 2e-5 and bfloat16 2e-2, as ``tests/test_kernels.py``
+holds the Pallas kernel to the same reference.  (The Pallas kernel itself
+cannot run on the installed JAX, so it is not an oracle here.)
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref
+from repro.models import attention as jattn
+from repro_torch.kernels import flash_attention as FA
+from repro_torch.models import attention as tattn
+
+TOL = {"float32": dict(rtol=2e-5, atol=2e-5),
+       "bfloat16": dict(rtol=2e-2, atol=2e-2)}
+JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _qkv(B, S, H, KV, hd, seed, dtype="float32"):
+    """numpy float32 draws, rounded to ``dtype`` identically on both sides."""
+    rng = np.random.default_rng(seed)
+    arrs = [rng.standard_normal((B, S, h, hd)).astype(np.float32)
+            for h in (H, KV, KV)]
+    jx = [jnp.asarray(a).astype(JNP[dtype]) for a in arrs]
+    tx = [torch.from_numpy(a).to(TORCH[dtype]) for a in arrs]
+    return jx, tx
+
+
+def _f32(a):
+    return np.asarray(a.float() if isinstance(a, torch.Tensor) else
+                      jnp.asarray(a, jnp.float32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("B,S,H,hd", [(1, 128, 2, 32), (2, 256, 4, 64)])
+def test_plain_matches_ref(B, S, H, hd, causal, dtype):
+    (jq, jk, jv), (q, k, v) = _qkv(B, S, H, H, hd, S + H, dtype)
+    want = ref.flash_attention_ref(jq, jk, jv, causal=causal)
+    got = FA.flash_attention(q, k, v, causal=causal)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    np.testing.assert_allclose(_f32(got), _f32(want), **TOL[dtype])
+
+
+@pytest.mark.parametrize("window", [32, 100])
+def test_plain_sliding_window_matches_ref(window):
+    (jq, jk, jv), (q, k, v) = _qkv(2, 256, 2, 2, 32, window)
+    want = ref.flash_attention_ref(jq, jk, jv, causal=True,
+                                   sliding_window=window)
+    got = FA.flash_attention(q, k, v, causal=True, sliding_window=window)
+    np.testing.assert_allclose(_f32(got), _f32(want), **TOL["float32"])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("H,KV", [(4, 4), (4, 2), (9, 3)])
+def test_model_attention_matches_jax(H, KV, causal, dtype):
+    """GQA through the model's entry point: JAX repeats KV heads, the port
+    reads KV head h // (H // KV)."""
+    (jq, jk, jv), (q, k, v) = _qkv(2, 128, H, KV, 16, 10 * H + KV, dtype)
+    want = jattn.attention(jq, jk, jv, causal=causal, kv_block=32)
+    got = tattn.attention(q, k, v, causal=causal)
+    np.testing.assert_allclose(_f32(got), _f32(want), **TOL[dtype])
+
+
+@pytest.mark.parametrize("window", [16, 48])
+def test_model_sliding_window_matches_jax(window):
+    (jq, jk, jv), (q, k, v) = _qkv(1, 128, 4, 2, 16, window)
+    want = jattn.attention(jq, jk, jv, causal=True, sliding_window=window,
+                           q_block=32)
+    got = tattn.attention(q, k, v, causal=True, sliding_window=window)
+    np.testing.assert_allclose(_f32(got), _f32(want), **TOL["float32"])
+
+
+@pytest.mark.parametrize("S,window", [(100, 0), (77, 20), (1, 0)])
+def test_plain_ragged_s_matches_ref(S, window):
+    """Any S (the TPU kernel asserts S % 128 == 0): GQA 9 over 3 against
+    the reference on pre-repeated heads."""
+    (jq, jk, jv), (q, k, v) = _qkv(1, S, 9, 3, 64, S)
+    jk, jv = (jnp.repeat(a, 3, axis=2) for a in (jk, jv))
+    want = ref.flash_attention_ref(jq, jk, jv, causal=True,
+                                   sliding_window=window)
+    got = FA.flash_attention(q, k, v, causal=True, sliding_window=window)
+    np.testing.assert_allclose(_f32(got), _f32(want), **TOL["float32"])
+
+
+def test_decode_attention_matches_jax():
+    rng = np.random.default_rng(3)
+    q = rng.standard_normal((2, 1, 4, 16)).astype(np.float32)
+    kc = rng.standard_normal((2, 40, 2, 16)).astype(np.float32)
+    vc = rng.standard_normal((2, 40, 2, 16)).astype(np.float32)
+    for window in (0, 5):
+        want = jattn.decode_attention(jnp.asarray(q), jnp.asarray(kc),
+                                      jnp.asarray(vc), jnp.int32(23),
+                                      sliding_window=window)
+        got = tattn.decode_attention(torch.from_numpy(q), torch.from_numpy(kc),
+                                     torch.from_numpy(vc), 23,
+                                     sliding_window=window)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
+                                   atol=2e-5)
+
+
+def test_rope_matches_jax():
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((2, 12, 3, 16)).astype(np.float32)
+    pos = np.broadcast_to(np.arange(5, 17, dtype=np.int32)[None], (2, 12))
+    want = jattn.apply_rope(jnp.asarray(x), jnp.asarray(pos), 1e4)
+    got = tattn.apply_rope(torch.from_numpy(x), torch.from_numpy(pos.copy()),
+                           1e4)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_cpu_takes_plain_and_counts_no_launch(monkeypatch):
+    _, (q, k, v) = _qkv(1, 64, 2, 1, 64, 0)
+    before = FA.launches
+    calls = []
+    real = FA.flash_attention_plain
+
+    def spy(*a, **kw):
+        calls.append(1)
+        return real(*a, **kw)
+
+    monkeypatch.setattr(FA, "flash_attention_plain", spy)
+    FA.flash_attention(q, k, v)
+    assert calls == [1] and FA.launches == before
+
+
+@pytest.mark.parametrize("bad", ["dtype", "heads", "shape", "window"])
+def test_wrapper_rejects_bad_inputs(bad):
+    _, (q, k, v) = _qkv(1, 32, 4, 2, 64, 0)
+    if bad == "dtype":
+        k = k.double()
+    elif bad == "heads":
+        k, v = k[:, :, :1].repeat(1, 1, 3, 1), v[:, :, :1].repeat(1, 1, 3, 1)
+    elif bad == "shape":
+        k, v = k[:, :16], v[:, :16]
+    with pytest.raises(ValueError):
+        FA.flash_attention(q, k, v, sliding_window=-1 if bad == "window"
+                           else 0)

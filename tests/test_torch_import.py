@@ -27,7 +27,21 @@ def test_every_port_module_imports_without_jax_or_repro():
     assert "repro_torch.kernels.runqlat_hist" in mods
     for mod in ("repro_torch.kernels.rollout_tick",
                 "repro_torch.control.detector",
-                "repro_torch.control.forecast"):
+                "repro_torch.control.forecast",
+                "repro_torch.kernels.flash_attention",
+                "repro_torch.kernels.ssd",
+                "repro_torch.models.common",
+                "repro_torch.models.attention",
+                "repro_torch.models.ssd",
+                "repro_torch.models.ffn",
+                "repro_torch.models.blocks",
+                "repro_torch.models.model",
+                "repro_torch.configs",
+                "repro_torch.configs.zamba2_1p2b",
+                "repro_torch.configs.smollm_135m",
+                "repro_torch.serve",
+                "repro_torch.serve.engine",
+                "repro_torch.launch.serve"):
         assert mod in mods, mod
     code = (
         "import importlib, sys\n"
