@@ -137,6 +137,21 @@ def test_decode_step_logits_match_jax(arch, dtype):
     _close(logits, jlogits, dtype, "decode logits")
 
 
+def test_gqa_nine_over_three_matches_jax():
+    """smollm-135m's head layout (9 query heads over 3 KV heads) at smoke
+    width: prefill logits against JAX in float32."""
+    jcfg, tcfg = _configs("smollm-135m", "float32")
+    jcfg = dataclasses.replace(jcfg, num_heads=9, num_kv_heads=3)
+    tcfg = dataclasses.replace(tcfg, num_heads=9, num_kv_heads=3)
+    params = M.init_params(jcfg, jax.random.PRNGKey(5))
+    model = model_params_from_numpy(tcfg, params, device="cpu")
+    toks = _tokens(jcfg, 5, 64)
+    jlogits, _ = jax.jit(lambda p, b: M.prefill(jcfg, p, b))(
+        params, {"tokens": jnp.asarray(toks)})
+    logits, _ = model.prefill(torch.from_numpy(toks).long())
+    _close(logits, jlogits, "float32", "9/3 prefill logits")
+
+
 @pytest.mark.parametrize("T_", [64, 100])
 @pytest.mark.parametrize("arch", ARCHS)
 def test_prefill_then_decode_matches_forward(arch, T_):
