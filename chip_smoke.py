@@ -51,8 +51,19 @@ Phases, each printed with its numbers and wall time:
     each, both kernels' counts set to 0 before and read after; then one
     cohort's prefill with ``use_kernels=False`` against the kernel path,
     in bf16 and with the same weights in float32, prefill(x[:-1]) +
-    decode(x[-1]) against the full forward, and a profile of one
-    cohort's prefill and of eight decode steps.
+    decode(x[-1]) against the full forward (kernel and plain paths), and a
+    profile of one cohort's prefill and of eight decode steps;
+14. ``wkv`` (y and final state) against its plain version at rwkv6-7b's
+    prefill shapes (B 4, T 1024, H 64, P 64, float32) at the served decay
+    0.302 (where the chunked form's 1e-30 floors bind) and at real decays
+    (also against the naive recurrence), at T 100 and 910 (chunks of 100
+    and 65) and at P 16, timed beside the plain version;
+15. the same serving path for rwkv6-7b at full width and depth (7.53 B
+    parameters, ~15 GB of bf16 weights), prompts of 256-1,024 tokens in
+    multiples of 64, the ``wkv`` count set to 0 before and read after (32
+    launches per cohort, none at decode), the same checks (prefill +
+    decode against the forward over a cohort's first 64 tokens) and
+    profiles.
 
 Then it prints the card's name and power limit, one JSON line of kernel
 numbers, and last ``{"ok": true, "device": {...}}``.  Any failure raises
@@ -503,6 +514,82 @@ def phase_ssd_kernel(torch, SSD, card):
     return out
 
 
+# the default init's decay, exp(-exp(0.18)) (w0 = 0.6 under the 0.18
+# clamp): a served rwkv6-7b with random weights runs at exactly this decay
+CLAMPED_W = 0.30203348
+WKV_ELEMENT_OPS = 15   # per (t, p): log, 2 exp, 2 div, max x 2, muls, sums
+WKV_CASES = [("serve_clamped", 4, 1024, 64, 64, "clamped"),  # B, T, H, P
+             ("serve_real", 4, 1024, 64, 64, "real"),
+             ("t100", 4, 100, 64, 64, "clamped"),
+             ("t910", 4, 910, 64, 64, "clamped"),
+             ("smoke_p16", 4, 1024, 4, 16, "real")]
+
+
+def _wkv_flops(B, T, H, P, Lc):
+    """The four chunk products' operations (att and att v over the strict
+    lower triangle) plus the elementwise work, over T / Lc chunks."""
+    tri = Lc * (Lc - 1) // 2
+    per_chunk = 2 * (2 * Lc * P * P + 2 * tri * P)
+    return B * H * (T // Lc) * per_chunk + WKV_ELEMENT_OPS * B * T * H * P
+
+
+def phase_wkv_kernel(torch, R, card):
+    """``wkv`` (y and final state) against its plain version, through the
+    model's ``wkv_chunked`` (JAX's chunk rule), at the serve phase's prefill
+    shapes (B 4, T 1024, H 64, P 64) at the served decay and at real RWKV
+    decays, at T 100 (one chunk of 100, subnormal A_excl) and T 910 (chunks
+    of 65), and at the smoke width P 16; each timed beside the plain version
+    (order plain, kernel, kernel, plain).  At real decays the kernel is
+    also held against the naive recurrence (``wkv_decode`` step by step),
+    as information: there the chunked form equals the recurrence."""
+    g = torch.Generator(device=card).manual_seed(4)
+    out = {}
+    for name, B, T, H, P, regime in WKV_CASES:
+        shape = (B, T, H * P)
+        r, k, v = (torch.randn(shape, generator=g, device=card)
+                   for _ in range(3))
+        w = (torch.full(shape, CLAMPED_W, device=card) if regime == "clamped"
+             else torch.rand(shape, generator=g, device=card) * 0.149 + 0.85)
+        u = torch.randn((H, P), generator=g, device=card) * 0.1
+        args = (r, k, v, w, u, H)
+        y, state = R.wkv_chunked(*args)
+        wy, wstate = R.wkv_chunked(*args, use_kernel=False)
+        torch.cuda.synchronize()
+        nums = dict(max_abs_err_y=_close(torch, y, wy, 1e-4, 1e-4,
+                                         f"wkv y {name}"),
+                    max_abs_err_state=_close(torch, state, wstate, 1e-4,
+                                             1e-4, f"wkv state {name}"),
+                    max_abs_y=float(wy.abs().max()))
+        if name == "serve_real":
+            s = torch.zeros((B, H, P, P), device=card)
+            ys = []
+            for t in range(T):
+                yt, s = R.wkv_decode(r[:, t:t + 1], k[:, t:t + 1],
+                                     v[:, t:t + 1], w[:, t:t + 1], u, s)
+                ys.append(yt)
+            nums["vs_recurrence_max_abs_err_y"] = float(
+                (torch.cat(ys, 1) - y).abs().max())
+            nums["vs_recurrence_max_abs_err_state"] = float(
+                (s - state).abs().max())
+        ms = _timed([("plain", lambda: R.wkv_chunked(*args, use_kernel=False)),
+                     ("kernel", lambda: R.wkv_chunked(*args)),
+                     ("kernel2", lambda: R.wkv_chunked(*args)),
+                     ("plain2", lambda: R.wkv_chunked(*args,
+                                                      use_kernel=False))])
+        Lc = R.chunk_len(T)
+        nbytes = 4 * (5 * r.numel() + u.numel() + state.numel())
+        nops = _wkv_flops(B, T, H, P, Lc)
+        byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        op_ms = nops / FP32_OPS_PER_S * 1e3
+        out[name] = dict(
+            shape=f"B{B} T{T} H{H} P{P} chunk{Lc} float32 {regime}", **nums,
+            bytes=nbytes, flops=nops, bound_ms=max(byte_ms, op_ms),
+            bound_by="bytes" if byte_ms >= op_ms else "operations",
+            ms=min(ms["kernel"], ms["kernel2"]),
+            plain_ms=min(ms["plain"], ms["plain2"]), runs=json.dumps(ms))
+    return out
+
+
 # Kernel path against plain path over a whole prefill of zamba2-1.2b.
 # float32 (the algorithm): each kernel sums the same terms as its plain
 # version in another order, and 38 layers carry float32 rounding on.
@@ -577,16 +664,21 @@ def kernel_vs_plain_prefill(torch, model, tokens, max_seq, dtype_name,
             f"{dtype_name}_cache_leaves": len(pairs) - 1}
 
 
-def phase_serve(torch, np, FA, SSD, card, requests=16, max_batch=4,
-                new_tokens=32):
-    """Serve zamba2-1.2b at full width; then the kernel path against the
-    plain path on one cohort's prefill, and prefill + decode against the
-    full forward."""
+def phase_serve(torch, np, card, arch, kernels, per_prefill, lens, tag,
+                check_len=None, requests=16, max_batch=4, new_tokens=32):
+    """Serve ``arch`` at full width; then the kernel path against the plain
+    path on one cohort's prefill, prefill + decode against the full forward
+    (over the cohort's first ``check_len`` tokens, or all of them), and a
+    profile of one prefill and eight decode steps.
+
+    ``kernels`` maps each kernel's name to its module (with ``launches``),
+    ``per_prefill`` to its launches in one cohort's prefill; ``lens(rng,
+    n)`` draws the prompt lengths.  Prints ``[serve_<tag>]`` lines."""
     from repro_torch.configs import get_config
     from repro_torch.models.model import Model
     from repro_torch.serve import ServeEngine
 
-    cfg = get_config("zamba2-1.2b")
+    cfg = get_config(arch)
     held_before = torch.cuda.memory_allocated()   # by earlier phases
     t0 = time.perf_counter()
     model = Model(cfg, device=card).init_params(
@@ -594,11 +686,11 @@ def phase_serve(torch, np, FA, SSD, card, requests=16, max_batch=4,
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     rng = np.random.default_rng(0)
-    lens = rng.integers(256, 1025, requests)
+    lens = lens(rng, requests)
     prompts = [rng.integers(0, cfg.vocab_size, int(n)) for n in lens]
 
     def launches():
-        return FA.launches + SSD.launches
+        return sum(K.launches for K in kernels.values())
 
     tm = dict(prefill_s=0.0, decode_s=0.0, prefill_tokens=0,
               decode_tokens=0, decode_steps=0, decode_launches=0)
@@ -632,20 +724,20 @@ def phase_serve(torch, np, FA, SSD, card, requests=16, max_batch=4,
     for p in prompts:
         eng.submit(p, max_new_tokens=new_tokens)
     torch.cuda.reset_peak_memory_stats()
-    FA.launches = 0
-    SSD.launches = 0
+    for K in kernels.values():
+        K.launches = 0
     t0 = time.perf_counter()
     stats = eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    fa_launches, ssd_launches = FA.launches, SSD.launches
+    counts = {name: K.launches for name, K in kernels.items()}
     del model.prefill, model.decode_step
-    n_attn = sum(s.kind == "mamba_shared_attn" for s in cfg.layer_specs())
-    n_ssd = cfg.num_layers
     nums = dict(
         params=sum(p.numel() for p in model.parameters()), init_s=init_s,
         requests=requests, finished=stats["finished"], cohorts=len(cohorts),
-        prompt_lens=json.dumps([int(n) for n in lens]), wall_s=wall,
+        prompt_lens=json.dumps([int(n) for n in lens]),
+        padded_lens=json.dumps([int(t.shape[1]) for t, _ in cohorts]),
+        wall_s=wall,
         avg_latency_s=stats["avg_latency"], p90_latency_s=stats["p90_latency"],
         avg_ttft_s=stats["avg_ttft"], runqlat_avg=stats["runqlat_avg"],
         prefill_s=tm["prefill_s"], prefill_tokens=tm["prefill_tokens"],
@@ -655,20 +747,20 @@ def phase_serve(torch, np, FA, SSD, card, requests=16, max_batch=4,
         decode_ms_per_step=tm["decode_s"] * 1e3 / tm["decode_steps"],
         max_memory_allocated=torch.cuda.max_memory_allocated(),
         held_by_earlier_phases=held_before,
-        flash_attention_launches=fa_launches, ssd_launches=ssd_launches,
+        **{f"{name}_launches": n for name, n in counts.items()},
         decode_kernel_launches=tm["decode_launches"])
-    say("serve_zamba2", **nums)
+    say(f"serve_{tag}", **nums)
     if stats["finished"] != requests or any(
             len(r.tokens) != new_tokens for r in eng.finished):
         raise AssertionError("not every request got its tokens")
     if not all(0 <= t < cfg.vocab_size for r in eng.finished
                for t in r.tokens):
         raise AssertionError("a token outside the vocabulary")
-    if fa_launches != n_attn * len(cohorts) or \
-            ssd_launches != n_ssd * len(cohorts):
-        raise AssertionError(
-            f"{fa_launches} flash / {ssd_launches} ssd launches for "
-            f"{len(cohorts)} cohorts ({n_attn} / {n_ssd} per prefill)")
+    for name, n in counts.items():
+        if n != per_prefill[name] * len(cohorts):
+            raise AssertionError(
+                f"{n} {name} launches for {len(cohorts)} cohorts "
+                f"({per_prefill[name]} per prefill)")
     if tm["decode_launches"]:
         raise AssertionError(f"{tm['decode_launches']} kernel launches "
                              "while decoding")
@@ -688,19 +780,31 @@ def phase_serve(torch, np, FA, SSD, card, requests=16, max_batch=4,
     del wide
 
     # prefill(x[:-1]) + decode(x[-1]) against the full forward (bf16), as
-    # tests/test_archs_smoke.py holds the JAX models
-    full = model(tokens)[:, -1]
-    _, cache = model.prefill(tokens[:, :-1], tokens.shape[1])
-    dec, _ = model.decode_step(tokens[:, -1:], cache)
-    cons["decode_vs_forward_max_abs_err"] = float(
-        (dec.float() - full.float()).abs().max())
-    say("serve_zamba2", **cons)
-    if not torch.allclose(dec.float(), full.float(), rtol=0.1, atol=0.15):
-        raise AssertionError("prefill + decode vs forward: "
-                             f"{cons['decode_vs_forward_max_abs_err']}")
+    # tests/test_archs_smoke.py holds the JAX models; the plain path beside
+    x = tokens[:, :check_len] if check_len else tokens
+    for path in ("kernel", "plain"):
+        model.cfg = dataclasses.replace(cfg, use_kernels=path == "kernel")
+        try:
+            full = model(x)[:, -1]
+            _, cache = model.prefill(x[:, :-1], x.shape[1])
+            dec, _ = model.decode_step(x[:, -1:], cache)
+        finally:
+            model.cfg = cfg
+        cons[f"decode_vs_forward_{path}_max_abs_err"] = float(
+            (dec.float() - full.float()).abs().max())
+        if path == "kernel":
+            close = torch.allclose(dec.float(), full.float(), rtol=0.1,
+                                   atol=0.15)
+    cons["decode_vs_forward_tokens"] = x.shape[1]
+    say(f"serve_{tag}", **cons)
+    if not close:
+        raise AssertionError(
+            "prefill + decode vs forward: kernel path "
+            f"{cons['decode_vs_forward_kernel_max_abs_err']}, plain path "
+            f"{cons['decode_vs_forward_plain_max_abs_err']}")
 
     # where the time goes: one cohort's prefill, then 8 decode steps
-    say("serve_profile", part="prefill", tokens=tokens.numel(),
+    say("serve_profile", model=arch, part="prefill", tokens=tokens.numel(),
         **device_profile(torch, lambda: model.prefill(tokens, max_seq), 1,
                          "prefill"))
     _, cache = model.prefill(tokens, tokens.shape[1] + 9)
@@ -711,7 +815,7 @@ def phase_serve(torch, np, FA, SSD, card, requests=16, max_batch=4,
         for _ in range(steps):
             model.decode_step(tok, cache)
 
-    say("serve_profile", part="decode",
+    say("serve_profile", model=arch, part="decode",
         **device_profile(torch, decode, 8, "step"))
     return nums
 
@@ -739,12 +843,15 @@ def main() -> int:
     from repro_torch.cluster.fleet import make_fleet
     from repro_torch.cluster.simulator import Cluster
     from repro_torch.cluster.workloads import Pod
+    from repro_torch.configs import get_config
     from repro_torch.core import ICOScheduler, InterferenceQuantifier
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import rollout_tick as RT
     from repro_torch.kernels import runqlat_hist as K
+    from repro_torch.kernels import rwkv_wkv as WKV
     from repro_torch.kernels import ssd as SSD
+    from repro_torch.models import rwkv as R
     from repro_torch.obs import PhaseTimers
 
     card, cpu = torch.device("cuda"), torch.device("cpu")
@@ -756,7 +863,7 @@ def main() -> int:
     # 1. build ------------------------------------------------------------
     with timers.phase("build"):
         build.build(["runqlat_hist", "rollout_tick", "flash_attention",
-                     "ssd"])
+                     "ssd", "wkv"])
     done("build", ptxas=json.dumps({
         k: v.strip().splitlines()[-2:] for k, v in build.build_logs.items()}))
 
@@ -952,8 +1059,30 @@ def main() -> int:
         say("ssd_kernel", case=name, **nums)
     done("ssd_kernel")
     with timers.phase("serve_zamba2"):
-        serve = phase_serve(torch, np, FA, SSD, card)
+        zcfg = get_config("zamba2-1.2b")
+        serve = phase_serve(
+            torch, np, card, "zamba2-1.2b",
+            {"flash_attention": FA, "ssd": SSD},
+            {"flash_attention": sum(s.kind == "mamba_shared_attn"
+                                    for s in zcfg.layer_specs()),
+             "ssd": zcfg.num_layers},
+            lambda rng, n: rng.integers(256, 1025, n), "zamba2")
     done("serve_zamba2")
+
+    # 14-15. the rwkv6-7b serving path: the wkv kernel, then the model at
+    # full width and depth
+    with timers.phase("wkv_kernel"):
+        wkvk = phase_wkv_kernel(torch, R, card)
+    for name, nums in wkvk.items():
+        say("wkv_kernel", case=name, **nums)
+    done("wkv_kernel")
+    with timers.phase("serve_rwkv6"):
+        rserve = phase_serve(
+            torch, np, card, "rwkv6-7b", {"wkv": WKV},
+            {"wkv": get_config("rwkv6-7b").num_layers},
+            lambda rng, n: rng.integers(4, 17, n) * 64, "rwkv6",
+            check_len=64)
+    done("serve_rwkv6")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -991,7 +1120,18 @@ def main() -> int:
         "max_abs_err": max(c["max_abs_err"] for c in ssdk.values()),
         "ms": ssdk["main"]["ms"], "plain_ms": ssdk["main"]["plain_ms"],
         "bound_ms": ssdk["main"]["bound_ms"],
-        "bound_by": ssdk["main"]["bound_by"], "library_ms": None}]}))
+        "bound_by": ssdk["main"]["bound_by"], "library_ms": None}, {
+        "name": "wkv", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/wkv.cu",
+        "replaces": "src/repro/kernels/rwkv_wkv.py:69",
+        "launches": rserve["wkv_launches"],
+        "max_abs_err": max(max(c["max_abs_err_y"], c["max_abs_err_state"])
+                           for c in wkvk.values()),
+        "ms": wkvk["serve_clamped"]["ms"],
+        "plain_ms": wkvk["serve_clamped"]["plain_ms"],
+        "bound_ms": wkvk["serve_clamped"]["bound_ms"],
+        "bound_by": wkvk["serve_clamped"]["bound_by"],
+        "library_ms": None}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,19 +1,18 @@
 """Architecture configs of the port (port of ``repro.configs``).
 
 Each module exports ``CONFIG`` (full size) and ``smoke_config()`` (a
-reduced config of the same family for CPU tests).  This slice ports the
-two architectures the serving path runs; the other names of the JAX
+reduced config of the same family for CPU tests).  The port carries the
+three architectures its serving path runs; the other names of the JAX
 package raise ``NotImplementedError`` naming the slice that brings them.
 """
 from __future__ import annotations
 
 import importlib
 
-ARCHS = ["smollm_135m", "zamba2_1p2b"]
+ARCHS = ["rwkv6_7b", "smollm_135m", "zamba2_1p2b"]
 
 # architectures of the JAX package that later slices bring
 LATER = {
-    "rwkv6_7b": "the rwkv6-7b slice (RWKV-6 block and the wkv kernel)",
     "qwen3_moe_235b_a22b": "the MoE slice",
     "dbrx_132b": "the MoE slice",
     "qwen2_vl_72b": "the vlm slice (M-RoPE, embedding inputs)",

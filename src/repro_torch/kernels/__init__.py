@@ -6,4 +6,5 @@
 | ``rollout_tick`` | ``repro/kernels/rollout_tick.py::fused_tick`` | ``csrc/rollout_tick.cu`` |
 | ``flash_attention`` | ``repro/kernels/flash_attention.py::flash_attention_pallas`` | ``csrc/flash_attention.cu`` |
 | ``ssd`` | ``repro/kernels/ssd.py::ssd_pallas`` | ``csrc/ssd.cu`` |
+| ``wkv`` | ``repro/kernels/rwkv_wkv.py::wkv_pallas`` | ``csrc/wkv.cu`` |
 """

@@ -1,8 +1,8 @@
 """Layer kinds of the slice as ``nn.Module``s, and their caches.
 
-Port of ``repro.models.blocks`` for the dense, mamba and mamba_shared_attn
-kinds.  Every layer is called as ``layer(cfg, x, mode, cache, start)``
-and returns ``(x, cache)``:
+Port of ``repro.models.blocks`` for the dense, mamba, mamba_shared_attn
+and rwkv kinds.  Every layer is called as ``layer(cfg, x, mode, cache,
+start)`` and returns ``(x, cache)``:
 
 * ``TRAIN``: full sequence, no cache (``cache`` is None);
 * ``PREFILL``: full sequence from position 0, filling ``cache``;
@@ -20,11 +20,13 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from repro_torch.models import attention as A
+from repro_torch.models import rwkv as R
 from repro_torch.models import ssd as S
 from repro_torch.models.common import (
     DENSE,
     MAMBA,
     MAMBA_SHARED_ATTN,
+    RWKV,
     LayerSpec,
     ModelConfig,
     init_dense,
@@ -188,14 +190,93 @@ class MambaSharedLayer(MambaLayer):
         return x, cache
 
 
+# ------------------------------------------------------------- rwkv layer --
+
+class RwkvLayer(nn.Module):
+    """RWKV-6 time mix + channel mix (JAX ``init_rwkv_layer`` /
+    ``apply_rwkv_layer``)."""
+
+    def __init__(self, cfg: ModelConfig, spec: LayerSpec, device):
+        super().__init__()
+        D, Fd, H = cfg.d_model, cfg.d_ff, cfg.num_heads
+        lora_r = max(32, D // 64)
+        f32, dt = torch.float32, cfg.dtype
+        self.spec = spec
+        self.ln1 = new_param((D,), f32, device)
+        self.ln2 = new_param((D,), f32, device)
+        for n in "rkvgw":
+            setattr(self, f"mu_{n}", new_param((D,), f32, device))
+        for n in "rkvgo":
+            setattr(self, f"w_{n}", new_param((D, D), dt, device))
+        self.w0 = new_param((D,), f32, device)
+        self.wA = new_param((D, lora_r), f32, device)
+        self.wB = new_param((lora_r, D), f32, device)
+        self.u = new_param((H, D // H), f32, device)
+        self.ln_x = new_param((D,), f32, device)
+        self.mu_ck = new_param((D,), f32, device)
+        self.mu_cr = new_param((D,), f32, device)
+        self.w_ck = new_param((D, Fd), dt, device)
+        self.w_cv = new_param((Fd, D), dt, device)
+        self.w_cr = new_param((D, D), dt, device)
+
+    def init_params(self, g: torch.Generator) -> None:
+        for n in ("ln1", "ln2", "ln_x", "wB"):
+            getattr(self, n).zero_()
+        for n in ("mu_r", "mu_k", "mu_v", "mu_g", "mu_w", "mu_ck", "mu_cr"):
+            getattr(self, n).fill_(0.5)
+        self.w0.fill_(0.6)
+        for w in (self.w_r, self.w_k, self.w_v, self.w_g, self.w_o):
+            init_dense(w, g)
+        init_dense(self.wA, g, scale=0.1)
+        init_dense(self.u, g, scale=0.5)
+        for w in (self.w_ck, self.w_cv, self.w_cr):
+            init_dense(w, g)
+
+    def forward(self, cfg, x, mode, cache, start, shared=None):
+        H = cfg.num_heads
+        # ---- time mix
+        h = rms_norm(x, self.ln1, cfg.norm_eps)
+        hs = R.token_shift(h, cache["shift_t"] if mode == DECODE else None)
+        r, k, v, g, w = R.time_mix_params_apply(h, hs, self)
+        if mode == DECODE:
+            y, state = R.wkv_decode(r, k, v, w, self.u, cache["state"])
+        else:
+            y, state = R.wkv_chunked(r, k, v, w, self.u, H,
+                                     chunk=min(64, x.shape[1]),
+                                     use_kernel=cfg.use_kernels)
+        y = rms_norm(y.to(x.dtype), self.ln_x, cfg.norm_eps)
+        y = y * F.silu(g.float()).to(x.dtype)
+        x = x + y @ self.w_o
+        # ---- channel mix
+        h2 = rms_norm(x, self.ln2, cfg.norm_eps)
+        hs2 = R.token_shift(h2, cache["shift_c"] if mode == DECODE else None)
+        x = x + R.channel_mix(h2, hs2, self)
+        if mode != TRAIN:
+            # copies, so that the cache does not keep the whole h alive
+            cache["state"] = state
+            cache["shift_t"] = h[:, -1:].clone()
+            cache["shift_c"] = h2[:, -1:].clone()
+        return x, cache
+
+
+def _rwkv_cache(cfg, B, device) -> dict:
+    D, H = cfg.d_model, cfg.num_heads
+    P = D // H
+    return {
+        "state": torch.zeros((B, H, P, P), dtype=torch.float32,
+                             device=device),
+        "shift_t": torch.zeros((B, 1, D), dtype=cfg.dtype, device=device),
+        "shift_c": torch.zeros((B, 1, D), dtype=cfg.dtype, device=device),
+    }
+
+
 # --------------------------------------------------------------- registry --
 
 LAYERS = {DENSE: DenseLayer, MAMBA: MambaLayer,
-          MAMBA_SHARED_ATTN: MambaSharedLayer}
+          MAMBA_SHARED_ATTN: MambaSharedLayer, RWKV: RwkvLayer}
 
 # kinds of the JAX package that later slices bring
-LATER = {"moe": "the MoE slice", "rwkv": "the rwkv6-7b slice",
-         "enc": "the encoder slice"}
+LATER = {"moe": "the MoE slice", "enc": "the encoder slice"}
 
 
 def layer_class(kind: str):
@@ -214,5 +295,7 @@ def cache_spec(cfg: ModelConfig, spec: LayerSpec, B: int, S_: int,
         return _attn_cache(cfg, B, S_, device)
     if spec.kind == MAMBA:
         return _mamba_cache(cfg, B, device)
+    if spec.kind == RWKV:
+        return _rwkv_cache(cfg, B, device)
     return {"mamba": _mamba_cache(cfg, B, device),
             "shared_attn": _attn_cache(cfg, B, S_, device)}

@@ -17,6 +17,7 @@ import torch
 DENSE = "dense"                          # GQA attention + gated MLP
 MAMBA = "mamba"                          # Mamba-2 SSD block
 MAMBA_SHARED_ATTN = "mamba_shared_attn"  # mamba block + the shared block
+RWKV = "rwkv"                            # RWKV-6 time mix + channel mix
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,9 +49,9 @@ class ModelConfig:
     tie_embeddings: bool = False  # lm_head = embed.T (smollm)
     norm_eps: float = 1e-6
     dtype: torch.dtype = torch.bfloat16
-    # On CUDA tensors, True launches the flash-attention and SSD kernels
-    # and False takes their plain versions; CPU tensors always take the
-    # plain versions.
+    # On CUDA tensors, True launches the flash-attention, SSD and WKV
+    # kernels and False takes their plain versions; CPU tensors always
+    # take the plain versions.
     use_kernels: bool = True
 
     def validate(self) -> None:

@@ -19,7 +19,9 @@ from repro_torch.kernels import build
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import rollout_tick as RT
 from repro_torch.kernels import runqlat_hist as K
+from repro_torch.kernels import rwkv_wkv as WKV
 from repro_torch.kernels import ssd as SSD
+from repro_torch.models import rwkv as trwkv
 from repro_torch.models.model import Model
 from repro_torch.serve import ServeEngine
 
@@ -350,3 +352,97 @@ def test_small_serve_run_goes_through_both_kernels(card):
     assert all(len(r.tokens) == 4 for r in eng.finished)
     assert FA.launches - fa == 2           # shared-attention applications
     assert SSD.launches - ssd == 5         # mamba layers
+
+
+# the default init's decay, exp(-exp(0.18)): the clamps bind from step 57
+# of a chunk of 64, and for chunks longer than 73 A_excl is subnormal
+CLAMPED_W = 0.30203348
+
+
+def _wkv_inputs(B, T, H, P, regime, device, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    r, k, v = (torch.randn((B, T, H * P), generator=g) for _ in range(3))
+    if regime == "clamped":
+        w = torch.full((B, T, H * P), CLAMPED_W)
+    else:
+        w = torch.rand((B, T, H * P), generator=g) * 0.149 + 0.85
+    u = torch.randn((H, P), generator=g) * 0.1
+    return [t.to(device) for t in (r, k, v, w, u)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,P,Lc,regime", [
+    (4, 1024, 8, 64, 64, "clamped"),
+    (4, 1024, 8, 64, 64, "real"),
+    (1, 100, 4, 64, 100, "clamped"),
+    (1, 910, 4, 64, 65, "clamped"),
+    (1, 127, 2, 64, 127, "clamped"),
+    (2, 256, 4, 16, 64, "real"),
+    (1, 256, 2, 32, 128, "real"),
+])
+def test_wkv_kernel_equals_plain(card, exact_f32, B, T, H, P, Lc, regime):
+    """y and the final state against the plain version in float32 (both
+    sum the same float32 terms in another order): 1e-4."""
+    inp = _wkv_inputs(B, T, H, P, regime, card, seed=T + P)
+    before = WKV.launches
+    y, state = WKV.wkv(*inp, H, Lc)
+    torch.cuda.synchronize()
+    assert WKV.launches == before + 1
+    wy, wstate = WKV.wkv_plain(*inp, H, Lc)
+    assert y.dtype == state.dtype == torch.float32
+    torch.testing.assert_close(y, wy, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(state, wstate, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", ["P", "chunk", "dtype", "contiguous",
+                                 "device"])
+def test_wkv_wrapper_raises_on_bad_inputs(card, bad):
+    r, k, v, w, u = _wkv_inputs(1, 128, 2, 16, "real", card)
+    H, Lc = 2, 64
+    if bad == "P":
+        r, k, v, w, u = _wkv_inputs(1, 128, 1, 96, "real", card)
+        H = 1
+    elif bad == "chunk":
+        r, k, v, w, u = _wkv_inputs(1, 256, 2, 16, "real", card)
+        Lc = 256
+    elif bad == "dtype":
+        r = r.bfloat16()
+    elif bad == "contiguous":
+        r = torch.cat([r, r], dim=-1)[..., ::2]
+    else:
+        u = u.cpu()
+    with pytest.raises(ValueError):
+        WKV.wkv(r, k, v, w, u, H, Lc)
+
+
+@pytest.mark.cuda
+def test_wkv_cuda_tensor_never_takes_the_plain_version(card, monkeypatch):
+    def refuse(*a, **k):
+        raise AssertionError("plain version called for a CUDA tensor")
+
+    inp = _wkv_inputs(1, 64, 2, 16, "clamped", card)
+    monkeypatch.setattr(WKV, "wkv_plain", refuse)
+    before = WKV.launches
+    WKV.wkv(*inp, 2, 64)
+    trwkv.wkv_chunked(*inp, 2)
+    assert WKV.launches == before + 2
+
+
+@pytest.mark.cuda
+def test_small_rwkv_serve_run_goes_through_the_wkv_kernel(card):
+    """One cohort's prefill launches the kernel once per layer; decode
+    launches none."""
+    cfg = get_smoke_config("rwkv6-7b")
+    model = Model(cfg, device=card).init_params(
+        torch.Generator(device=card).manual_seed(0))
+    eng = ServeEngine(model, max_batch=4)
+    rng = np.random.default_rng(0)
+    for _ in range(4):
+        eng.submit(rng.integers(0, cfg.vocab_size, int(rng.integers(5, 90))),
+                   max_new_tokens=4)
+    before = WKV.launches
+    stats = eng.run()
+    assert stats["finished"] == 4
+    assert all(len(r.tokens) == 4 for r in eng.finished)
+    assert WKV.launches - before == cfg.num_layers

@@ -30,15 +30,18 @@ def test_every_port_module_imports_without_jax_or_repro():
                 "repro_torch.control.forecast",
                 "repro_torch.kernels.flash_attention",
                 "repro_torch.kernels.ssd",
+                "repro_torch.kernels.rwkv_wkv",
                 "repro_torch.models.common",
                 "repro_torch.models.attention",
                 "repro_torch.models.ssd",
+                "repro_torch.models.rwkv",
                 "repro_torch.models.ffn",
                 "repro_torch.models.blocks",
                 "repro_torch.models.model",
                 "repro_torch.configs",
                 "repro_torch.configs.zamba2_1p2b",
                 "repro_torch.configs.smollm_135m",
+                "repro_torch.configs.rwkv6_7b",
                 "repro_torch.serve",
                 "repro_torch.serve.engine",
                 "repro_torch.launch.serve"):

@@ -1,10 +1,10 @@
 """The port's models (``repro_torch.models``) against ``repro.models`` on
 the same weights: ``model_params_from_numpy`` carries JAX's
 ``init_params`` tree into the port, then prefill logits, every cache leaf
-and the decode step's logits are compared on the zamba2 and smollm smoke
-configs, in float32 (the algorithm; tight) and bfloat16 (the working
-type; loose), plus the port's own prefill-then-decode against its full
-forward."""
+and the decode step's logits are compared on the zamba2, smollm and rwkv6
+smoke configs, in float32 (the algorithm; tight) and bfloat16 (the
+working type; loose), plus the port's own prefill-then-decode against its
+full forward."""
 import dataclasses
 
 import jax
@@ -20,14 +20,17 @@ from repro_torch import configs as tconfigs
 from repro_torch.convert import model_params_from_numpy
 from repro_torch.models import model as TM
 
-ARCHS = ["zamba2-1.2b", "smollm-135m"]
+ARCHS = ["zamba2-1.2b", "smollm-135m", "rwkv6-7b"]
 # float32: the same arithmetic in another order (XLA's fused scans against
 # torch's ops), a few ulps per layer.  bfloat16: the port rounds to bf16
 # wherever JAX's code casts, but XLA on the CPU keeps elementwise chains
 # inside a fusion in float32 (xla_allow_excess_precision, on by default),
 # so single values drift by up to ~12 bf16 ulps of the O(1) activations
-# (0.1); the mean error stays at about two ulps (BF16_MEAN).  With that
-# XLA flag off, the zamba2 smoke logits agree to 2 ulps (0.016).
+# (0.1); the mean error stays at about two ulps (BF16_MEAN).  The prefill
+# and decode comparisons compile JAX with that option off (``_jax_run``):
+# then the smoke logits agree to 1-5 ulps (rwkv6 0.008, zamba2 0.016,
+# smollm 0.035), where with it on rwkv6's drift past these limits (0.19,
+# mean 0.030) although every shift leaf matches exactly with it off.
 TOL = {"float32": dict(rtol=1e-4, atol=1e-4),
        "bfloat16": dict(rtol=5e-2, atol=1e-1)}
 BF16_MEAN = 2e-2
@@ -81,6 +84,12 @@ def _close(got, want, dtype, what=""):
         assert np.abs(got - want).mean() < BF16_MEAN, what
 
 
+def _jax_run(fn, *args):
+    """``fn(*args)`` jitted, compiled without XLA's excess precision."""
+    return jax.jit(fn).lower(*args).compile(
+        compiler_options={"xla_allow_excess_precision": False})(*args)
+
+
 def _build(arch, dtype):
     jcfg, tcfg = _configs(arch, dtype)
     params = M.init_params(jcfg, jax.random.PRNGKey(7))
@@ -93,8 +102,8 @@ def _build(arch, dtype):
 def test_prefill_logits_and_every_cache_leaf_match_jax(arch, dtype):
     jcfg, tcfg, params, model = _build(arch, dtype)
     toks = _tokens(jcfg, 1)
-    jlogits, jcache = jax.jit(lambda p, b: M.prefill(jcfg, p, b))(
-        params, {"tokens": jnp.asarray(toks)})
+    jlogits, jcache = _jax_run(lambda p, b: M.prefill(jcfg, p, b), params,
+                               {"tokens": jnp.asarray(toks)})
     logits, cache = model.prefill(torch.from_numpy(toks).long())
     _close(logits, jlogits, dtype, "logits")
     assert cache.len == int(jcache["len"]) == T
@@ -107,7 +116,7 @@ def test_prefill_logits_and_every_cache_leaf_match_jax(arch, dtype):
         for path, jv in jleaves.items():
             tv = tleaves[path]
             assert tuple(tv.shape) == tuple(jv.shape), (i, path)
-            if path.endswith("ssm"):
+            if path.endswith(("ssm", "state")):
                 assert tv.dtype == torch.float32
             _close(tv, jv, dtype, f"layer {i} {path}")
 
@@ -118,8 +127,8 @@ def test_decode_step_logits_match_jax(arch, dtype):
     jcfg, tcfg, params, model = _build(arch, dtype)
     toks = _tokens(jcfg, 2, T + 1)
     pre, last = toks[:, :-1], toks[:, -1:]
-    _, jcache = jax.jit(lambda p, b: M.prefill(jcfg, p, b))(
-        params, {"tokens": jnp.asarray(pre)})
+    _, jcache = _jax_run(lambda p, b: M.prefill(jcfg, p, b), params,
+                         {"tokens": jnp.asarray(pre)})
     full = M.init_cache(jcfg, B, T + 4)
 
     def place(dst, src):  # JAX's cache grown to T + 4 positions
@@ -129,8 +138,8 @@ def test_decode_step_logits_match_jax(arch, dtype):
         return src
 
     jcache = jax.tree.map(place, full, jcache)
-    jlogits, _ = jax.jit(lambda p, c, b: M.decode_step(jcfg, p, c, b))(
-        params, jcache, {"token": jnp.asarray(last)})
+    jlogits, _ = _jax_run(lambda p, c, b: M.decode_step(jcfg, p, c, b),
+                          params, jcache, {"token": jnp.asarray(last)})
     _, cache = model.prefill(torch.from_numpy(pre).long(), max_seq=T + 4)
     logits, cache = model.decode_step(torch.from_numpy(last).long(), cache)
     assert cache.len == T + 1
@@ -230,7 +239,7 @@ def test_smollm_ties_its_embeddings():
     assert m.lm_head is None
 
 
-@pytest.mark.parametrize("name", ["rwkv6-7b", "qwen3-moe-235b-a22b",
+@pytest.mark.parametrize("name", ["dbrx-132b", "qwen3-moe-235b-a22b",
                                   "hubert-xlarge", "gemma3-4b"])
 def test_later_architectures_raise(name):
     with pytest.raises(NotImplementedError):

@@ -22,7 +22,7 @@ STATS_KEYS = {"finished", "avg_latency", "p90_latency", "avg_ttft",
               "runqlat_avg", "runqlat_hist"}
 
 
-@pytest.mark.parametrize("arch", ["zamba2-1.2b", "smollm-135m"])
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "smollm-135m", "rwkv6-7b"])
 def test_greedy_tokens_match_jax(arch):
     jcfg = dataclasses.replace(jget_smoke(arch), dtype=jnp.float32)
     tcfg = dataclasses.replace(tconfigs.get_smoke_config(arch),
@@ -58,6 +58,16 @@ def test_launcher_serves_on_the_cpu(capsys):
     assert stats["finished"] == 5
     assert stats["runqlat_hist"].sum() == 5
     assert "[serve] finished=5" in capsys.readouterr().out
+
+
+def test_launcher_serves_rwkv_on_the_cpu(capsys):
+    stats = tlaunch.main(["--arch", "rwkv6-7b", "--smoke", "--device",
+                          "cpu", "--requests", "5", "--new-tokens", "3",
+                          "--qps", "1000"])
+    assert stats["finished"] == 5
+    assert stats["runqlat_hist"].sum() == 5
+    out = capsys.readouterr().out
+    assert "arch=rwkv6-smoke" in out and "[serve] finished=5" in out
 
 
 def test_launcher_needs_a_card_unless_told_otherwise(monkeypatch):
