@@ -6,7 +6,10 @@ one card).  It imports ``repro_torch`` from ``src/`` and nothing of JAX.
 Phases, each printed with its numbers and wall time:
 
 1. build every CUDA kernel of both paths from
-   ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, in parallel);
+   ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, in parallel),
+   print the registers, shared memory and spills of ``rollout_tick`` and
+   ``flash_attention_sm90`` and the ``HGMMA`` instructions in the latter's
+   SASS (none is a failure);
 2. hold ``runqlat_hist`` against its plain version on the card (main-path
    shapes exactly, a ragged shape with float weights to tolerance) and time
    it beside the plain version and ``scatter_add_`` on a precomputed index;
@@ -30,18 +33,22 @@ Phases, each printed with its numbers and wall time:
    real span and the rest bucket padding), both kernels' counts set to 0
    before and read after; rates are printed over all ticks and over the
    real ones;
-9. ``rollout_tick`` against its plain version on the inputs of the
-   replay's 5,000th batched tick (R = 20,000), kept by an untimed rerun of
-   the replay's first windows, and on a ragged R = 37, and its times
-   beside the plain version's; then the replay's checks: one launch per
-   batched tick, no ``runqlat_hist`` launch, and the seed-7 entry
-   reproducing phase 4's run;
+9. ``rollout_tick`` (``fused_tick_unpacked``, the entry the replay calls,
+   reading the tick's tensors where they lie) against its plain version on
+   the inputs of the replay's 5,000th batched tick (R = 20,000), kept with
+   their strides by an untimed rerun of the replay's first windows, and on
+   a ragged R = 37; its times beside the plain version's and beside the
+   packing it needed before (``pack`` then the packed entry); then the
+   replay's checks: one launch per batched tick, no ``runqlat_hist``
+   launch, and the seed-7 entry reproducing phase 4's run;
 10. a profile of the batched tick at 20 x 1,000 rows, fused and default;
-11. ``flash_attention`` against its plain version at zamba2-1.2b's prefill
-    shapes (B 4, S 1024, H 32, hd 64, bf16, causal) and at a ragged shape
-    (S 1000, 9 heads over 3 KV heads, float32, with and without a sliding
-    window), timed beside the plain version and PyTorch's
-    ``scaled_dot_product_attention``;
+11. ``flash_attention`` against its plain version: the bf16 wgmma/TMA
+    kernel at zamba2-1.2b's prefill shapes (B 4, S 1024, H 32, hd 64,
+    causal), at hd 128 and at a ragged GQA shape (S 1000, 9 heads over 3 KV
+    heads, window 100); the float32 SIMT kernel at that ragged shape with
+    and without the window; each timed beside the plain version and
+    PyTorch's ``scaled_dot_product_attention``, the bf16 ones also beside
+    the earlier SIMT kernel on the same inputs;
 12. ``ssd`` against its plain version (y and final state) at the same
     prefill's shapes (B 4, T 1024, H 64, P 64, N 64, bf16) and at a ragged
     T of 1000, timed beside the plain version;
@@ -105,6 +112,34 @@ def cuda_ms(fn, iters=200, warmup=20):
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(torch, fn, calls=20, replays=10):
+    """Mean device milliseconds per call of ``fn``: ``calls`` calls
+    captured in one CUDA graph, replayed ``replays`` times between CUDA
+    events.  Unlike ``cuda_ms`` this leaves out the host's time between
+    launches, which sets the events' time for a kernel shorter than its
+    wrapper call."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (replays * calls)
+
+
 def phase_kernel(torch, K, card):
     """Kernel vs plain version on the card, and its times at the shapes one
     1,000-node tick gives it (8,000 online and 6,000 offline series of 16)."""
@@ -164,6 +199,44 @@ def phase_kernel(torch, K, card):
         bound_ms=bound_ms, runs=json.dumps(ms))
     return dict(ms=kernel_ms, plain_ms=plain_ms, library_ms=ms["library"],
                 bound_ms=bound_ms, max_abs_err=max_err)
+
+
+def ptxas_summary(log):
+    """Registers, shared memory and spills of each entry ptxas compiled
+    (``-Xptxas -v``), keyed by the entry's (mangled) name."""
+    import re
+
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) "
+                      r"'?(\w+)'?", line)
+        if m:
+            name = m.group(1)
+            out.setdefault(name, {})
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            out[name].update(spill_stores=int(m.group(1)),
+                             spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name]["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            out[name]["static_smem"] = int(sm.group(1)) if sm else 0
+    return out
+
+
+def sass_count(path, opcode):
+    """How many instructions of ``opcode`` ``cuobjdump -sass`` finds in the
+    library at ``path``."""
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    tool = os.path.join(home, "bin", "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    # an instruction line: /*addr*/  OPCODE operands ;  /* encoding */
+    return sum(opcode in line.split("*/", 1)[1].split("/*")[0]
+               for line in sass.splitlines()
+               if line.strip().startswith("/*") and "*/" in line)
 
 
 def loaded_cluster(Cluster, make_fleet, Pod, W, num_nodes, device, seed=0):
@@ -284,19 +357,28 @@ def phase_engine_parity(torch, cstate, texp, plan, card, seeds=(0, 1, 2)):
                 card_vs_cpu_max_rel=worst)
 
 
+def _tick_rows(args, rows):
+    """``fused_tick_unpacked`` arguments cut to their first ``rows`` rows
+    (views: the strides stay those of the replay's tensors)."""
+    fields, *rest = args
+    return [[f[:rows] for f in fields]] + [t[:rows] for t in rest]
+
+
 def phase_fused_kernel(torch, RT, args, card):
-    """``rollout_tick`` against its plain version on one batched tick of
-    the replay (R = 20,000) and a ragged R = 37, then its time beside the
-    plain version's (order plain, kernel, kernel, plain)."""
-    ragged = [a[:37].clone() for a in args]
+    """``rollout_tick`` (the unpacked entry the replay calls) against its
+    plain version on one batched tick of the replay (R = 20,000) and a
+    ragged R = 37, then its time beside the plain version's and beside the
+    packing the kernel needed before (``pack`` then the packed entry)
+    (order plain, kernel, kernel, plain, packed)."""
     worst_rel, max_err = 0.0, 0.0
-    for name, inp in (("main", args), ("ragged", ragged)):
-        got = RT.fused_tick(*inp)
-        want = RT.fused_tick_plain(*inp)
+    for name, inp in (("main", args), ("ragged", _tick_rows(args, 37))):
+        got = RT.fused_tick_unpacked(*inp)
+        want = RT.fused_tick_unpacked_plain(*inp)
         torch.cuda.synchronize()
         if not torch.equal(got[0], want[0]):
             raise AssertionError(f"rollout_tick hist != plain ({name})")
-        if not torch.equal(got[0].sum(-1), inp[2].sum(-1) * 16):
+        act = torch.cat([inp[3], inp[4]], 1).float()
+        if not torch.equal(got[0].sum(-1), act.sum(-1) * 16):
             raise AssertionError(f"rollout_tick totals != 16 x active ({name})")
         for a, b in zip(got[1:], want[1:]):
             rel = float(((a - b).abs() / b.abs().clamp_min(1e-30)).max())
@@ -304,28 +386,41 @@ def phase_fused_kernel(torch, RT, args, card):
             max_err = max(max_err, float((a - b).abs().max()))
         if worst_rel > 1e-6:
             raise AssertionError(f"rollout_tick delay/mean rel {worst_rel}")
-    rows, slots = args[1].shape
-    k = args[3].shape[1] // slots
-    active = int(args[2].count_nonzero())
+    rows, slots = args[0][0].shape[0], args[1].shape[1] + args[2].shape[1]
+    k = args[5].shape[2]
+    active = int(args[3].count_nonzero() + args[4].count_nonzero())
+    # each input read once, each output written once: the eight fields,
+    # the jitter normals and bool masks of every slot, the uniforms of the
+    # active slots only; histogram, delay and means out
     out_bytes = 4 * rows * (200 + 1 + slots)
-    full_bytes = 4 * rows * (8 + 2 * slots + 2 * slots * k) + out_bytes
-    # the uniforms of inactive slots are never read
-    data_bytes = 4 * (rows * (8 + 2 * slots) + 2 * active * k) + out_bytes
-    nops = 12 * active * k + 16 * rows  # per sample: 2 mul, log, div, mul,
-    # div, floor, 2 clamps, cast, add; per row the delay curve
+    data_bytes = (4 * rows * 8 + 5 * rows * slots + 4 * 2 * active * k
+                  + out_bytes)
+    nops = 12 * active * k + 16 * rows + 3 * rows * slots  # per sample: 2
+    # mul, log, div, mul, div, floor, 2 clamps, cast, add; the delay curve
+    # a row; the jitter and mean a slot
     bound_ms = max(data_bytes / HBM_BYTES_PER_S, nops / FP32_OPS_PER_S) * 1e3
-    ms = {}
-    for name, fn in (("plain", lambda: RT.fused_tick_plain(*args)),
-                     ("kernel", lambda: RT.fused_tick(*args)),
-                     ("kernel2", lambda: RT.fused_tick(*args)),
-                     ("plain2", lambda: RT.fused_tick_plain(*args))):
-        ms[name] = cuda_ms(fn)
+    packed = RT.pack(*args)
+    ms = _timed([("plain", lambda: RT.fused_tick_unpacked_plain(*args)),
+                 ("kernel", lambda: RT.fused_tick_unpacked(*args)),
+                 ("kernel2", lambda: RT.fused_tick_unpacked(*args)),
+                 ("plain2", lambda: RT.fused_tick_unpacked_plain(*args)),
+                 ("packed_kernel", lambda: RT.fused_tick(*packed)),
+                 ("pack_and_packed_kernel",
+                  lambda: RT.fused_tick(*RT.pack(*args)))])
+    # the kernel is shorter than its wrapper call, so the events time the
+    # host: the kernel's own time is taken from a CUDA graph of calls
+    dev = {"kernel": graph_ms(torch, lambda: RT.fused_tick_unpacked(*args)),
+           "packed_kernel": graph_ms(torch, lambda: RT.fused_tick(*packed)),
+           "pack_and_packed_kernel": graph_ms(
+               torch, lambda: RT.fused_tick(*RT.pack(*args))),
+           "plain": graph_ms(torch,
+                             lambda: RT.fused_tick_unpacked_plain(*args))}
     return dict(rows=rows, active_slots=active, max_rel_err=worst_rel,
-                max_abs_err=max_err, full_bytes=full_bytes,
-                data_bytes=data_bytes,
-                full_bound_ms=full_bytes / HBM_BYTES_PER_S * 1e3,
-                bound_ms=bound_ms, ms=min(ms["kernel"], ms["kernel2"]),
-                plain_ms=min(ms["plain"], ms["plain2"]), runs=json.dumps(ms))
+                max_abs_err=max_err, data_bytes=data_bytes,
+                bound_ms=bound_ms, ms=dev["kernel"], plain_ms=dev["plain"],
+                call_ms=min(ms["kernel"], ms["kernel2"]),
+                plain_call_ms=min(ms["plain"], ms["plain2"]),
+                device_ms=json.dumps(dev), call_runs=json.dumps(ms))
 
 
 def capture_replay_tick(torch, cstate, texp, RT, plan, seeds, tick, card):
@@ -335,15 +430,20 @@ def capture_replay_tick(torch, cstate, texp, RT, plan, seeds, tick, card):
     inp = texp.replay_inputs(plan, device=card)
     windows = -(-tick // inp["span"])
     grab: dict = {"calls": 0}
-    real_fused_tick = RT.fused_tick
+    real_fused_tick = RT.fused_tick_unpacked
 
-    def keep_one_tick(*args, **kw):
+    def keep_one_tick(fields, *args, **kw):
         grab["calls"] += 1
-        if grab["calls"] == tick:
-            grab["args"] = [a.clone() for a in args]
-        return real_fused_tick(*args, **kw)
+        if grab["calls"] == tick:   # clones keep the strides of the views
+            grab["args"] = [[keep(f) for f in fields]] + [keep(a)
+                                                          for a in args]
+        return real_fused_tick(fields, *args, **kw)
 
-    RT.fused_tick = keep_one_tick
+    def keep(t):
+        return torch.empty_strided(t.shape, t.stride(), dtype=t.dtype,
+                                   device=t.device).copy_(t)
+
+    RT.fused_tick_unpacked = keep_one_tick
     try:
         cstate.batched_rollout(
             inp["state"], inp["profiles"], 0.0,
@@ -351,7 +451,7 @@ def capture_replay_tick(torch, cstate, texp, RT, plan, seeds, tick, card):
             {k: v[:windows] for k, v in inp["events"].items()},
             fleet=inp["fleet"], use_fused=True)
     finally:
-        RT.fused_tick = real_fused_tick
+        RT.fused_tick_unpacked = real_fused_tick
     return grab["args"]
 
 
@@ -414,15 +514,43 @@ def _timed(fns):
 KERNEL_TOL = {"bfloat16": (1e-2, 1e-2), "float32": (2e-5, 2e-5)}
 
 
-def phase_flash_kernel(torch, FA, card):
-    """``flash_attention`` against its plain version at the serve phase's
-    prefill shapes and a ragged GQA shape with and without a window, each
-    timed beside the plain version and SDPA (order plain, kernel, kernel,
-    plain, library)."""
+def _simt_flash(torch, build, q, k, v, causal, window):
+    """The SIMT kernel (``csrc/flash_attention.cu``) on bf16 inputs, called
+    directly: the port routes bf16 to the wgmma kernel since it replaced
+    this one, and this keeps the earlier kernel's time beside the new one
+    in the same run."""
+    import ctypes
+
+    fn = build.load("flash_attention").flash_attention_launch
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = torch.empty_like(q)
+    B, S, H, hd = q.shape
+    dev, stream = build.device_and_stream(q)
+
+    def run():
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B,
+                 S, H, k.shape[2], hd, int(causal), window, 1, dev, stream)
+        if err:
+            raise RuntimeError(f"SIMT flash launch failed: {err}")
+        return out
+    return run
+
+
+def phase_flash_kernel(torch, FA, build, card):
+    """``flash_attention`` against its plain version: bf16 (the wgmma/TMA
+    kernel) at the serve phase's prefill shapes, at hd 128 and at a ragged
+    GQA shape with a window; float32 (the SIMT kernel) at the ragged shape
+    with and without the window.  Each timed beside the plain version and
+    SDPA (order plain, kernel, kernel, plain, library); the bf16 ones also
+    beside the earlier SIMT kernel on the same inputs."""
     import torch.nn.functional as F
 
     g = torch.Generator(device=card).manual_seed(1)
     cases = [("main", 4, 1024, 32, 32, 64, torch.bfloat16, 0),
+             ("main_hd128", 4, 1024, 16, 16, 128, torch.bfloat16, 0),
+             ("ragged_bf16", 1, 1000, 9, 3, 64, torch.bfloat16, 100),
              ("ragged", 1, 1000, 9, 3, 64, torch.float32, 0),
              ("ragged_window", 1, 1000, 9, 3, 64, torch.float32, 100)]
     out = {}
@@ -441,7 +569,7 @@ def phase_flash_kernel(torch, FA, card):
         keep = (i[:, None] >= i[None, :]) & (
             i[None, :] > i[:, None] - window - 1 if window else True)
         sdpa = dict(is_causal=True) if not window else dict(attn_mask=keep)
-        ms = _timed([
+        fns = [
             ("plain", lambda: FA.flash_attention_plain(
                 q, k, v, sliding_window=window)),
             ("kernel", lambda: FA.flash_attention(
@@ -451,7 +579,16 @@ def phase_flash_kernel(torch, FA, card):
             ("plain2", lambda: FA.flash_attention_plain(
                 q, k, v, sliding_window=window)),
             ("library", lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, enable_gqa=KV != H, **sdpa))])
+                qt, kt, vt, enable_gqa=KV != H, **sdpa))]
+        extra = {}
+        if dtype == torch.bfloat16:
+            simt = _simt_flash(torch, build, q, k, v, True, window)
+            extra["simt_max_abs_err"] = _close(torch, simt(), want, rtol,
+                                               atol, f"SIMT flash {name}")
+            fns.append(("simt", simt))
+        ms = _timed(fns)
+        if dtype == torch.bfloat16:
+            extra["simt_ms"] = ms["simt"]
         nbytes = q.element_size() * 2 * (q.numel() + k.numel())  # q,k,v; o
         pairs = int(keep.sum())                    # attended (query, key)
         nops = 4 * hd * B * H * pairs              # QK^T and PV
@@ -459,12 +596,14 @@ def phase_flash_kernel(torch, FA, card):
         byte_ms, op_ms = nbytes / HBM_BYTES_PER_S * 1e3, nops / peak * 1e3
         out[name] = dict(
             shape=f"B{B} S{S} H{H}/{KV} hd{hd} {dtype} window{window}",
+            kernel=("flash_attention_sm90" if dtype == torch.bfloat16
+                    else "flash_attention"),
             max_abs_err=err, bytes=nbytes, flops=nops,
             bound_ms=max(byte_ms, op_ms),
             bound_by="bytes" if byte_ms >= op_ms else "operations",
             ms=min(ms["kernel"], ms["kernel2"]),
             plain_ms=min(ms["plain"], ms["plain2"]),
-            library_ms=ms["library"], runs=json.dumps(ms))
+            library_ms=ms["library"], **extra, runs=json.dumps(ms))
     return out
 
 
@@ -862,10 +1001,17 @@ def main() -> int:
 
     # 1. build ------------------------------------------------------------
     with timers.phase("build"):
-        build.build(["runqlat_hist", "rollout_tick", "flash_attention",
-                     "ssd", "wkv"])
+        libs = build.build(["runqlat_hist", "rollout_tick", "flash_attention",
+                            "flash_attention_sm90", "ssd", "wkv"])
     done("build", ptxas=json.dumps({
         k: v.strip().splitlines()[-2:] for k, v in build.build_logs.items()}))
+    for name in ("rollout_tick", "flash_attention_sm90"):
+        say("build", kernel=name, ptxas=json.dumps(
+            ptxas_summary(build.build_logs.get(name, ""))))
+    hgmma = sass_count(libs["flash_attention_sm90"], "HGMMA")
+    say("build", flash_attention_sm90_hgmma_instructions=hgmma)
+    if hgmma == 0:
+        raise AssertionError("no HGMMA in flash_attention_sm90's SASS")
 
     # 2. kernel against its plain version ---------------------------------
     with timers.phase("kernel"):
@@ -1011,6 +1157,7 @@ def main() -> int:
                                 * fleet.num_nodes / rwall),
          max_memory_allocated=torch.cuda.max_memory_allocated(),
          rollout_tick_launches=fused_launches,
+         rollout_tick_launches_per_batched_tick=fused_launches / bticks,
          runqlat_hist_launches=hist_launches,
          p99_mean=float(p99.mean()), p99_std=float(p99.std()),
          seed7=json.dumps({k: by_seed[7][k]
@@ -1049,7 +1196,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     with timers.phase("flash_kernel"):
-        flash = phase_flash_kernel(torch, FA, card)
+        flash = phase_flash_kernel(torch, FA, build, card)
     for name, nums in flash.items():
         say("flash_kernel", case=name, **nums)
     done("flash_kernel")
@@ -1105,7 +1252,7 @@ def main() -> int:
         "bound_ms": fnums["bound_ms"], "bound_by": "bytes",
         "library_ms": None}, {
         "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
         "replaces": "src/repro/kernels/flash_attention.py:81",
         "launches": serve["flash_attention_launches"],
         "max_abs_err": max(c["max_abs_err"] for c in flash.values()),

@@ -779,24 +779,6 @@ def extract_plan(log, t0: float, num_windows: int,
 # --------------------------------------------------------------------------
 
 
-def _fused_args(st: ClusterState, fleet: FleetParams, ld: dict,
-                noise: TickNoise):
-    """The ``rollout_tick`` kernel's packed inputs for one tick (JAX
-    ``_tick_pallas``'s layout): ``nodev`` (R, 8), jitter and active masks
-    (R, S_ON + S_OFF), the two uniforms of each sample (R, 224) each."""
-    rows = st.num_nodes
-    nodev = torch.stack(
-        [ld["rho_p"], ld["threads_total"], st.cpu_sum, fleet.delay_base,
-         fleet.delay_scale, fleet.rho_knee, fleet.oversub_slope, noise.delay],
-        dim=-1)
-    jit_all = 1.0 + 0.18 * torch.cat([noise.jit_on, noise.jit_off], 1)
-    act_all = torch.cat([st.on_active, st.off_active], 1).float()
-    u = torch.cat([noise.u_on.reshape(rows, -1, 2),
-                   noise.u_off.reshape(rows, -1, 2)], dim=1)
-    return (nodev, jit_all, act_all, u[..., 0].contiguous(),
-            u[..., 1].contiguous())
-
-
 def _tick_fused(st: ClusterState, profiles, fleet: FleetParams, t,
                 noise: TickNoise):
     """``_tick`` with the delay curve, the Erlang(2) draw and the node
@@ -805,11 +787,15 @@ def _tick_fused(st: ClusterState, profiles, fleet: FleetParams, t,
     It reads the same ``TickNoise`` bundle and the same load and RT model
     as ``_tick``, so the two paths compute on the same draws.  Only the
     lite outputs the window scan reads are produced: RT, QPS, CPU and
-    memory utilization, node histogram.
+    memory utilization, node histogram.  The kernel reads the fields, the
+    masks and the noise bundle where they lie: nothing is packed for it.
     """
     ld = _load(st, profiles, t, noise)
-    node_hist, _delay, mean_all = rollout_tick.fused_tick(
-        *_fused_args(st, fleet, ld, noise), gamma_shape=GAMMA_SHAPE,
+    node_hist, _delay, mean_all = rollout_tick.fused_tick_unpacked(
+        (ld["rho_p"], ld["threads_total"], st.cpu_sum, fleet.delay_base,
+         fleet.delay_scale, fleet.rho_knee, fleet.oversub_slope, noise.delay),
+        noise.jit_on, noise.jit_off, st.on_active, st.off_active, noise.u_on,
+        noise.u_off, gamma_shape=GAMMA_SHAPE,
         clip_max=2.5 * metric.OVERFLOW_EDGE)
     rt, _ = _online_rt(st, profiles, ld["qps"], mean_all[:, :S_ON],
                        ld["mem_used"], noise)

@@ -5,16 +5,20 @@ flash_attention_pallas`` (body ``_flash_kernel``): forward attention over
 (B, S, H, hd) queries with an online softmax in float32, scale
 ``1 / sqrt(hd)``, causal and sliding-window masks (``-1e30`` for masked
 scores), the KV loop stopped at the causal frontier, and the output in
-q's type.  The kernel is CUDA C++ in ``csrc/flash_attention.cu`` (design
-and bound are noted there).  It reads KV head ``h // (H // KV)`` for query
-head ``h``, which is the same function as JAX's ``_repeat_kv`` followed by
-the TPU kernel, and masks a ragged tail itself, so any S works.
+q's type.  Two CUDA C++ kernels compute it (design and bound are noted in
+each): bfloat16 inputs go to ``csrc/flash_attention_sm90.cu`` (wgmma on
+the tensor cores, fed by TMA; P is rounded to bf16 for O += P V), float32
+inputs to ``csrc/flash_attention.cu`` (products on the float32 CUDA
+cores, which keep the TPU kernel's float32 arithmetic).  Each reads KV
+head ``h // (H // KV)`` for query head ``h``, which is the same function as
+JAX's ``_repeat_kv`` followed by the TPU kernel, and masks a ragged tail
+itself, so any S works.
 
 For tensors on the CPU the wrapper takes ``flash_attention_plain``, exact
 masked-softmax attention in float32 (``ref.flash_attention_ref`` with GQA
 and the TPU kernel's masks).  For CUDA tensors it launches the kernel or
-raises: there is no fallback.  ``launches`` counts kernel launches and
-nothing else.
+raises: there is no fallback, and no kernel is tried after another.
+``launches`` counts kernel launches of either kernel and nothing else.
 """
 from __future__ import annotations
 
@@ -72,10 +76,19 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"sliding_window must be >= 0, got {sliding_window}")
 
 
-def _entry():
-    fn = build.load("flash_attention").flash_attention_launch
+# bf16 takes the wgmma/TMA kernel, float32 the SIMT one (its products in
+# full float32, which TF32 tensor cores would not keep)
+_ENTRIES = {torch.bfloat16: ("flash_attention_sm90",
+                             "flash_attention_sm90_launch"),
+            torch.float32: ("flash_attention", "flash_attention_launch")}
+
+
+def _entry(dtype):
+    lib, name = _ENTRIES[dtype]
+    fn = getattr(build.load(lib), name)
     if fn.argtypes is None:  # pointers and the stream as c_void_p, not int
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [
+        ints = 8 if dtype == torch.bfloat16 else 9  # + dtype for the SIMT one
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * ints + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
@@ -95,14 +108,16 @@ def _launch(q, k, v, causal: bool, sliding_window: int) -> torch.Tensor:
                              "aligned")
     if max(q.numel(), k.numel()) >= 2**31:
         raise ValueError("flash_attention: too large for 32-bit indexing")
-    fn = _entry()
+    fn = _entry(q.dtype)
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
     dev, stream = build.device_and_stream(q)
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S,
-             H, k.shape[2], hd, int(causal), sliding_window, _DTYPES[q.dtype],
-             dev, stream)
+    head = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, H,
+            k.shape[2], hd, int(causal), sliding_window]
+    if q.dtype == torch.float32:
+        head.append(_DTYPES[q.dtype])
+    err = fn(*head, dev, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
     launches += 1

@@ -1,26 +1,33 @@
 """The fused rollout-tick kernel: wrapper, plain version and launch count.
 
 ``fused_tick`` is the port of ``repro/kernels/rollout_tick.py::fused_tick``
-(body ``_tick_kernel``): one tick's per-node delay curve, Erlang(2) runqlat
-draw and node histogram in one pass.  The kernel itself is CUDA C++ in
-``csrc/rollout_tick.cu`` (design and bound are noted there).  Inputs are
-packed as the JAX kernel takes them (``cluster.state._tick_fused`` packs
-them from one tick's state and noise):
+(body ``_tick_kernel``): one tick's per-node delay curve, Erlang(2)
+runqlat draw and node histogram in one pass.  The kernel itself is CUDA C++
+in ``csrc/rollout_tick.cu`` (design and bound are noted there).  It has two
+entries over the same kernel:
 
-* ``nodev`` (R, 8) -- [rho_p, threads_total, cores, delay_base,
-  delay_scale, rho_knee, oversub_slope, delay_noise] per node row
-* ``jit_all`` (R, S) -- per-slot pod jitter, online slots first
-* ``act_all`` (R, S) -- slot-active mask as float32
-* ``u1`` / ``u2`` (R, S*K) -- Erlang(2) uniforms, K samples per slot
+* ``fused_tick_unpacked`` reads the tick's tensors where they lie, as
+  ``cluster.state._tick_fused`` has them: eight (R,) fields (rho_p,
+  threads_total, cores, delay_base, delay_scale, rho_knee, oversub_slope,
+  delay noise; any stride), the jitter normals and bool active masks of the
+  online and offline slots (R, S_kind) and their uniforms (R, S_kind, K,
+  2), each with any row stride.  This is the main path: no packing.
+* ``fused_tick`` takes the inputs packed as the JAX kernel takes them:
 
-Outputs: node histogram (R, 200), clipped delay (R,), per-slot runqlat
-mean (R, S), all float32.
+  * ``nodev`` (R, 8) -- the eight fields above per node row
+  * ``jit_all`` (R, S) -- per-slot pod jitter ``1 + 0.18 x``, online first
+  * ``act_all`` (R, S) -- slot-active mask as float32
+  * ``u1`` / ``u2`` (R, S*K) -- Erlang(2) uniforms, K samples per slot
 
-For tensors on the CPU the wrapper takes ``fused_tick_plain``, the same
-math in torch operations (binning with ``scatter_add_``, not the JAX
-reference's (R, S*K, 200) one-hot).  For CUDA tensors it launches the
-kernel or raises: there is no fallback.  ``launches`` counts kernel
-launches and nothing else.
+``pack`` turns the first form into the second.  Outputs: node histogram
+(R, 200), clipped delay (R,), per-slot runqlat mean (R, S), all float32.
+
+For tensors on the CPU each wrapper takes its plain version
+(``fused_tick_plain``, the same math in torch operations, binning with
+``scatter_add_``, not the JAX reference's (R, S*K, 200) one-hot;
+``fused_tick_unpacked_plain`` is ``pack`` then ``fused_tick_plain``).  For
+CUDA tensors it launches the kernel or raises: there is no fallback.
+``launches`` counts kernel launches of either entry and nothing else.
 """
 from __future__ import annotations
 
@@ -36,6 +43,7 @@ from repro_torch.kernels.runqlat_hist import (
 )
 
 NODE_FIELDS = 8
+MAX_SLOTS = 32  # slots a row the kernel lists (kMaxSlots)
 CLIP_MAX = 2.5 * (NUM_BINS - 1) * BIN_WIDTH
 
 launches = 0
@@ -85,39 +93,108 @@ def _check(nodev, jit_all, act_all, u1, u2) -> None:
         raise ValueError(
             f"fused_tick: u1 and u2 must both be ({rows}, {slots}*K), got "
             f"{tuple(u1.shape)} and {tuple(u2.shape)}")
-    if u1.numel() >= 2**31:
-        raise ValueError("fused_tick: inputs too large for 32-bit indexing")
+    if slots > MAX_SLOTS:
+        raise ValueError(f"fused_tick: at most {MAX_SLOTS} slots a row, got "
+                         f"{slots}")
+
+
+class _SlotKind(ctypes.Structure):
+    """``SlotKind`` of ``csrc/rollout_tick.cu``: one slot kind's tensors."""
+    _fields_ = [("jit", ctypes.c_void_p), ("act", ctypes.c_void_p),
+                ("u1", ctypes.c_void_p), ("u2", ctypes.c_void_p),
+                ("jit_stride", ctypes.c_longlong),
+                ("act_stride", ctypes.c_longlong),
+                ("u_stride", ctypes.c_longlong), ("slots", ctypes.c_int)]
+
+
+class _TickArgs(ctypes.Structure):
+    """``TickArgs`` of ``csrc/rollout_tick.cu``, passed by value."""
+    _fields_ = [("field", ctypes.c_void_p * NODE_FIELDS),
+                ("field_stride", ctypes.c_longlong * NODE_FIELDS),
+                ("kind", _SlotKind * 2), ("hist", ctypes.c_void_p),
+                ("delay", ctypes.c_void_p), ("mean", ctypes.c_void_p),
+                ("rows", ctypes.c_int), ("k", ctypes.c_int),
+                ("u_step", ctypes.c_int), ("jit_raw", ctypes.c_int),
+                ("act_bool", ctypes.c_int), ("vec4", ctypes.c_int),
+                ("gamma_shape", ctypes.c_float), ("clip_max", ctypes.c_float)]
 
 
 def _entry():
     fn = build.load("rollout_tick").rollout_tick_launch
-    if fn.argtypes is None:  # pointers and the stream as c_void_p, not int
-        fn.argtypes = [ctypes.c_void_p] * 8 + [
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-            ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    if fn.argtypes is None:  # the stream as c_void_p, not int
+        fn.argtypes = [_TickArgs, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(nodev, jit_all, act_all, u1, u2, gamma_shape, clip_max):
+def _outputs(rows, slots, device):
+    return (torch.empty((rows, NUM_BINS), dtype=torch.float32, device=device),
+            torch.empty((rows,), dtype=torch.float32, device=device),
+            torch.empty((rows, slots), dtype=torch.float32, device=device))
+
+
+def _tick_args(fields, kinds, outs, *, k, u_step, jit_raw, act_bool,
+               gamma_shape, clip_max) -> _TickArgs:
+    """The kernel's arguments from plain integers (this runs once a tick on
+    a host-bound path).  ``fields``: eight (pointer, stride) pairs;
+    ``kinds``: two (jit, act, u1, u2, jit_stride, act_stride, u_stride,
+    slots) tuples, u1/u2 pointing at the first and second draw of the
+    kind's first sample; ``outs``: hist, delay, mean.  Strides are in
+    elements."""
+    vec4 = k % 4 == 0
+    for _, _, p1, p2, _, _, u_stride, _ in kinds:
+        # interleaved draws load (u1, u2) pairs from u1 alone
+        vec4 = vec4 and p1 % 16 == 0 and u_stride % 4 == 0 and (
+            u_step == 2 or p2 % 16 == 0)
+    ptrs, strides = zip(*fields)
+    return _TickArgs(
+        (ctypes.c_void_p * NODE_FIELDS)(*ptrs),
+        (ctypes.c_longlong * NODE_FIELDS)(*strides),
+        (_SlotKind * 2)(*(_SlotKind(*kind) for kind in kinds)),
+        outs[0].data_ptr(), outs[1].data_ptr(), outs[2].data_ptr(),
+        outs[1].shape[0], k, u_step, jit_raw, act_bool, int(vec4),
+        gamma_shape, clip_max)
+
+
+def _run(args: _TickArgs, device_tensor, outs):
     global launches
     fn = _entry()
-    rows, slots = jit_all.shape
-    dev = nodev.device
-    hist = torch.empty((rows, NUM_BINS), dtype=torch.float32, device=dev)
-    delay = torch.empty((rows,), dtype=torch.float32, device=dev)
-    mean = torch.empty((rows, slots), dtype=torch.float32, device=dev)
-    if rows == 0:
-        return hist, delay, mean
-    index, stream = build.device_and_stream(nodev)
-    err = fn(nodev.data_ptr(), jit_all.data_ptr(), act_all.data_ptr(),
-             u1.data_ptr(), u2.data_ptr(), hist.data_ptr(), delay.data_ptr(),
-             mean.data_ptr(), rows, slots, u1.shape[1] // slots,
-             float(gamma_shape), float(clip_max), index, stream)
+    if args.rows == 0:
+        return outs
+    index, stream = build.device_and_stream(device_tensor)
+    err = fn(args, index, stream)
     if err != 0:
         raise RuntimeError(f"rollout_tick launch failed: CUDA error {err}")
     launches += 1
-    return hist, delay, mean
+    return outs
+
+
+def _packed_args(nodev, jit_all, act_all, u1, u2, outs, gamma_shape,
+                 clip_max) -> _TickArgs:
+    """Arguments for the packed layout: the online kind takes all S slots,
+    the offline kind none."""
+    slots, n = jit_all.shape[1], u1.shape[1]
+    p = nodev.data_ptr()
+    fields = [(p + 4 * f, NODE_FIELDS) for f in range(NODE_FIELDS)]
+    kinds = [(jit_all.data_ptr(), act_all.data_ptr(), u1.data_ptr(),
+              u2.data_ptr(), slots, slots, n, slots),
+             (jit_all.data_ptr(), act_all.data_ptr(), u1.data_ptr(),
+              u2.data_ptr(), slots, slots, n, 0)]
+    return _tick_args(fields, kinds, outs, k=n // slots, u_step=1, jit_raw=0,
+                      act_bool=0, gamma_shape=gamma_shape, clip_max=clip_max)
+
+
+def _unpacked_args(fields, jit_on, jit_off, on_active, off_active, u_on,
+                   u_off, outs, gamma_shape, clip_max) -> _TickArgs:
+    """Arguments for the tick's own tensors, read where they lie: the second
+    draw of a sample sits one float after the first."""
+    kinds = [(jit.data_ptr(), act.data_ptr(), u.data_ptr(), u.data_ptr() + 4,
+              jit.stride(0), act.stride(0), u.stride(0), jit.shape[1])
+             for jit, act, u in ((jit_on, on_active, u_on),
+                                 (jit_off, off_active, u_off))]
+    return _tick_args([(t.data_ptr(), t.stride(0)) for t in fields], kinds,
+                      outs, k=u_on.shape[2], u_step=2, jit_raw=1, act_bool=1,
+                      gamma_shape=gamma_shape, clip_max=clip_max)
 
 
 def fused_tick(nodev, jit_all, act_all, u1, u2, *, gamma_shape: float = 2.0,
@@ -132,4 +209,88 @@ def fused_tick(nodev, jit_all, act_all, u1, u2, *, gamma_shape: float = 2.0,
                                 gamma_shape=gamma_shape, clip_max=clip_max)
     if nodev.device.type != "cuda":
         raise ValueError(f"fused_tick: unsupported device {nodev.device}")
-    return _launch(nodev, jit_all, act_all, u1, u2, gamma_shape, clip_max)
+    outs = _outputs(*jit_all.shape, nodev.device)
+    return _run(_packed_args(nodev, jit_all, act_all, u1, u2, outs,
+                             gamma_shape, clip_max), nodev, outs)
+
+
+def pack(fields, jit_on, jit_off, on_active, off_active, u_on, u_off):
+    """The packed inputs of ``fused_tick`` from the tick's own tensors (JAX
+    ``_tick_pallas``'s layout): ``nodev`` (R, 8), jitter and active masks
+    (R, S_ON + S_OFF), the two uniforms of each sample (R, S*K) each."""
+    rows = jit_on.shape[0]
+    nodev = torch.stack(list(fields), dim=-1)
+    jit_all = 1.0 + 0.18 * torch.cat([jit_on, jit_off], 1)
+    act_all = torch.cat([on_active, off_active], 1).float()
+    u = torch.cat([u_on.reshape(rows, -1, 2), u_off.reshape(rows, -1, 2)],
+                  dim=1)
+    return (nodev, jit_all, act_all, u[..., 0].contiguous(),
+            u[..., 1].contiguous())
+
+
+def fused_tick_unpacked_plain(fields, jit_on, jit_off, on_active, off_active,
+                              u_on, u_off, *, gamma_shape: float = 2.0,
+                              clip_max: float = CLIP_MAX):
+    """Plain version of ``fused_tick_unpacked``: ``pack``, then
+    ``fused_tick_plain``."""
+    return fused_tick_plain(
+        *pack(fields, jit_on, jit_off, on_active, off_active, u_on, u_off),
+        gamma_shape=gamma_shape, clip_max=clip_max)
+
+
+def _check_unpacked(fields, jits, actives, us) -> None:
+    if len(fields) != NODE_FIELDS:
+        raise ValueError(f"fused_tick_unpacked: {NODE_FIELDS} fields "
+                         f"expected, got {len(fields)}")
+    rows = fields[0].shape[0] if fields[0].dim() == 1 else -1
+    device = fields[0].device
+    tensors = [*fields, *jits, *actives, *us]
+    if any(t.device != device for t in tensors):
+        raise ValueError("fused_tick_unpacked: every input must be on one "
+                         "device")
+    if any(t.shape != (rows,) or t.dtype != torch.float32 for t in fields):
+        raise ValueError("fused_tick_unpacked: the fields must be (R,) "
+                         "float32")
+    k = us[0].shape[2] if us[0].dim() == 4 else 0
+    for jit, act, u in zip(jits, actives, us):
+        slots = jit.shape[1] if jit.dim() == 2 else -1
+        if (jit.shape != (rows, slots) or jit.dtype != torch.float32
+                or act.shape != (rows, slots) or act.dtype != torch.bool
+                or u.shape != (rows, slots, k, 2) or k == 0
+                or u.dtype != torch.float32):
+            raise ValueError(
+                f"fused_tick_unpacked: jitter (R, S) float32, active (R, S) "
+                f"bool and uniforms (R, S, K, 2) float32 expected, got "
+                f"{tuple(jit.shape)} {jit.dtype}, {tuple(act.shape)} "
+                f"{act.dtype}, {tuple(u.shape)} {u.dtype}")
+        if (slots > 1 and (jit.stride(1) != 1 or act.stride(1) != 1)) or \
+                u.stride()[1:] != (2 * k, 2, 1):
+            raise ValueError("fused_tick_unpacked: each row of jitter, mask "
+                             "and uniforms must be contiguous")
+    slots = jits[0].shape[1] + jits[1].shape[1]
+    if slots == 0 or slots > MAX_SLOTS:
+        raise ValueError(f"fused_tick_unpacked: 1 to {MAX_SLOTS} slots a row, "
+                         f"got {slots}")
+
+
+def fused_tick_unpacked(fields, jit_on, jit_off, on_active, off_active, u_on,
+                        u_off, *, gamma_shape: float = 2.0,
+                        clip_max: float = CLIP_MAX):
+    """``fused_tick`` on the tick's tensors where they lie (see the module
+    note).  Returns ``(hist (R, 200), delay (R,), mean (R, S_ON + S_OFF))``.
+    """
+    fields = list(fields)
+    _check_unpacked(fields, (jit_on, jit_off), (on_active, off_active),
+                    (u_on, u_off))
+    device = fields[0].device
+    if device.type == "cpu":
+        return fused_tick_unpacked_plain(
+            fields, jit_on, jit_off, on_active, off_active, u_on, u_off,
+            gamma_shape=gamma_shape, clip_max=clip_max)
+    if device.type != "cuda":
+        raise ValueError(f"fused_tick_unpacked: unsupported device {device}")
+    outs = _outputs(jit_on.shape[0], jit_on.shape[1] + jit_off.shape[1],
+                    device)
+    return _run(_unpacked_args(fields, jit_on, jit_off, on_active, off_active,
+                               u_on, u_off, outs, gamma_shape, clip_max),
+                fields[0], outs)

@@ -151,6 +151,40 @@ def test_fused_kernel_equals_plain(card, rows):
     torch.testing.assert_close(mean, want[2], rtol=1e-6, atol=0)
 
 
+def _unpacked_tick(rows, seed, device):
+    """``fused_tick_unpacked`` inputs as ``_tick_fused`` hands them over:
+    (R,) fields, the delay column of a noise bundle's normals block, its
+    jitter and uniform views (the bulk draws' row strides), bool masks."""
+    nodev = _packed_tick(rows, seed, device)[0]
+    gen = torch.Generator(device=device).manual_seed(seed)
+    noise = tstate.draw_noise(gen, rows, 1)[0]
+    g = torch.Generator().manual_seed(seed + 1)
+    on = (torch.rand((rows, tstate.S_ON), generator=g) < 0.6).to(device)
+    off = (torch.rand((rows, tstate.S_OFF), generator=g) < 0.4).to(device)
+    fields = [nodev[:, f].contiguous() for f in range(7)] + [noise.delay]
+    return (fields, noise.jit_on, noise.jit_off, on, off, noise.u_on,
+            noise.u_off)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [20000, 37])
+def test_unpacked_fused_kernel_equals_plain(card, rows):
+    """The main path's entry, reading the tick's tensors where they lie:
+    histograms bit for bit, delay and mean within 1e-6 relative."""
+    inp = _unpacked_tick(rows, rows, card)
+    assert not inp[5].is_contiguous()
+    before = RT.launches
+    hist, delay, mean = RT.fused_tick_unpacked(*inp)
+    torch.cuda.synchronize()
+    assert RT.launches == before + 1
+    want = RT.fused_tick_unpacked_plain(*inp)
+    torch.testing.assert_close(hist, want[0], rtol=0, atol=0)
+    act = torch.cat([inp[3], inp[4]], 1).float()
+    torch.testing.assert_close(hist.sum(-1), act.sum(-1) * 16, rtol=0, atol=0)
+    torch.testing.assert_close(delay, want[1], rtol=1e-6, atol=0)
+    torch.testing.assert_close(mean, want[2], rtol=1e-6, atol=0)
+
+
 @pytest.mark.cuda
 def test_fused_cuda_tensor_never_takes_the_plain_version(card, monkeypatch):
     def refuse(*a, **k):
@@ -264,6 +298,28 @@ def test_flash_kernel_equals_plain(card, exact_f32, B, S, H, KV, hd, dtype,
                                     sliding_window=window)
     assert got.dtype == dtype and got.shape == q.shape
     torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,KV,B", [(32, 32, 4), (9, 3, 1)])
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0),
+                                           (True, 100)])
+@pytest.mark.parametrize("S", [1024, 1000, 77, 1])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_sm90_kernel_equals_plain(card, exact_f32, hd, S, causal,
+                                        window, H, KV, B):
+    """The bf16 wgmma/TMA kernel against its plain version at the bf16
+    limits of ``chip_smoke.py`` (its P is rounded to bf16 before P V)."""
+    q, k, v = _qkv(B, S, H, KV, hd, torch.bfloat16, card, seed=S + hd + H)
+    before = FA.launches
+    got = FA.flash_attention(q, k, v, causal=causal, sliding_window=window)
+    torch.cuda.synchronize()
+    assert FA.launches == before + 1
+    want = FA.flash_attention_plain(q, k, v, causal=causal,
+                                    sliding_window=window)
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(),
+                               **FLASH_TOL[torch.bfloat16])
 
 
 @pytest.mark.cuda

@@ -145,3 +145,62 @@ def test_wrapper_rejects_bad_inputs(bad):
     with pytest.raises(ValueError):
         FA.flash_attention(q, k, v, sliding_window=-1 if bad == "window"
                            else 0)
+
+
+@pytest.mark.parametrize("dtype,lib,symbol,ints", [
+    ("bfloat16", "flash_attention_sm90", "flash_attention_sm90_launch", 8),
+    ("float32", "flash_attention", "flash_attention_launch", 9),
+])
+def test_launch_routes_by_dtype(monkeypatch, dtype, lib, symbol, ints):
+    """bf16 goes to the wgmma/TMA kernel, float32 to the SIMT one; one
+    launch, counted once, and nothing else is tried."""
+    calls = []
+
+    class Fn:
+        argtypes = None
+
+        def __call__(self, *args):
+            calls.append((lib_name[0], args))
+            return 0
+
+    lib_name = []
+
+    class Lib:
+        def __init__(self, name):
+            self.name = name
+
+        def __getattr__(self, attr):
+            if attr != symbol:
+                raise AttributeError(attr)
+            lib_name.append(self.name)
+            return fns.setdefault(attr, Fn())
+
+    fns = {}
+    monkeypatch.setattr(FA.build, "load", Lib)
+    monkeypatch.setattr(FA.build, "device_and_stream", lambda t: (0, 7))
+    _, (q, k, v) = _qkv(2, 40, 4, 2, 64, 5, dtype)
+    before = FA.launches
+    out = FA._launch(q, k, v, True, 16)
+    assert FA.launches == before + 1
+    assert out.shape == q.shape and out.dtype == q.dtype
+    assert len(calls) == 1 and calls[0][0] == lib
+    args = calls[0][1]
+    assert len(fns[symbol].argtypes) == 4 + ints + 1
+    assert args[4:11] == (2, 40, 4, 2, 64, 1, 16) and args[-2:] == (0, 7)
+    assert len(args) == 4 + ints + 1
+
+
+def test_launch_raises_on_a_failed_launch(monkeypatch):
+    class Lib:
+        def __getattr__(self, attr):
+            fn = lambda *a: 719  # noqa: E731
+            fn.argtypes = None
+            return fn
+
+    monkeypatch.setattr(FA.build, "load", lambda name: Lib())
+    monkeypatch.setattr(FA.build, "device_and_stream", lambda t: (0, 0))
+    _, (q, k, v) = _qkv(1, 16, 2, 2, 64, 6, "bfloat16")
+    before = FA.launches
+    with pytest.raises(RuntimeError, match="719"):
+        FA._launch(q, k, v, True, 0)
+    assert FA.launches == before

@@ -116,3 +116,107 @@ def test_bad_inputs_raise(bad):
         t["nodev"] = t["nodev"].reshape(-1)
     with pytest.raises(ValueError):
         K.fused_tick(t["nodev"], t["jit_all"], t["act_all"], t["u1"], t["u2"])
+
+
+def _unpacked(rows: int, seed: int) -> tuple:
+    """The tick's own tensors as ``_tick_fused`` hands them over: fields
+    (R,), a normals column and noise-bundle views with the bulk draws' row
+    strides, bool masks."""
+    from repro_torch.cluster import state as tstate
+
+    inp = _inputs(rows, seed)
+    gen = torch.Generator().manual_seed(seed)
+    noise = tstate.draw_noise(gen, rows, 1)[0]
+    nodev = torch.as_tensor(inp["nodev"])
+    fields = [nodev[:, f].contiguous() for f in range(7)] + [noise.delay]
+    rng = np.random.default_rng(seed)
+    on = torch.as_tensor(rng.uniform(size=(rows, tstate.S_ON)) < 0.6)
+    off = torch.as_tensor(rng.uniform(size=(rows, tstate.S_OFF)) < 0.4)
+    return (fields, noise.jit_on, noise.jit_off, on, off, noise.u_on,
+            noise.u_off)
+
+
+@pytest.mark.parametrize("rows,seed", [(5, 0), (37, 1), (64, 2)])
+def test_unpacked_plain_equals_packed_plain_bit_for_bit(rows, seed):
+    """The main path's entry, on the tick's tensors where they lie, against
+    ``fused_tick_plain`` on the packed arguments JAX's kernel takes."""
+    args = _unpacked(rows, seed)
+    assert args[0][7].stride(0) > 1 and not args[5].is_contiguous()
+    got = K.fused_tick_unpacked(*args)
+    packed = K.pack(*args)
+    want = K.fused_tick_plain(*packed)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert torch.equal(got[0].sum(-1), packed[2].sum(-1) * 16)
+
+
+def _read_through(args) -> dict:
+    """The packed inputs rebuilt by reading memory at the addresses the
+    kernel computes from ``args`` (``csrc/rollout_tick.cu``)."""
+    import ctypes
+
+    def f32(addr):
+        return ctypes.c_float.from_address(addr).value
+
+    rows, k = args.rows, args.k
+    nodev = [[f32(args.field[f] + 4 * r * args.field_stride[f])
+              for f in range(8)] for r in range(rows)]
+    jit, act, u1, u2 = [], [], [], []
+    for r in range(rows):
+        jr, ar, p1, p2 = [], [], [], []
+        for kind in args.kind:
+            for s in range(kind.slots):
+                x = f32(kind.jit + 4 * (r * kind.jit_stride + s))
+                jr.append(np.float32(1) + np.float32(0.18) * np.float32(x)
+                          if args.jit_raw else x)
+                if args.act_bool:
+                    ar.append(float(ctypes.c_uint8.from_address(
+                        kind.act + r * kind.act_stride + s).value))
+                else:
+                    ar.append(f32(kind.act + 4 * (r * kind.act_stride + s)))
+                for i in range(k):
+                    off = 4 * (r * kind.u_stride + (s * k + i) * args.u_step)
+                    p1.append(f32(kind.u1 + off))
+                    p2.append(f32(kind.u2 + off))
+        jit.append(jr), act.append(ar), u1.append(p1), u2.append(p2)
+    return {name: np.asarray(v, np.float32) for name, v in (
+        ("nodev", nodev), ("jit_all", jit), ("act_all", act), ("u1", u1),
+        ("u2", u2))}
+
+
+@pytest.mark.parametrize("layout", ["unpacked", "packed"])
+def test_kernel_arguments_describe_the_tensors(layout):
+    """The pointers and strides handed to the kernel address exactly the
+    packed inputs, read through memory as the kernel reads them."""
+    args = _unpacked(6, 3)
+    packed = K.pack(*args)
+    outs = K._outputs(6, packed[1].shape[1], "cpu")
+    if layout == "unpacked":
+        targs = K._unpacked_args(*args, outs, 2.0, K.CLIP_MAX)
+        assert (targs.u_step, targs.jit_raw, targs.act_bool) == (2, 1, 1)
+    else:
+        targs = K._packed_args(*packed, outs, 2.0, K.CLIP_MAX)
+        assert (targs.u_step, targs.jit_raw, targs.act_bool) == (1, 0, 0)
+    assert targs.rows == 6 and targs.k == K_SAMPLES and targs.vec4 == 1
+    got = _read_through(targs)
+    for name, want in zip(("nodev", "jit_all", "act_all", "u1", "u2"),
+                          packed):
+        np.testing.assert_array_equal(got[name], want.numpy(), err_msg=name)
+
+
+@pytest.mark.parametrize("bad", ["fields", "mask_dtype", "u_shape",
+                                 "u_layout", "devices"])
+def test_unpacked_bad_inputs_raise(bad):
+    fields, jon, joff, on, off, uon, uoff = _unpacked(4, 5)
+    if bad == "fields":
+        fields = fields[:7]
+    elif bad == "mask_dtype":
+        on = on.float()
+    elif bad == "u_shape":
+        uoff = uoff[:, :, :8]
+    elif bad == "u_layout":
+        uon = uon.transpose(2, 3).contiguous().transpose(2, 3)
+    elif bad == "devices":
+        fields[3] = fields[3].to("meta")
+    with pytest.raises(ValueError):
+        K.fused_tick_unpacked(fields, jon, joff, on, off, uon, uoff)
