@@ -514,24 +514,20 @@ def _timed(fns):
 KERNEL_TOL = {"bfloat16": (1e-2, 1e-2), "float32": (2e-5, 2e-5)}
 
 
-def _simt_flash(torch, build, q, k, v, causal, window):
+def _simt_flash(torch, FA, build, q, k, v, causal, window):
     """The SIMT kernel (``csrc/flash_attention.cu``) on bf16 inputs, called
-    directly: the port routes bf16 to the wgmma kernel since it replaced
-    this one, and this keeps the earlier kernel's time beside the new one
-    in the same run."""
-    import ctypes
-
-    fn = build.load("flash_attention").flash_attention_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    through the wrapper's float32 entry with the bf16 dtype code: the port
+    routes bf16 to the wgmma kernel since it replaced this one, and this
+    keeps the earlier kernel's time beside the new one in the same run."""
+    fn = FA._entry(torch.float32)
     out = torch.empty_like(q)
     B, S, H, hd = q.shape
     dev, stream = build.device_and_stream(q)
 
     def run():
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B,
-                 S, H, k.shape[2], hd, int(causal), window, 1, dev, stream)
+                 S, H, k.shape[2], hd, int(causal), window,
+                 FA._DTYPES[torch.bfloat16], dev, stream)
         if err:
             raise RuntimeError(f"SIMT flash launch failed: {err}")
         return out
@@ -582,7 +578,7 @@ def phase_flash_kernel(torch, FA, build, card):
                 qt, kt, vt, enable_gqa=KV != H, **sdpa))]
         extra = {}
         if dtype == torch.bfloat16:
-            simt = _simt_flash(torch, build, q, k, v, True, window)
+            simt = _simt_flash(torch, FA, build, q, k, v, True, window)
             extra["simt_max_abs_err"] = _close(torch, simt(), want, rtol,
                                                atol, f"SIMT flash {name}")
             fns.append(("simt", simt))

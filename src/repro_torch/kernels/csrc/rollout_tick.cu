@@ -41,8 +41,8 @@
 // histogram in shared memory, zeroed.  (4) Threads take the listed pairs'
 // samples four at a time, as two 16-byte loads of the uniforms (one float4
 // of pairs (u1, u2) twice in the state's layout, one float4 of u1 and one
-// of u2 in the packed layout; scalar loads when a pointer or stride is not
-// 16-byte aligned or K % 4 != 0), and bin with shared atomics.  (5) The
+// of u2 in the packed layout; the wrapper requires K % 4 == 0 and 16-byte
+// aligned uniforms, and raises otherwise), and bin with shared atomics.  (5) The
 // tile's histogram rows go out as float4 stores, consecutive threads on
 // consecutive addresses: a row with no active slot is written as zeros
 // straight from registers and never touches shared memory.  Any R works:
@@ -98,7 +98,6 @@ struct TickArgs {
   int u_step;             // 2: draws interleaved (u2 = u1 + 1); 1: apart
   int jit_raw;            // 1: jit holds normals, apply 1 + 0.18 x
   int act_bool;           // 1: act is bool; 0: float32
-  int vec4;               // 1: 16-byte loads of the uniforms are aligned
   float gamma_shape;
   float clip_max;
 };
@@ -193,45 +192,32 @@ rollout_tick_kernel(const TickArgs a) {
   }
   __syncthreads();
 
-  // (4) the active pairs' samples
+  // (4) the active pairs' samples, four a thread (K % 4 == 0, aligned)
   const int np = n_pairs;
-  if (a.vec4) {
-    const int groups = a.k / 4;
-    for (int idx = tid; idx < np * groups; idx += kThreads) {
-      const int p = idx / groups, i = (idx % groups) * 4;
-      const int rr = pair_row[p] >> 1;
-      const SlotKind K = (pair_row[p] & 1) ? a.kind[1] : a.kind[0];
-      const long long off = (row0 + rr) * K.u_stride +
-                            static_cast<long long>(pair_slot[p] * a.k + i) *
-                                a.u_step;
-      float* h = reinterpret_cast<float*>(hist[rr]);
-      const float sc = pair_sc[p], w = pair_w[p];
-      if (a.u_step == 2) {  // (u1, u2) pairs side by side
-        const float4 lo = *reinterpret_cast<const float4*>(K.u1 + off);
-        const float4 hi = *reinterpret_cast<const float4*>(K.u1 + off + 4);
-        bin(h, lo.x, lo.y, sc, w);
-        bin(h, lo.z, lo.w, sc, w);
-        bin(h, hi.x, hi.y, sc, w);
-        bin(h, hi.z, hi.w, sc, w);
-      } else {
-        const float4 x1 = *reinterpret_cast<const float4*>(K.u1 + off);
-        const float4 x2 = *reinterpret_cast<const float4*>(K.u2 + off);
-        bin(h, x1.x, x2.x, sc, w);
-        bin(h, x1.y, x2.y, sc, w);
-        bin(h, x1.z, x2.z, sc, w);
-        bin(h, x1.w, x2.w, sc, w);
-      }
-    }
-  } else {
-    for (int idx = tid; idx < np * a.k; idx += kThreads) {
-      const int p = idx / a.k, i = idx % a.k;
-      const int rr = pair_row[p] >> 1;
-      const SlotKind K = (pair_row[p] & 1) ? a.kind[1] : a.kind[0];
-      const long long off = (row0 + rr) * K.u_stride +
-                            static_cast<long long>(pair_slot[p] * a.k + i) *
-                                a.u_step;
-      bin(reinterpret_cast<float*>(hist[rr]), K.u1[off], K.u2[off],
-          pair_sc[p], pair_w[p]);
+  const int groups = a.k / 4;
+  for (int idx = tid; idx < np * groups; idx += kThreads) {
+    const int p = idx / groups, i = (idx % groups) * 4;
+    const int rr = pair_row[p] >> 1;
+    const SlotKind K = (pair_row[p] & 1) ? a.kind[1] : a.kind[0];
+    const long long off = (row0 + rr) * K.u_stride +
+                          static_cast<long long>(pair_slot[p] * a.k + i) *
+                              a.u_step;
+    float* h = reinterpret_cast<float*>(hist[rr]);
+    const float sc = pair_sc[p], w = pair_w[p];
+    if (a.u_step == 2) {  // (u1, u2) pairs side by side
+      const float4 lo = *reinterpret_cast<const float4*>(K.u1 + off);
+      const float4 hi = *reinterpret_cast<const float4*>(K.u1 + off + 4);
+      bin(h, lo.x, lo.y, sc, w);
+      bin(h, lo.z, lo.w, sc, w);
+      bin(h, hi.x, hi.y, sc, w);
+      bin(h, hi.z, hi.w, sc, w);
+    } else {
+      const float4 x1 = *reinterpret_cast<const float4*>(K.u1 + off);
+      const float4 x2 = *reinterpret_cast<const float4*>(K.u2 + off);
+      bin(h, x1.x, x2.x, sc, w);
+      bin(h, x1.y, x2.y, sc, w);
+      bin(h, x1.z, x2.z, sc, w);
+      bin(h, x1.w, x2.w, sc, w);
     }
   }
   __syncthreads();

@@ -115,7 +115,7 @@ class _TickArgs(ctypes.Structure):
                 ("delay", ctypes.c_void_p), ("mean", ctypes.c_void_p),
                 ("rows", ctypes.c_int), ("k", ctypes.c_int),
                 ("u_step", ctypes.c_int), ("jit_raw", ctypes.c_int),
-                ("act_bool", ctypes.c_int), ("vec4", ctypes.c_int),
+                ("act_bool", ctypes.c_int),
                 ("gamma_shape", ctypes.c_float), ("clip_max", ctypes.c_float)]
 
 
@@ -135,29 +135,41 @@ def _outputs(rows, slots, device):
 
 def _tick_args(fields, kinds, outs, *, k, u_step, jit_raw, act_bool,
                gamma_shape, clip_max) -> _TickArgs:
-    """The kernel's arguments from plain integers (this runs once a tick on
-    a host-bound path).  ``fields``: eight (pointer, stride) pairs;
+    """The kernel's arguments from plain integers (the replay's entry
+    builds them once per layout, see ``_ARGS_BY_LAYOUT``).  ``fields``:
+    eight (pointer, stride) pairs;
     ``kinds``: two (jit, act, u1, u2, jit_stride, act_stride, u_stride,
     slots) tuples, u1/u2 pointing at the first and second draw of the
     kind's first sample; ``outs``: hist, delay, mean.  Strides are in
     elements."""
-    vec4 = k % 4 == 0
-    for _, _, p1, p2, _, _, u_stride, _ in kinds:
-        # interleaved draws load (u1, u2) pairs from u1 alone
-        vec4 = vec4 and p1 % 16 == 0 and u_stride % 4 == 0 and (
-            u_step == 2 or p2 % 16 == 0)
     ptrs, strides = zip(*fields)
     return _TickArgs(
         (ctypes.c_void_p * NODE_FIELDS)(*ptrs),
         (ctypes.c_longlong * NODE_FIELDS)(*strides),
         (_SlotKind * 2)(*(_SlotKind(*kind) for kind in kinds)),
         outs[0].data_ptr(), outs[1].data_ptr(), outs[2].data_ptr(),
-        outs[1].shape[0], k, u_step, jit_raw, act_bool, int(vec4),
-        gamma_shape, clip_max)
+        outs[1].shape[0], k, u_step, jit_raw, act_bool, gamma_shape,
+        clip_max)
+
+
+def _check_vector_loads(args: _TickArgs) -> None:
+    """The kernel loads a slot's uniforms four samples at a time as
+    16-byte vectors: K must be a multiple of 4 and each kind's uniforms
+    16-byte aligned, row by row (interleaved draws are loaded from u1
+    alone)."""
+    if args.k % 4:
+        raise ValueError(f"rollout_tick kernel takes K % 4 == 0 samples a "
+                         f"slot, got K = {args.k}")
+    for kind in args.kind:
+        if (kind.u1 or 0) % 16 or kind.u_stride % 4 or (
+                args.u_step == 1 and (kind.u2 or 0) % 16):
+            raise ValueError("rollout_tick kernel: the uniforms must be "
+                             "16-byte aligned in every row")
 
 
 def _run(args: _TickArgs, device_tensor, outs):
     global launches
+    _check_vector_loads(args)
     fn = _entry()
     if args.rows == 0:
         return outs
@@ -273,6 +285,24 @@ def _check_unpacked(fields, jits, actives, us) -> None:
                          f"got {slots}")
 
 
+def _set_pointers(args: _TickArgs, fields, kinds, outs) -> None:
+    """Point a cached ``_unpacked_args`` struct at this call's tensors;
+    ``kinds``: (jit, act, u) of each slot kind."""
+    args.field[:] = [t.data_ptr() for t in fields]
+    for kind, (jit, act, u) in zip(args.kind, kinds):
+        p = u.data_ptr()
+        kind.jit, kind.act, kind.u1, kind.u2 = (jit.data_ptr(),
+                                                act.data_ptr(), p, p + 4)
+    args.hist, args.delay, args.mean = (outs[0].data_ptr(),
+                                        outs[1].data_ptr(), outs[2].data_ptr())
+
+
+# checked kernel arguments by layout: the shapes, strides, dtypes and
+# devices of the inputs and the two floats decide everything in the struct
+# but its pointers, so a tick of a layout seen before only rewrites those
+_ARGS_BY_LAYOUT: dict = {}
+
+
 def fused_tick_unpacked(fields, jit_on, jit_off, on_active, off_active, u_on,
                         u_off, *, gamma_shape: float = 2.0,
                         clip_max: float = CLIP_MAX):
@@ -280,8 +310,14 @@ def fused_tick_unpacked(fields, jit_on, jit_off, on_active, off_active, u_on,
     note).  Returns ``(hist (R, 200), delay (R,), mean (R, S_ON + S_OFF))``.
     """
     fields = list(fields)
-    _check_unpacked(fields, (jit_on, jit_off), (on_active, off_active),
-                    (u_on, u_off))
+    kinds = ((jit_on, on_active, u_on), (jit_off, off_active, u_off))
+    key = (len(fields), gamma_shape, clip_max, *(
+        (t.shape, t.stride(), t.dtype, t.get_device())
+        for t in (*fields, *kinds[0], *kinds[1])))
+    args = _ARGS_BY_LAYOUT.get(key)
+    if args is None:
+        _check_unpacked(fields, (jit_on, jit_off), (on_active, off_active),
+                        (u_on, u_off))
     device = fields[0].device
     if device.type == "cpu":
         return fused_tick_unpacked_plain(
@@ -291,6 +327,12 @@ def fused_tick_unpacked(fields, jit_on, jit_off, on_active, off_active, u_on,
         raise ValueError(f"fused_tick_unpacked: unsupported device {device}")
     outs = _outputs(jit_on.shape[0], jit_on.shape[1] + jit_off.shape[1],
                     device)
-    return _run(_unpacked_args(fields, jit_on, jit_off, on_active, off_active,
-                               u_on, u_off, outs, gamma_shape, clip_max),
-                fields[0], outs)
+    if args is None:
+        args = _unpacked_args(fields, jit_on, jit_off, on_active, off_active,
+                              u_on, u_off, outs, gamma_shape, clip_max)
+        if len(_ARGS_BY_LAYOUT) >= 64:
+            _ARGS_BY_LAYOUT.clear()
+        _ARGS_BY_LAYOUT[key] = args
+    else:
+        _set_pointers(args, fields, kinds, outs)
+    return _run(args, fields[0], outs)

@@ -197,11 +197,66 @@ def test_kernel_arguments_describe_the_tensors(layout):
     else:
         targs = K._packed_args(*packed, outs, 2.0, K.CLIP_MAX)
         assert (targs.u_step, targs.jit_raw, targs.act_bool) == (1, 0, 0)
-    assert targs.rows == 6 and targs.k == K_SAMPLES and targs.vec4 == 1
+    assert targs.rows == 6 and targs.k == K_SAMPLES
+    K._check_vector_loads(targs)
     got = _read_through(targs)
     for name, want in zip(("nodev", "jit_all", "act_all", "u1", "u2"),
                           packed):
         np.testing.assert_array_equal(got[name], want.numpy(), err_msg=name)
+
+
+def _struct_values(obj):
+    """A ctypes struct's fields as nested Python values, for comparison."""
+    import ctypes
+
+    if isinstance(obj, ctypes.Structure):
+        return {name: _struct_values(getattr(obj, name))
+                for name, _ in obj._fields_}
+    if isinstance(obj, ctypes.Array):
+        return [_struct_values(x) for x in obj]
+    return obj
+
+
+def test_cached_arguments_repointed_equal_fresh_ones():
+    """A tick of a layout seen before reuses its struct and rewrites only
+    the pointers: the result equals the struct built afresh."""
+    first, second = _unpacked(6, 3), _unpacked(6, 4)
+    outs = [K._outputs(6, 14, "cpu") for _ in range(2)]
+    cached = K._unpacked_args(*first, outs[0], 2.0, K.CLIP_MAX)
+    fresh = K._unpacked_args(*second, outs[1], 2.0, K.CLIP_MAX)
+    assert _struct_values(cached) != _struct_values(fresh)
+    fields, jon, joff, on, off, uon, uoff = second
+    K._set_pointers(cached, fields, ((jon, on, uon), (joff, off, uoff)),
+                    outs[1])
+    assert _struct_values(cached) == _struct_values(fresh)
+
+
+@pytest.mark.parametrize("bad", ["k", "offset", "u_stride", "u2_offset"])
+def test_vector_loads_refuse_unaligned_uniforms(bad):
+    """The kernel loads uniforms as 16-byte vectors; what breaks that raises
+    before a launch instead of taking another code path."""
+    args = _unpacked(6, 3)
+    packed = list(K.pack(*args))
+    outs = K._outputs(6, packed[1].shape[1], "cpu")
+    n = packed[3].shape[1]
+    if bad == "k":              # 6 samples a slot
+        packed[3:] = [x.view(6, 14, 16)[:, :, :6].reshape(6, -1)
+                      for x in packed[3:]]
+    elif bad == "offset":       # u1 one float into its storage
+        packed[3] = torch.empty(6 * n + 1)[1:].view(6, n).copy_(packed[3])
+    elif bad == "u2_offset":    # u2 two floats into its storage
+        packed[4] = torch.empty(6 * n + 2)[2:].view(6, n).copy_(packed[4])
+    if bad == "u_stride":       # the state's layout, rows of 2 S K + 1 floats
+        fields, jon, joff, on, off, uon, uoff = args
+        width = uon[0].numel() + 1
+        wide = torch.zeros(6 * width).as_strided(uon.shape,
+                                                 (width, *uon.stride()[1:]))
+        targs = K._unpacked_args(fields, jon, joff, on, off,
+                                 wide.copy_(uon), uoff, outs, 2.0, K.CLIP_MAX)
+    else:
+        targs = K._packed_args(*packed, outs, 2.0, K.CLIP_MAX)
+    with pytest.raises(ValueError):
+        K._check_vector_loads(targs)
 
 
 @pytest.mark.parametrize("bad", ["fields", "mask_dtype", "u_shape",
