@@ -8,8 +8,9 @@ Port of ``repro.cluster.state`` (the main-path part):
   ``resize_*`` / ``reconcile`` return a new state and never write the one
   they were given, as in the JAX package.
 * ``_tick`` -- one 30 s tick: delay curve, Erlang(2) runqlat draws, the
-  per-slot histograms (through ``metric.histogram``, i.e. the
-  ``runqlat_hist`` kernel on the card), response time and Table-III
+  per-slot histograms (through ``metric.histograms``, i.e. one
+  ``runqlat_hist`` kernel launch for both slot kinds on the card),
+  response time and Table-III
   telemetry.  ``_window_core`` runs one tick per noise bundle and reduces
   them; ``rollout_chunks`` runs whole ``CHUNK``-tick chunks;
   ``merge_summaries`` is the host merge of the JAX package.
@@ -517,14 +518,15 @@ def _tick(st: ClusterState, profiles, fleet: FleetParams, t,
         mean = delay[:, None] * torch.clamp_min(jit_, 0.3)
         g = -torch.log(u[..., 0] * u[..., 1])
         samples = g * (mean[..., None] / GAMMA_SHAPE)
-        w = active[..., None].expand(samples.shape).float()
+        # the slot's 0/1 weight, broadcast along its samples (stride 0)
+        w = active.float()[..., None].expand(samples.shape)
         return samples, w, mean
 
     on_active, off_active = st.on_active, st.off_active
     s_on, w_on, mean_on = pod_samples(noise.jit_on, noise.u_on, on_active)
     s_off, w_off, _ = pod_samples(noise.jit_off, noise.u_off, off_active)
-    hist_on = metric.histogram(s_on, w_on)     # (N, S_ON, 200)
-    hist_off = metric.histogram(s_off, w_off)  # (N, S_OFF, 200)
+    # (N, S_ON, 200) and (N, S_OFF, 200): one kernel launch for both
+    hist_on, hist_off = metric.histograms((s_on, w_on), (s_off, w_off))
 
     n_pods = on_active.sum(-1) + off_active.sum(-1)
     rt, mem_press = _online_rt(st, profiles, qps_t, mean_on, mem_used, noise)

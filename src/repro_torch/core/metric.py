@@ -7,7 +7,8 @@ Port of ``repro.core.metric``.  Bin k counts latencies in [5k, 5k+5); bin
 
 Every function takes tensors and works on any leading batch dimensions.
 ``histogram`` bins through the ``runqlat_hist`` kernel wrapper, which runs
-the CUDA kernel for a CUDA tensor and its plain version for a CPU tensor.
+the CUDA kernel for a CUDA tensor and its plain version for a CPU tensor;
+``histograms`` bins several sets in one kernel launch.
 """
 from __future__ import annotations
 
@@ -16,7 +17,12 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.kernels.runqlat_hist import BIN_WIDTH, NUM_BINS, runqlat_hist
+from repro_torch.kernels.runqlat_hist import (
+    BIN_WIDTH,
+    NUM_BINS,
+    runqlat_hist,
+    runqlat_hist_segments,
+)
 
 OVERFLOW_EDGE = BIN_WIDTH * (NUM_BINS - 1)  # 995: samples >= this land in 199
 
@@ -32,6 +38,21 @@ def histogram(samples: torch.Tensor,
     flat = samples.reshape(-1, s).contiguous()
     w = None if weights is None else weights.reshape(-1, s).contiguous()
     return runqlat_hist(flat, w).reshape(*lead, NUM_BINS)
+
+
+def histograms(*sets) -> list[torch.Tensor]:
+    """``histogram`` of each (samples (..., S), weights (..., S) or None)
+    pair, all in one kernel launch on the card.  Inputs are read where
+    they lie: weights may be a broadcast view (a per-series mask expanded
+    along the sample axis), which is never materialised."""
+    flat, lead = [], []
+    for samples, weights in sets:
+        s = samples.shape[-1]
+        lead.append(samples.shape[:-1])
+        flat.append((samples.reshape(-1, s),
+                     None if weights is None else weights.reshape(-1, s)))
+    return [h.reshape(*ld, NUM_BINS)
+            for h, ld in zip(runqlat_hist_segments(flat), lead)]
 
 
 def avg_runqlat(hist: torch.Tensor) -> torch.Tensor:

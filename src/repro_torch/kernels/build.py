@@ -8,7 +8,9 @@ in ``.gitignore``) under a name that carries a hash of the source and the
 flags, so an edited source is never served from a stale build.
 
 ``build(names)`` starts one ``nvcc`` per source, all at once, and waits for
-them together; ``chip_smoke.py`` calls it up front to time the build.
+them together; ``chip_smoke.py`` calls it up front to time the build.  Both
+take another source directory as ``csrc`` (``chip_smoke.py`` builds the
+earlier kernels kept under ``tools/earlier/`` that way, to time them).
 """
 from __future__ import annotations
 
@@ -26,8 +28,10 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_loaded: dict[str, ctypes.CDLL] = {}
-build_logs: dict[str, str] = {}  # nvcc's output (incl. -Xptxas -v) per build
+_loaded: dict[tuple[str, str], ctypes.CDLL] = {}
+# nvcc's output (incl. -Xptxas -v) per build: by name, or "<dir>/<name>"
+# for a source outside csrc/
+build_logs: dict[str, str] = {}
 
 
 def nvcc() -> str:
@@ -41,32 +45,33 @@ def nvcc() -> str:
     return path
 
 
-def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+def _target(name: str, csrc: Path) -> Path:
+    src = (csrc / f"{name}.cu").read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 
 
-def build(names) -> dict[str, Path]:
+def build(names, csrc: Path = CSRC) -> dict[str, Path]:
     """Compile every listed kernel that has no current build, in parallel.
 
     Returns ``{name: library path}``; raises with nvcc's output on failure.
     """
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    targets = {name: _target(name) for name in names}
+    csrc = Path(csrc)
+    targets = {name: _target(name, csrc) for name in names}
     procs = {}
     for name, target in targets.items():
         if target.exists():
             continue
         tmp = target.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(csrc / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp)
     failed = []
     for name, (proc, tmp) in procs.items():
         log, _ = proc.communicate()
-        build_logs[name] = log
+        build_logs[name if csrc == CSRC else f"{csrc.name}/{name}"] = log
         if proc.returncode != 0:
             failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
             continue
@@ -85,10 +90,11 @@ def device_and_stream(t) -> tuple[int, int]:
     return dev, torch.cuda.current_stream(dev).cuda_stream
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built on first use."""
-    lib = _loaded.get(name)
+def load(name: str, csrc: Path = CSRC) -> ctypes.CDLL:
+    """The loaded library for ``<csrc>/<name>.cu``, built on first use."""
+    key = (str(csrc), name)
+    lib = _loaded.get(key)
     if lib is None:
-        lib = ctypes.CDLL(str(build([name])[name]))
-        _loaded[name] = lib
+        lib = ctypes.CDLL(str(build([name], csrc)[name]))
+        _loaded[key] = lib
     return lib

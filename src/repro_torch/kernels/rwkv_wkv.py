@@ -20,7 +20,9 @@ It returns ``y`` (B, T, H*P) float32 and the final state (B, H, P, P)
 float32: ``wkv_pallas`` keeps the state in VMEM scratch and drops it; the
 model's prefill needs it for the decode cache, as JAX's ``wkv_chunked``
 returns it.  The kernel is CUDA C++ in ``csrc/wkv.cu`` (design and bound
-are noted there).
+are noted there): one block per (batch, head, chunk), with only the state
+carried from chunk to chunk passed along a chain of flags; the wrapper
+hands it a zeroed (1 + B*H,) int32 buffer for its ticket and flags.
 
 For tensors on the CPU the wrapper takes ``wkv_plain``; for CUDA tensors it
 launches the kernel or raises.  ``launches`` counts kernel launches and
@@ -34,7 +36,7 @@ import torch
 
 from repro_torch.kernels import build
 
-MAX_P = 64          # the kernel's bound on the head size P
+MAX_P = 64          # the kernel's bound on the head size P (a multiple of 4)
 MAX_CHUNK = 128     # the kernel's bound on the chunk length
 
 launches = 0
@@ -114,7 +116,7 @@ def _check(r, k, v, w, u, num_heads, chunk_len) -> None:
 def _entry():
     fn = build.load("wkv").wkv_launch
     if fn.argtypes is None:  # pointers and the stream as c_void_p, not int
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
+        fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
@@ -130,8 +132,12 @@ def _launch(r, k, v, w, u, num_heads, chunk_len):
                              f"{t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"wkv: {name} must be contiguous")
-    if not 0 < P <= MAX_P:
-        raise ValueError(f"wkv kernel takes P <= {MAX_P}, got P={P}")
+    if not 0 < P <= MAX_P or P % 4:
+        raise ValueError(f"wkv kernel takes P <= {MAX_P}, a multiple of 4, "
+                         f"got P={P}")
+    if any(t.data_ptr() % 16 for t in (r, k, v, w)):
+        raise ValueError("wkv kernel: r, k, v and w must be 16-byte aligned "
+                         "(it loads them in 16-byte pieces)")
     if chunk_len > MAX_CHUNK:
         raise ValueError(f"wkv kernel takes chunks of at most {MAX_CHUNK} "
                          f"steps, got {chunk_len}")
@@ -143,10 +149,11 @@ def _launch(r, k, v, w, u, num_heads, chunk_len):
                         device=r.device)
     if r.numel() == 0:
         return y, state.zero_()
+    sync = torch.zeros(1 + B * num_heads, dtype=torch.int32, device=r.device)
     dev, stream = build.device_and_stream(r)
     err = fn(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
-             u.data_ptr(), y.data_ptr(), state.data_ptr(), B, T, num_heads,
-             P, chunk_len, dev, stream)
+             u.data_ptr(), y.data_ptr(), state.data_ptr(), sync.data_ptr(), B,
+             T, num_heads, P, chunk_len, dev, stream)
     if err != 0:
         raise RuntimeError(f"wkv launch failed: CUDA error {err}")
     launches += 1

@@ -45,12 +45,18 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     q: (B, S, H, hd); k, v: (B, S, KV, hd) with H % KV == 0.  On a CUDA
     tensor ``use_kernel=False`` takes the kernel's plain version.
+
+    Routed as JAX's ``attention()``: a window that binds (``sliding_window
+    > 0`` and S past it) takes JAX's ``_sliding_window`` path, which is
+    causal whatever ``causal`` says; otherwise the full path with
+    ``causal`` as given and no window.
     """
-    if use_kernel:
-        return FA.flash_attention(q, k, v, causal=causal,
-                                  sliding_window=sliding_window)
-    return FA.flash_attention_plain(q, k, v, causal=causal,
-                                    sliding_window=sliding_window)
+    if sliding_window > 0 and q.shape[1] > sliding_window:
+        causal = True
+    else:
+        sliding_window = 0
+    fn = FA.flash_attention if use_kernel else FA.flash_attention_plain
+    return fn(q, k, v, causal=causal, sliding_window=sliding_window)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

@@ -48,7 +48,9 @@ def causal_conv1d(x, w, prev=None):
     """Depth-wise causal conv.  x: (B, T, C), w: (K, C), prev: (B, K-1, C).
 
     Products and sums in x's type (as JAX's elementwise sum), silu in
-    float32.  Returns (y (B, T, C), new_prev (B, K-1, C)) for decode.
+    float32.  Returns (y (B, T, C), new_prev (B, K-1, C)) for decode;
+    ``new_prev`` owns its storage: a view of ``xp`` would keep the whole
+    padded input alive for as long as the decode cache holds it.
     """
     K = w.shape[0]
     T = x.shape[1]
@@ -59,5 +61,5 @@ def causal_conv1d(x, w, prev=None):
     y = xp[:, 0:T] * w[0]
     for i in range(1, K):
         y = y + xp[:, i:i + T] * w[i]
-    new_prev = xp[:, -(K - 1):] if K > 1 else prev
+    new_prev = xp[:, -(K - 1):].clone() if K > 1 else prev
     return F.silu(y.float()).to(x.dtype), new_prev

@@ -78,6 +78,74 @@ def test_cuda_tensor_never_takes_the_plain_version(card, monkeypatch):
         K.runqlat_hist(s, w.cpu())                 # mixed devices
 
 
+def _mask_set(S, n, seed, device):
+    """(S, n) samples and a 0/1 weight a series broadcast along its samples
+    (stride 0), as the tick hands its slot masks to the kernel."""
+    g = torch.Generator().manual_seed(seed)
+    s = torch.rand((S, n), generator=g) * 1210.0 - 10.0
+    m = (torch.rand((S, 1), generator=g) < 0.6).float()
+    return s.to(device), m.to(device).expand(S, n)
+
+
+@pytest.mark.cuda
+def test_segments_kernel_equals_plain_in_one_launch(card):
+    """Four sets in one launch: n 16 with broadcast masks and a series count
+    that is not a multiple of a block's 8, n 33 and n 5003 (the
+    shared-memory path) with 0/1 weights, n 7 unweighted: each equal to the
+    plain version bit for bit."""
+    sets = [_mask_set(8001, 16, 1, card), _mask_set(37, 33, 2, card),
+            _mask_set(5, 5003, 3, card),
+            (_mask_set(13, 7, 4, card)[0], None)]
+    assert sets[0][1].stride(1) == 0
+    before = K.launches
+    got = K.runqlat_hist_segments(sets)
+    torch.cuda.synchronize()
+    assert K.launches == before + 1
+    for (s, w), h in zip(sets, got):
+        want = K.runqlat_hist_plain(s, None if w is None else w.contiguous())
+        torch.testing.assert_close(h, want, rtol=0, atol=0)
+    torch.testing.assert_close(got[0].sum(-1), sets[0][1].sum(-1), rtol=0,
+                               atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 16, 32])
+def test_short_series_float_weights_equal_sequential_plain(card, n):
+    """A warp sums each bin in sample order: general float weights (zeros
+    among them) equal the CPU's sequential scatter-add bit for bit."""
+    s, w = _inputs(1003, n, n, card, zero_one=False)
+    got = K.runqlat_hist(s, w).cpu()
+    torch.testing.assert_close(got, K.runqlat_hist_plain(s.cpu(), w.cpu()),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [16, 100])
+def test_zero_weights_add_nothing(card, n):
+    s, _ = _inputs(50, n, 5, card)
+    w = torch.zeros_like(s)
+    w[::2] = 1.0
+    got = K.runqlat_hist(s, w)
+    assert float(got[1::2].abs().sum()) == 0.0
+    torch.testing.assert_close(got.sum(-1), w.sum(-1), rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", ["too_many", "dtype", "weight_shape",
+                                 "devices", "dims"])
+def test_segments_wrapper_raises_on_bad_inputs(card, bad):
+    s, w = _mask_set(10, 16, 6, card)
+    sets = {"too_many": [(s, w)] * (K.MAX_SEGMENTS + 1),
+            "dtype": [(s, w), (s.double(), None)],
+            "weight_shape": [(s, w[:, :15])],
+            "devices": [(s, w), (s.cpu(), None)],
+            "dims": [(s[None], None)]}[bad]
+    before = K.launches
+    with pytest.raises(ValueError):
+        K.runqlat_hist_segments(sets)
+    assert K.launches == before
+
+
 @pytest.mark.cuda
 def test_ticks_on_card_match_cpu_with_the_same_noise(card):
     c = Cluster(fleet=make_fleet(40, seed=0), seed=0, device=card)
@@ -428,7 +496,7 @@ def _wkv_inputs(B, T, H, P, regime, device, seed=0):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,T,H,P,Lc,regime", [
-    (4, 1024, 8, 64, 64, "clamped"),
+    (4, 1024, 64, 64, 64, "clamped"),
     (4, 1024, 8, 64, 64, "real"),
     (1, 100, 4, 64, 100, "clamped"),
     (1, 910, 4, 64, 65, "clamped"),
@@ -451,14 +519,29 @@ def test_wkv_kernel_equals_plain(card, exact_f32, B, T, H, P, Lc, regime):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("bad", ["P", "chunk", "dtype", "contiguous",
-                                 "device"])
+def test_wkv_kernel_is_the_same_from_call_to_call(card):
+    """The chunks' blocks pass the state along a chain of flags in whatever
+    order they start: repeated calls give the same bits."""
+    inp = _wkv_inputs(2, 1024, 16, 64, "real", card, seed=9)
+    y, state = WKV.wkv(*inp, 16, 64)
+    for _ in range(3):
+        y2, state2 = WKV.wkv(*inp, 16, 64)
+        assert torch.equal(y, y2) and torch.equal(state, state2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", ["P", "P_odd", "chunk", "dtype",
+                                 "contiguous", "device", "aligned"])
 def test_wkv_wrapper_raises_on_bad_inputs(card, bad):
     r, k, v, w, u = _wkv_inputs(1, 128, 2, 16, "real", card)
     H, Lc = 2, 64
     if bad == "P":
         r, k, v, w, u = _wkv_inputs(1, 128, 1, 96, "real", card)
         H = 1
+    elif bad == "P_odd":                  # 16-byte loads need P % 4 == 0
+        r, k, v, w, u = _wkv_inputs(1, 128, 2, 18, "real", card)
+    elif bad == "aligned":
+        r = torch.empty(r.numel() + 1, device=card)[1:].view_as(r).copy_(r)
     elif bad == "chunk":
         r, k, v, w, u = _wkv_inputs(1, 256, 2, 16, "real", card)
         Lc = 256

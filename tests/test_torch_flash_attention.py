@@ -79,6 +79,26 @@ def test_model_sliding_window_matches_jax(window):
     np.testing.assert_allclose(_f32(got), _f32(want), **TOL["float32"])
 
 
+@pytest.mark.parametrize("S,window", [(128, 48), (96, 95), (64, 64),
+                                      (48, 100)])
+def test_model_non_causal_window_routes_as_jax(S, window):
+    """``causal=False`` with a window: past S > window JAX's sliding-window
+    path is causal whatever ``causal`` says; at S <= window it is the full
+    non-causal path (the window never binds).  float32 tolerance 2e-5."""
+    (jq, jk, jv), (q, k, v) = _qkv(1, S, 4, 2, 16, S + window)
+    want = jattn.attention(jq, jk, jv, causal=False, sliding_window=window,
+                           q_block=32, kv_block=32)
+    got = tattn.attention(q, k, v, causal=False, sliding_window=window)
+    np.testing.assert_allclose(_f32(got), _f32(want), **TOL["float32"])
+    plain = tattn.attention(q, k, v, causal=False, sliding_window=window,
+                            use_kernel=False)
+    torch.testing.assert_close(got, plain, rtol=0, atol=0)
+    if S > window:    # the route attends to no future key
+        causal = FA.flash_attention_plain(q, k, v, causal=True,
+                                          sliding_window=window)
+        torch.testing.assert_close(got, causal, rtol=0, atol=0)
+
+
 @pytest.mark.parametrize("S,window", [(100, 0), (77, 20), (1, 0)])
 def test_plain_ragged_s_matches_ref(S, window):
     """Any S (the TPU kernel asserts S % 128 == 0): GQA 9 over 3 against

@@ -150,3 +150,127 @@ def test_sample_from_hist_moments():
     assert abs(ts.mean() - js.mean()) < 4 * np.sqrt(2) * se
     # every draw lands in a populated bin
     assert set(np.unique(np.floor(ts / 5.0).astype(int))) <= {2, 10, 11, 40}
+
+
+def _main_path_sets(nodes=12, seed=7):
+    """The two sets a tick bins: (nodes, 8) online and (nodes, 6) offline
+    slots of 16 samples, 0/1 slot masks broadcast along the samples."""
+    rng = np.random.default_rng(seed)
+    sets = []
+    for slots in (8, 6):
+        s = rng.gamma(2.0, 60.0, (nodes, slots, 16)).astype(np.float32)
+        m = (rng.random((nodes, slots)) < 0.6).astype(np.float32)
+        sets.append((s, m))
+    return sets
+
+
+def test_histograms_one_call_equals_per_set_calls_and_pallas():
+    """``metric.histograms`` with stride-0 mask weights equals one
+    ``metric.histogram`` per set on materialised weights, JAX's
+    ``metric.histogram`` and the Pallas kernel (interpret mode), bit for
+    bit (0/1 weights)."""
+    sets = _main_path_sets()
+    torch_sets = [(torch.from_numpy(s),
+                   torch.from_numpy(m)[..., None].expand(s.shape))
+                  for s, m in sets]
+    assert all(w.stride()[-1] == 0 for _, w in torch_sets)
+    got = tmetric.histograms(*torch_sets)
+    for h, (s, m) in zip(got, sets):
+        w = np.broadcast_to(m[..., None], s.shape).copy()
+        assert h.shape == (*s.shape[:-1], 200)
+        np.testing.assert_array_equal(
+            h.numpy(), tmetric.histogram(torch.from_numpy(s),
+                                         torch.from_numpy(w)).numpy())
+        np.testing.assert_array_equal(
+            h.numpy(), np.asarray(jmetric.histogram(jnp.asarray(s),
+                                                    jnp.asarray(w))))
+        flat_s, flat_w = s.reshape(-1, 16), w.reshape(-1, 16)
+        np.testing.assert_array_equal(
+            h.numpy().reshape(-1, 200),
+            np.asarray(runqlat_hist_pallas(jnp.asarray(flat_s),
+                                           jnp.asarray(flat_w),
+                                           interpret=True)))
+        np.testing.assert_array_equal(h.numpy().sum(-1), w.sum(-1))
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_segments_entry_ragged_sets_match_jax(weighted):
+    """Sets of other widths (n 1, 33 and 300; one with no series) through
+    ``runqlat_hist_segments``, against JAX's ``metric.histogram``; float
+    weights with zeros: the CPU route bins each set sequentially, as JAX's
+    one-hot sum does not, so general weights agree to float32 rounding."""
+    rng = np.random.default_rng(8)
+    sets = []
+    for S, N in ((5, 1), (7, 33), (0, 4), (3, 300)):
+        s = rng.uniform(-10, 1200, (S, N)).astype(np.float32)
+        w = (rng.random((S, N)) * (rng.random((S, N)) < 0.8)).astype(
+            np.float32) if weighted else None
+        sets.append((s, w))
+    got = K.runqlat_hist_segments(
+        [(torch.from_numpy(s), None if w is None else torch.from_numpy(w))
+         for s, w in sets])
+    assert [tuple(h.shape) for h in got] == [(5, 200), (7, 200), (0, 200),
+                                             (3, 200)]
+    for h, (s, w) in zip(got, sets):
+        want = np.asarray(jmetric.histogram(
+            jnp.asarray(s), None if w is None else jnp.asarray(w)))
+        if weighted:
+            np.testing.assert_allclose(h.numpy(), want, rtol=RTOL, atol=1e-6)
+        else:
+            np.testing.assert_array_equal(h.numpy(), want)
+
+
+def test_segments_entry_checks_and_cpu_route():
+    before = K.launches
+    s = torch.from_numpy(_samples(4, 16))
+    m = torch.ones(4, 1).expand(4, 16)
+    with pytest.raises(ValueError):
+        K.runqlat_hist_segments([])
+    with pytest.raises(ValueError):
+        K.runqlat_hist_segments([(s, m)] * (K.MAX_SEGMENTS + 1))
+    with pytest.raises(ValueError):
+        K.runqlat_hist_segments([(s, m), (s.double(), None)])
+    with pytest.raises(ValueError):
+        K.runqlat_hist_segments([(s, torch.ones(4, 15))])   # weight shape
+    with pytest.raises(ValueError):
+        K.runqlat_hist_segments([(s, m), (s[None], None)])  # not 2-D
+    a, b = K.runqlat_hist_segments([(s, m), (s.t(), None)])  # any strides
+    torch.testing.assert_close(a, K.runqlat_hist_plain(s), rtol=0, atol=0)
+    torch.testing.assert_close(b, K.runqlat_hist_plain(s.t().contiguous()),
+                               rtol=0, atol=0)
+    assert K.launches == before  # the CPU route launches no kernel
+
+
+def test_tick_bins_both_slot_kinds_in_one_call(monkeypatch):
+    """``_tick`` hands both slot kinds to one ``metric.histograms`` call,
+    with the slot masks broadcast (stride 0), and its histograms equal the
+    two ``metric.histogram`` calls on materialised masks bit for bit."""
+    from repro_torch.cluster.fleet import make_fleet
+    from repro_torch.cluster.simulator import Cluster
+    from repro_torch.cluster import state as tstate
+    from repro_torch.cluster.workloads import Pod
+
+    c = Cluster(fleet=make_fleet(6, seed=0), seed=0, device="cpu")
+    for i in range(10):
+        pod = Pod("web_search", 100.0 + 50 * i, True)
+        if i % 3 == 0:
+            pod = Pod("graph_analytics", 0.0, False, duration=9)
+            pod.cpu_demand = 4.0
+        c.place(pod, i % 6)
+    calls = []
+    real = tmetric.histograms
+
+    def spy(*sets):
+        calls.append(sets)
+        return real(*sets)
+
+    monkeypatch.setattr(tmetric, "histograms", spy)
+    noise = tstate.draw_noise(torch.Generator().manual_seed(5), c.n, 1)[0]
+    _, out = tstate._tick(c.state, c.profiles, c.fleet_params,
+                          torch.tensor(30.0), noise)
+    assert len(calls) == 1 and len(calls[0]) == 2
+    for (s, w), key in zip(calls[0], ("hist_on", "hist_off")):
+        assert w.stride()[-1] == 0
+        want = tmetric.histogram(s, w.contiguous())
+        torch.testing.assert_close(out[key], want, rtol=0, atol=0)
+    assert float(out["hist_on"].sum()) > 0 and float(out["hist_off"].sum()) > 0

@@ -146,6 +146,39 @@ def test_decode_step_logits_match_jax(arch, dtype):
     _close(logits, jlogits, dtype, "decode logits")
 
 
+def test_zamba2_conv_cache_owns_its_storage_and_greedy_tokens_match_jax():
+    """After a prefill every Mamba layer's conv cache is a (B, K-1, C)
+    tensor with storage of its own (not a view of the layer's padded
+    input); greedy decoding from that cache picks JAX's tokens (float32)."""
+    jcfg, tcfg, params, model = _build("zamba2-1.2b", "float32")
+    toks = _tokens(jcfg, 4)
+    steps = 3
+    logits, cache = model.prefill(torch.from_numpy(toks).long(),
+                                  max_seq=T + steps)
+    convs = [layer["conv"] for layer in cache.layers if "conv" in layer]
+    assert convs
+    for c in convs:
+        assert c.shape[:2] == (B, tcfg.ssm_conv - 1) and c._base is None
+        assert c.untyped_storage().nbytes() == c.numel() * c.element_size()
+    _, jcache = _jax_run(lambda p, b: M.prefill(jcfg, p, b), params,
+                         {"tokens": jnp.asarray(toks)})
+    full = M.init_cache(jcfg, B, T + steps)
+    jcache = jax.tree.map(
+        lambda d, s: d.at[tuple(slice(0, n) for n in s.shape)].set(
+            s.astype(d.dtype)) if hasattr(d, "ndim") and d.ndim >= 2
+        and d.shape != s.shape else s, full, jcache)
+    jstep = jax.jit(lambda p, c, b: M.decode_step(jcfg, p, c, b))
+    tok = logits.argmax(-1, keepdim=True)
+    jtok = jnp.asarray(tok.numpy().astype(np.int32))
+    for _ in range(steps):
+        np.testing.assert_array_equal(tok.numpy(), np.asarray(jtok))
+        logits, cache = model.decode_step(tok, cache)
+        jlogits, jcache = jstep(params, jcache, {"token": jtok})
+        tok = logits.argmax(-1, keepdim=True)
+        jtok = jnp.argmax(jlogits, -1, keepdims=True).astype(jnp.int32)
+    np.testing.assert_array_equal(tok.numpy(), np.asarray(jtok))
+
+
 def test_gqa_nine_over_three_matches_jax():
     """smollm-135m's head layout (9 query heads over 3 KV heads) at smoke
     width: prefill logits against JAX in float32."""

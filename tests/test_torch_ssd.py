@@ -131,6 +131,25 @@ def test_causal_conv1d_matches_jax(dtype, with_prev):
                                np.asarray(jp.astype(jnp.float32)), **tol)
 
 
+@pytest.mark.parametrize("with_prev", [False, True])
+def test_causal_conv1d_state_owns_its_storage(with_prev):
+    """The (B, K-1, C) conv state is a tensor of its own, not a view of the
+    padded input: the decode cache keeps it, and a view would keep the
+    whole (B, T+K-1, C) input alive with it.  Values equal JAX's exactly."""
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((2, 33, 6)).astype(np.float32)
+    w = rng.standard_normal((4, 6)).astype(np.float32)
+    prev = rng.standard_normal((2, 3, 6)).astype(np.float32)
+    _, jp = jssd.causal_conv1d(jnp.asarray(x), jnp.asarray(w),
+                               jnp.asarray(prev) if with_prev else None)
+    _, p = tssd.causal_conv1d(torch.from_numpy(x), torch.from_numpy(w),
+                              torch.from_numpy(prev) if with_prev else None)
+    assert tuple(p.shape) == (2, 3, 6) and p.is_contiguous()
+    assert p._base is None
+    assert p.untyped_storage().nbytes() == p.numel() * p.element_size()
+    np.testing.assert_array_equal(p.numpy(), np.asarray(jp))
+
+
 @pytest.mark.parametrize("bad", ["shape", "device_mix"])
 def test_wrapper_rejects_bad_inputs(bad):
     t = _t(_inputs(1, 8, 2, 16, 8, 0))
