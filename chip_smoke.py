@@ -10,8 +10,9 @@ Phases, each printed with its numbers and wall time:
    ``wkv`` kernels kept in ``tools/earlier/`` to be timed beside their
    replacements (one ``nvcc`` per source, all at once), print the
    registers, shared memory and spills of ``runqlat_hist``,
-   ``rollout_tick``, ``flash_attention_sm90`` and ``wkv`` and the ``HGMMA``
-   instructions in ``flash_attention_sm90``'s SASS (none is a failure);
+   ``rollout_tick``, ``flash_attention_sm90``, ``ssd_sm90`` and ``wkv``,
+   the ``HGMMA`` instructions in ``flash_attention_sm90``'s SASS and the
+   ``HMMA`` ones in ``ssd_sm90``'s (none is a failure);
 2. hold ``runqlat_hist`` against its plain version on the card: a tick's
    two sets through the one-launch entry with broadcast masks exactly,
    float weights at n 16 exactly against the CPU's sequential plain
@@ -56,9 +57,12 @@ Phases, each printed with its numbers and wall time:
     and without the window; each timed beside the plain version and
     PyTorch's ``scaled_dot_product_attention``, the bf16 ones also beside
     the earlier SIMT kernel on the same inputs;
-12. ``ssd`` against its plain version (y and final state) at the same
-    prefill's shapes (B 4, T 1024, H 64, P 64, N 64, bf16) and at a ragged
-    T of 1000, timed beside the plain version;
+12. ``ssd`` against its plain version (y and final state): the bf16
+    tensor-core kernel at the same prefill's shapes (B 4, T 1024, H 64, P
+    64, N 64), at a ragged T of 1000 and at the served smoke model's width
+    (H 2, P 64, N 16), two calls bit-equal; each timed beside the plain
+    version and the earlier SIMT kernel on the same inputs (CUDA events and
+    device time from CUDA graphs);
 13. the serving path at full width: zamba2-1.2b (1.17 B parameters, random
     bf16 weights from a generator seeded 0) behind ``ServeEngine(max_batch
     =4)``, 16 requests with prompts of 256-1,024 tokens and 32 new tokens
@@ -694,14 +698,44 @@ def _ssd_flops(B, T, H, P, N, L=64):
     return B * H * -(-T // L) * per_chunk
 
 
-def phase_ssd_kernel(torch, SSD, card):
-    """``ssd`` (y and final state) against its plain version at the serve
-    phase's prefill shapes and a ragged T, each timed beside the plain
-    version (order plain, kernel, kernel, plain)."""
+# B, T, H, P, N: zamba2-1.2b's prefill, a ragged T, and the width of the
+# served smoke model (P widened to 64 as tests/test_torch_cuda.py serves it)
+SSD_CASES = [("main", 4, 1024, 64, 64, 64), ("ragged", 4, 1000, 64, 64, 64),
+             ("smoke", 4, 200, 2, 64, 16)]
+
+
+def _simt_ssd(torch, SSD, build, x, dt, A, Bm, Cm):
+    """The SIMT kernel (``csrc/ssd.cu``) on bf16 inputs, called through the
+    wrapper's float32 entry with the bf16 dtype code: the port routes bf16
+    to the tensor-core kernel since it replaced this one, and this keeps
+    the earlier kernel's time beside the new one in the same run."""
+    fn = SSD._entry(torch.float32)
+    Bsz, T, H, P = x.shape
+    N = Bm.shape[-1]
+    y = torch.empty_like(x)
+    state = torch.empty((Bsz, H, P, N), device=x.device)
+
+    def run():   # on the current stream, which a graph capture sets
+        dev, stream = build.device_and_stream(x)
+        err = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+                 Cm.data_ptr(), y.data_ptr(), state.data_ptr(), Bsz, T, H, P,
+                 N, SSD._DTYPES[torch.bfloat16], dev, stream)
+        if err:
+            raise RuntimeError(f"SIMT ssd launch failed: {err}")
+        return y, state
+    return run
+
+
+def phase_ssd_kernel(torch, SSD, build, card):
+    """``ssd`` (y and final state) against its plain version: the bf16
+    tensor-core kernel at the serve phase's prefill shapes, at a ragged T
+    and at the smoke width; each also against the SIMT kernel on the same
+    inputs.  Times: CUDA events over wrapper calls (order plain, kernel,
+    kernel, plain, SIMT) and device time from CUDA graphs (kernel, SIMT,
+    kernel)."""
     g = torch.Generator(device=card).manual_seed(2)
     out = {}
-    for name, T in (("main", 1024), ("ragged", 1000)):
-        B, H, P, N = 4, 64, 64, 64
+    for name, B, T, H, P, N in SSD_CASES:
         x = torch.randn((B, T, H, P), generator=g, device=card).bfloat16()
         dt = torch.rand((B, T, H), generator=g, device=card) * 0.19 + 0.01
         A = -torch.linspace(1.0, 16.0, H, device=card)   # as init_params
@@ -709,26 +743,43 @@ def phase_ssd_kernel(torch, SSD, card):
         Cm = torch.randn((B, T, N), generator=g, device=card).bfloat16()
         args = (x, dt, A, Bm, Cm)
         y, state = SSD.ssd(*args)
+        y2, state2 = SSD.ssd(*args)
         wy, wstate = SSD.ssd_plain(*args)
         torch.cuda.synchronize()
-        err = max(
-            _close(torch, y, wy, *KERNEL_TOL["bfloat16"], f"ssd y {name}"),
-            _close(torch, state, wstate, 1e-4, 1e-4, f"ssd state {name}"))
+        rtol, atol = KERNEL_TOL["bfloat16"]
+        err = max(_close(torch, y, wy, rtol, atol, f"ssd y {name}"),
+                  _close(torch, state, wstate, 1e-4, 1e-4,
+                         f"ssd state {name}"))
+        if not (torch.equal(y, y2) and torch.equal(state, state2)):
+            raise AssertionError(f"ssd {name}: two calls differ")
+        simt = _simt_ssd(torch, SSD, build, *args)
+        sy, sstate = simt()
+        simt_err = max(_close(torch, sy, wy, rtol, atol, f"SIMT y {name}"),
+                       _close(torch, sstate, wstate, 1e-4, 1e-4,
+                              f"SIMT state {name}"))
         ms = _timed([("plain", lambda: SSD.ssd_plain(*args)),
                      ("kernel", lambda: SSD.ssd(*args)),
                      ("kernel2", lambda: SSD.ssd(*args)),
-                     ("plain2", lambda: SSD.ssd_plain(*args))])
+                     ("plain2", lambda: SSD.ssd_plain(*args)),
+                     ("simt", simt)])
+        dev = {"kernel": graph_ms(torch, lambda: SSD.ssd(*args)),
+               "simt": graph_ms(torch, simt),
+               "kernel2": graph_ms(torch, lambda: SSD.ssd(*args))}
         nbytes = (2 * 2 * x.numel() + 2 * 2 * Bm.numel() + 4 * dt.numel()
                   + 4 * A.numel() + 4 * state.numel())
         nops = _ssd_flops(B, T, H, P, N)
         byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
         op_ms = nops / BF16_OPS_PER_S * 1e3
         out[name] = dict(
-            shape=f"B{B} T{T} H{H} P{P} N{N} bf16", max_abs_err=err,
-            bytes=nbytes, flops=nops, bound_ms=max(byte_ms, op_ms),
+            shape=f"B{B} T{T} H{H} P{P} N{N} bf16",
+            max_abs_err=err, simt_max_abs_err=simt_err, bytes=nbytes,
+            flops=nops, bound_ms=max(byte_ms, op_ms),
             bound_by="bytes" if byte_ms >= op_ms else "operations",
-            ms=min(ms["kernel"], ms["kernel2"]),
-            plain_ms=min(ms["plain"], ms["plain2"]), runs=json.dumps(ms))
+            ms=min(dev["kernel"], dev["kernel2"]), simt_ms=dev["simt"],
+            events_ms=min(ms["kernel"], ms["kernel2"]),
+            simt_events_ms=ms["simt"],
+            plain_ms=min(ms["plain"], ms["plain2"]), runs=json.dumps(ms),
+            device_runs=json.dumps(dev))
     return out
 
 
@@ -1121,7 +1172,7 @@ def main() -> int:
         try:
             libs = build.build(["runqlat_hist", "rollout_tick",
                                 "flash_attention", "flash_attention_sm90",
-                                "ssd", "wkv"])
+                                "ssd", "ssd_sm90", "wkv"])
         finally:
             earlier.join()
         build.load("runqlat_hist", EARLIER)   # raises if that build failed
@@ -1129,13 +1180,17 @@ def main() -> int:
     done("build", ptxas=json.dumps({
         k: v.strip().splitlines()[-2:] for k, v in build.build_logs.items()}))
     for name in ("runqlat_hist", "rollout_tick", "flash_attention_sm90",
-                 "wkv"):
+                 "ssd_sm90", "wkv"):
         say("build", kernel=name, ptxas=json.dumps(
             ptxas_summary(build.build_logs.get(name, ""))))
     hgmma = sass_count(libs["flash_attention_sm90"], "HGMMA")
-    say("build", flash_attention_sm90_hgmma_instructions=hgmma)
+    hmma = sass_count(libs["ssd_sm90"], "HMMA")
+    say("build", flash_attention_sm90_hgmma_instructions=hgmma,
+        ssd_sm90_hmma_instructions=hmma)
     if hgmma == 0:
         raise AssertionError("no HGMMA in flash_attention_sm90's SASS")
+    if hmma == 0:
+        raise AssertionError("no HMMA in ssd_sm90's SASS")
 
     # 2. kernel against its plain version ---------------------------------
     with timers.phase("kernel"):
@@ -1325,7 +1380,7 @@ def main() -> int:
         say("flash_kernel", case=name, **nums)
     done("flash_kernel")
     with timers.phase("ssd_kernel"):
-        ssdk = phase_ssd_kernel(torch, SSD, card)
+        ssdk = phase_ssd_kernel(torch, SSD, build, card)
     for name, nums in ssdk.items():
         say("ssd_kernel", case=name, **nums)
     done("ssd_kernel")
@@ -1385,7 +1440,7 @@ def main() -> int:
         "bound_by": flash["main"]["bound_by"],
         "library_ms": flash["main"]["library_ms"]}, {
         "name": "ssd", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/ssd.cu",
+        "source": "src/repro_torch/kernels/csrc/ssd_sm90.cu",
         "replaces": "src/repro/kernels/ssd.py:66",
         "launches": serve["ssd_launches"],
         "max_abs_err": max(c["max_abs_err"] for c in ssdk.values()),

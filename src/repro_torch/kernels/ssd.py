@@ -11,14 +11,22 @@ group shared across heads:
 It returns ``y`` (like x) and the final state (B, H, P, N) float32, which
 ``ssd_pallas`` keeps in VMEM scratch and drops; the model's prefill needs
 it for the decode cache, as JAX's ``models/ssd.py::ssd_chunked`` returns
-it.  The kernel is CUDA C++ in ``csrc/ssd.cu`` (design and bound are
-noted there).
+it.  Two CUDA C++ kernels compute it (design and bound are noted in each):
+bfloat16 x, B and C go to ``csrc/ssd_sm90.cu`` (the products on the tensor
+cores, one block per (batch, chunk, pair of heads), the state passed from
+chunk to chunk through the state output, which the wrapper zeroes, and a
+zeroed (1 + B H,) int32 buffer for the kernel's ticket and its counts of
+written chunks, allocated each call), float32 ones to
+``csrc/ssd.cu`` (one block per (batch, head), products on the float32
+CUDA cores).
 
 ``ssd_plain`` follows ``ssd_chunked``'s arithmetic and chunking: chunks of
 ``min(CHUNK, T)`` steps, a ragged T zero-padded to whole chunks (a padded
 step has dt = 0, so it neither decays nor feeds the state).  For tensors
 on the CPU the wrapper takes it; for CUDA tensors it launches the kernel
-or raises.  ``launches`` counts kernel launches and nothing else.
+of their type or raises: there is no fallback, and no kernel is tried
+after another.  ``launches`` counts launches of either kernel and nothing
+else.
 """
 from __future__ import annotations
 
@@ -30,7 +38,8 @@ import torch.nn.functional as F
 from repro_torch.kernels import build
 
 CHUNK = 64
-MAX_DIM = 64            # the kernel's bound on P and N
+MAX_DIM = 64            # the kernels' bound on P and N
+DIM_STEP = 16           # the bf16 kernel takes P and N in multiples of this
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0
@@ -97,11 +106,22 @@ def _check(x, dt, A, B_, C) -> None:
         raise ValueError("ssd: every input must lie on one device")
 
 
-def _entry():
-    fn = build.load("ssd").ssd_launch
+# bf16 takes the tensor-core kernel, float32 the SIMT one (its products in
+# full float32, which TF32 tensor cores would not keep)
+_ENTRIES = {torch.bfloat16: ("ssd_sm90", "ssd_sm90_launch"),
+            torch.float32: ("ssd", "ssd_launch")}
+
+
+def _entry(dtype):
+    lib, name = _ENTRIES[dtype]
+    fn = getattr(build.load(lib), name)
     if fn.argtypes is None:  # pointers and the stream as c_void_p, not int
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [
-            ctypes.c_void_p]
+        if dtype == torch.bfloat16:   # + the sync buffer, no dtype code
+            fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
+                ctypes.c_void_p]
+        else:
+            fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [
+                ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -119,20 +139,34 @@ def _launch(x, dt, A, B_, C):
     if not (0 < P <= MAX_DIM and 0 < N <= MAX_DIM):
         raise ValueError(f"ssd kernel takes P, N <= {MAX_DIM}, got P={P}, "
                          f"N={N}")
+    sm90 = x.dtype == torch.bfloat16
+    if sm90 and (P % DIM_STEP or N % DIM_STEP):
+        raise ValueError(f"ssd bf16 kernel takes P, N in multiples of "
+                         f"{DIM_STEP}, got P={P}, N={N}")
     for name, t in (("x", x), ("dt", dt), ("A", A), ("B", B_), ("C", C)):
         if not t.is_contiguous():
             raise ValueError(f"ssd: {name} must be contiguous")
+    if sm90 and any(t.data_ptr() % 16 for t in (x, B_, C)):
+        raise ValueError("ssd bf16 kernel: x, B and C must be 16-byte "
+                         "aligned (it loads them in 16-byte pieces)")
     if x.numel() >= 2**31:
         raise ValueError("ssd: too large for 32-bit indexing")
-    fn = _entry()
+    fn = _entry(x.dtype)
     y = torch.empty_like(x)
-    state = torch.empty((Bsz, H, P, N), dtype=torch.float32, device=x.device)
+    # the bf16 kernel passes the state from chunk to chunk through this
+    # buffer, and reads a zero as "not yet written"
+    state = (torch.zeros if sm90 else torch.empty)(
+        (Bsz, H, P, N), dtype=torch.float32, device=x.device)
     if x.numel() == 0:
         return y, state.zero_()
     dev, stream = build.device_and_stream(x)
-    err = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B_.data_ptr(),
-             C.data_ptr(), y.data_ptr(), state.data_ptr(), Bsz, T, H, P, N,
-             _DTYPES[x.dtype], dev, stream)
+    ptrs = [x.data_ptr(), dt.data_ptr(), A.data_ptr(), B_.data_ptr(),
+            C.data_ptr(), y.data_ptr(), state.data_ptr()]
+    if sm90:   # its ticket, then room for a count a (batch, head)
+        sync = torch.zeros(1 + Bsz * H, dtype=torch.int32, device=x.device)
+        err = fn(*ptrs, sync.data_ptr(), Bsz, T, H, P, N, dev, stream)
+    else:
+        err = fn(*ptrs, Bsz, T, H, P, N, _DTYPES[x.dtype], dev, stream)
     if err != 0:
         raise RuntimeError(f"ssd launch failed: CUDA error {err}")
     launches += 1

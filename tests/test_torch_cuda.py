@@ -406,11 +406,12 @@ def test_flash_wrapper_raises_on_bad_inputs(card, bad):
         FA.flash_attention(q, k, v)
 
 
-def _ssd_inputs(B, T, H, P, N, dtype, device, seed=0):
+def _ssd_inputs(B, T, H, P, N, dtype, device, seed=0, a_range=(0.5, 2.0)):
     g = torch.Generator().manual_seed(seed)
     x = torch.randn((B, T, H, P), generator=g)
     dt = torch.rand((B, T, H), generator=g) * 0.19 + 0.01
-    A = -(torch.rand((H,), generator=g) * 1.5 + 0.5)
+    lo, hi = a_range
+    A = -(torch.rand((H,), generator=g) * (hi - lo) + lo)
     Bm = torch.randn((B, T, N), generator=g)
     Cm = torch.randn((B, T, N), generator=g)
     return (x.to(dtype).to(device), dt.to(device), A.to(device),
@@ -437,6 +438,58 @@ def test_ssd_kernel_equals_plain(card, exact_f32, B, T, H, P, N, dtype):
         dict(rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(y.float(), wy.float(), **tol)
     torch.testing.assert_close(state, wstate, rtol=1e-4, atol=1e-4)
+
+
+# bf16 goes to the tensor-core kernel (csrc/ssd_sm90.cu): zamba2-1.2b's
+# prefill (A in [-16, -1], as the model's init), H = 5 (a group of heads
+# past H, masked), N 16 (the served smoke model's P 64, N 16), and T of 1,
+# 37, 64, 65 and 1,000 (ragged last chunks); float32 stays on ssd.cu
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,P,N,a_range", [
+    (4, 1024, 64, 64, 64, (1.0, 16.0)),
+    (2, 256, 5, 64, 64, (0.5, 2.0)),
+    (2, 200, 2, 64, 16, (1.0, 16.0)),
+    (2, 1, 4, 32, 16, (0.5, 2.0)),
+    (2, 37, 4, 32, 16, (0.5, 2.0)),
+    (2, 64, 4, 32, 16, (0.5, 2.0)),
+    (2, 65, 4, 32, 16, (0.5, 2.0)),
+    (1, 1000, 6, 64, 64, (1.0, 16.0)),
+])
+def test_ssd_sm90_equals_plain(card, exact_f32, B, T, H, P, N, a_range):
+    """y within a bf16 ulp and the final float32 state within 1e-4 of the
+    plain version; one launch per call."""
+    inp = _ssd_inputs(B, T, H, P, N, torch.bfloat16, card, seed=T + H,
+                      a_range=a_range)
+    before = SSD.launches
+    y, state = SSD.ssd(*inp)
+    torch.cuda.synchronize()
+    assert SSD.launches == before + 1
+    wy, wstate = SSD.ssd_plain(*inp)
+    torch.testing.assert_close(y.float(), wy.float(), rtol=1e-2, atol=1e-2)
+    torch.testing.assert_close(state, wstate, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_ssd_sm90_is_deterministic(card):
+    """The chain sums in a fixed order: two calls give the same bits."""
+    inp = _ssd_inputs(2, 1000, 8, 64, 64, torch.bfloat16, card, seed=3,
+                      a_range=(1.0, 16.0))
+    y1, s1 = SSD.ssd(*inp)
+    y2, s2 = SSD.ssd(*inp)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2) and torch.equal(s1, s2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("P,N", [(24, 16), (64, 8)])
+def test_ssd_sm90_refuses_what_it_does_not_take(card, P, N):
+    """A bf16 shape the tensor-core kernel does not take raises; it is not
+    sent to the SIMT kernel."""
+    inp = _ssd_inputs(1, 64, 2, P, N, torch.bfloat16, card)
+    before = SSD.launches
+    with pytest.raises(ValueError):
+        SSD.ssd(*inp)
+    assert SSD.launches == before
 
 
 @pytest.mark.cuda

@@ -165,3 +165,175 @@ def test_cpu_takes_plain_and_counts_no_launch():
     before = K.launches
     K.ssd(**_t(_inputs(1, 8, 2, 16, 8, 0)))
     assert K.launches == before
+
+
+def _bf16_inputs(B, T, H, P, N, seed):
+    t = _t(_inputs(B, T, H, P, N, seed))
+    for k in ("x", "B_", "C"):
+        t[k] = t[k].bfloat16()
+    return t
+
+
+class _Lib:
+    """A stand-in for ``build.load``'s library: records which library and
+    entry a launch reached, and the arguments, and returns ``rc``."""
+
+    def __init__(self, rc=0):
+        self.rc, self.calls, self.fns = rc, [], {}
+
+    def load(self, name):
+        outer = self
+
+        class Fn:
+            argtypes = None
+
+            def __call__(self, *args):
+                outer.calls.append((name, self.symbol, args))
+                return outer.rc
+
+        class Lib:
+            def __getattr__(self, symbol):
+                fn = outer.fns.setdefault((name, symbol), Fn())
+                fn.symbol = symbol
+                return fn
+        return Lib()
+
+
+@pytest.mark.parametrize("dtype,lib,symbol,ints", [
+    ("bfloat16", "ssd_sm90", "ssd_sm90_launch", 6),
+    ("float32", "ssd", "ssd_launch", 7),
+])
+def test_launch_routes_by_dtype(monkeypatch, dtype, lib, symbol, ints):
+    """bf16 goes to the tensor-core kernel (with a sync buffer, no dtype
+    code), float32 to the SIMT one (dtype code 0); one launch, counted
+    once, and nothing else is tried."""
+    fake = _Lib()
+    monkeypatch.setattr(K.build, "load", fake.load)
+    monkeypatch.setattr(K.build, "device_and_stream", lambda t: (0, 7))
+    t = _bf16_inputs(2, 40, 5, 32, 16, 3) if dtype == "bfloat16" else \
+        _t(_inputs(2, 40, 5, 32, 16, 3))
+    before = K.launches
+    y, state = K._launch(t["x"], t["dt"], t["A"], t["B_"], t["C"])
+    assert K.launches == before + 1
+    assert y.shape == t["x"].shape and y.dtype == t["x"].dtype
+    assert state.shape == (2, 5, 32, 16) and state.dtype == torch.float32
+    assert [(n, s) for n, s, _ in fake.calls] == [(lib, symbol)]
+    args = fake.calls[0][2]
+    ptrs = 8 if dtype == "bfloat16" else 7
+    assert len(fake.fns[(lib, symbol)].argtypes) == ptrs + ints + 1
+    assert len(args) == ptrs + ints + 1
+    assert args[ptrs:ptrs + 5] == (2, 40, 5, 32, 16) and args[-2:] == (0, 7)
+    if dtype == "float32":
+        assert args[ptrs + 5] == 0
+
+
+def test_bf16_launch_hands_zeroed_state_and_ticket(monkeypatch):
+    """The bf16 kernel passes the state from chunk to chunk through the
+    state output and reads a zero as "not yet written"; its ticket and its
+    counts of written chunks (one a (batch, group of heads), so at most one
+    a (batch, head)) are a second buffer: both zero, allocated for the
+    call."""
+    seen = []
+    real_zeros = torch.zeros
+
+    def zeros(*shape, **kw):
+        out = real_zeros(*shape, **kw)
+        seen.append(out)
+        return out
+
+    fake = _Lib()
+    monkeypatch.setattr(K.build, "load", fake.load)
+    monkeypatch.setattr(K.build, "device_and_stream", lambda t: (0, 0))
+    monkeypatch.setattr(K.torch, "zeros", zeros)
+    t = _bf16_inputs(3, 16, 5, 16, 16, 4)
+    y, state = K._launch(t["x"], t["dt"], t["A"], t["B_"], t["C"])
+    (zstate, sync) = seen
+    assert zstate is state and not state.any()
+    assert sync.shape == (1 + 3 * 5,)
+    assert sync.dtype == torch.int32 and not sync.any()
+    args = fake.calls[0][2]
+    assert args[6] == state.data_ptr() and args[7] == sync.data_ptr()
+
+
+@pytest.mark.parametrize("P,N", [(24, 16), (64, 8), (80, 16), (64, 96)])
+def test_bf16_launch_refuses_shapes_before_any_launch(monkeypatch, P, N):
+    """P or N not a multiple of 16, or past 64: the bf16 kernel does not
+    take them, and the wrapper raises before it loads or launches anything
+    (there is no fallback to the SIMT kernel)."""
+    fake = _Lib()
+    monkeypatch.setattr(K.build, "load", fake.load)
+    monkeypatch.setattr(K.build, "device_and_stream", lambda t: (0, 0))
+    t = _bf16_inputs(1, 8, 2, P, N, 0)
+    before = K.launches
+    with pytest.raises(ValueError):
+        K._launch(t["x"], t["dt"], t["A"], t["B_"], t["C"])
+    assert K.launches == before and not fake.calls and not fake.fns
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_launch_raises_on_a_failed_launch(monkeypatch, dtype):
+    fake = _Lib(rc=719)
+    monkeypatch.setattr(K.build, "load", fake.load)
+    monkeypatch.setattr(K.build, "device_and_stream", lambda t: (0, 0))
+    t = _bf16_inputs(1, 16, 2, 16, 16, 6) if dtype == "bfloat16" else \
+        _t(_inputs(1, 16, 2, 16, 16, 6))
+    before = K.launches
+    with pytest.raises(RuntimeError, match="719"):
+        K._launch(t["x"], t["dt"], t["A"], t["B_"], t["C"])
+    assert K.launches == before
+
+
+def _split(v):
+    """float32 v as bf16 hi = bf16(v) and lo = bf16(v - hi), as the bf16
+    kernel splits each float32 operand of its products."""
+    hi = v.bfloat16()
+    return hi, (v - hi.float()).bfloat16()
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_split_operand_keeps_float32_state(seed):
+    """One chunk's state contribution x^T (dec o B) at the serve's value
+    ranges (dt in (0.01, 0.2), A in [-16, -1], randn x/B), with dec o B
+    split as a bf16 hi + lo pair, exact bf16 x and float32 sums, is within
+    1e-4 of float64; one bf16 rounding of dec o B is not (the state is held
+    to 1e-4), which is why the kernel multiplies by both halves."""
+    rng = np.random.default_rng(seed)
+    L, P, N = 64, 64, 64
+    x = torch.from_numpy(rng.standard_normal((L, P)).astype(np.float32))
+    Bm = torch.from_numpy(rng.standard_normal((L, N)).astype(np.float32))
+    x, Bm = x.bfloat16(), Bm.bfloat16()          # bf16 inputs, exact below
+    dt = rng.uniform(0.01, 0.2, L)
+    a = -rng.uniform(1.0, 16.0)
+    cum = np.cumsum(dt * a)
+    dec = torch.from_numpy((np.exp(cum[-1] - cum) * dt).astype(np.float32))
+    decB = dec[:, None] * Bm.float()             # float32, as in the kernel
+    want = x.double().T @ (dec.double()[:, None] * Bm.double())
+    hi, lo = _split(decB)
+    xf = x.float()
+    two = xf.T @ hi.float() + xf.T @ lo.float()
+    one = xf.T @ hi.float()
+    err_two = float((two.double() - want).abs().max())
+    err_one = float((one.double() - want).abs().max())
+    assert err_two < 1e-4, err_two
+    assert err_one > 1e-4, err_one
+
+
+def test_phase_tool_patches_match_the_kernel_source():
+    """``tools/ssd_sm90_phases.py`` builds patched copies of
+    ``csrc/ssd_sm90.cu`` (G, timing-only variants); each text it replaces
+    must still be in the source (G's line once), or the tool fails on the
+    card; and it names each of the kernel's phase marks."""
+    import importlib.util
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent.parent
+    spec = importlib.util.spec_from_file_location(
+        "ssd_sm90_phases", root / "tools" / "ssd_sm90_phases.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    src = (K.build.CSRC / "ssd_sm90.cu").read_text()
+    assert src.count(tool.GROUP_LINE) == 1
+    for reps in tool.VARIANTS.values():
+        for pattern, _ in reps:
+            assert pattern in src, pattern
+    assert src.count("MARK(") - src.count("#define MARK(") == len(tool.MARKS)
