@@ -50,20 +50,39 @@ Phases, each printed with its numbers and wall time:
    replay's checks: one launch per batched tick, no ``runqlat_hist``
    launch, and the seed-7 entry reproducing phase 4's run;
 10. a profile of the batched tick at 20 x 1,000 rows, fused and default;
-11. ``flash_attention`` against its plain version: the bf16 wgmma/TMA
+11. ``paper_models`` (through ``benchmarks/bench_torch_paper.py``): the
+    resource model's per-type lines (Figs. 6-7, float64) on the card
+    against the CPU; Table II at ``bench_predictors``' full size (700
+    placements), the five regressors fitted and timed on the card (fit s,
+    predict µs, MAE / MSE / MAPE / R²), the linear model and the two
+    forests against their CPU fits to rtol 1e-4;
+12. ``motivation`` (through ``bench_torch_paper``): Table I on the card,
+    2,400 single-node ticks, one ``runqlat_hist`` launch each;
+13. ``control_12``: ``bench_control``'s profile grid at trace seed 0 (12
+    nodes, ``bursty_trace(num_online=14, seed=0)``, sim seed 7), each
+    scheduler without and with its ``scheduler_loop_config`` loop, ms per
+    control step; the controlled ICO run on the card against the CPU with
+    one noise stream (same actions, RT to rtol 1e-4); then ICO's plans
+    without and with control replayed under 20 seeds with the fused tick
+    (p99 per seed, wins), each seed-7 entry held to its run;
+14. ``control_1000``: phase 4's 1,000-node ICO run with the ICO control
+    loop stepped every 40 ticks: ticks/s beside phase 4's, ms per control
+    step by phase, actions, peak memory, one ``runqlat_hist`` launch a
+    tick;
+15. ``flash_attention`` against its plain version: the bf16 wgmma/TMA
     kernel at zamba2-1.2b's prefill shapes (B 4, S 1024, H 32, hd 64,
     causal), at hd 128 and at a ragged GQA shape (S 1000, 9 heads over 3 KV
     heads, window 100); the float32 SIMT kernel at that ragged shape with
     and without the window; each timed beside the plain version and
     PyTorch's ``scaled_dot_product_attention``, the bf16 ones also beside
     the earlier SIMT kernel on the same inputs;
-12. ``ssd`` against its plain version (y and final state): the bf16
+16. ``ssd`` against its plain version (y and final state): the bf16
     tensor-core kernel at the same prefill's shapes (B 4, T 1024, H 64, P
     64, N 64), at a ragged T of 1000 and at the served smoke model's width
     (H 2, P 64, N 16), two calls bit-equal; each timed beside the plain
     version and the earlier SIMT kernel on the same inputs (CUDA events and
     device time from CUDA graphs);
-13. the serving path at full width: zamba2-1.2b (1.17 B parameters, random
+17. the serving path at full width: zamba2-1.2b (1.17 B parameters, random
     bf16 weights from a generator seeded 0) behind ``ServeEngine(max_batch
     =4)``, 16 requests with prompts of 256-1,024 tokens and 32 new tokens
     each, both kernels' counts set to 0 before and read after; then one
@@ -71,13 +90,13 @@ Phases, each printed with its numbers and wall time:
     in bf16 and with the same weights in float32, prefill(x[:-1]) +
     decode(x[-1]) against the full forward (kernel and plain paths), and a
     profile of one cohort's prefill and of eight decode steps;
-14. ``wkv`` (y and final state) against its plain version at rwkv6-7b's
+18. ``wkv`` (y and final state) against its plain version at rwkv6-7b's
     prefill shapes (B 4, T 1024, H 64, P 64, float32) at the served decay
     0.302 (where the chunked form's 1e-30 floors bind) and at real decays
     (also against the naive recurrence), at T 100 and 910 (chunks of 100
     and 65) and at P 16, timed beside the plain version and the earlier
     serial-chunk kernel;
-15. the same serving path for rwkv6-7b at full width and depth (7.53 B
+19. the same serving path for rwkv6-7b at full width and depth (7.53 B
     parameters, ~15 GB of bf16 weights), prompts of 256-1,024 tokens in
     multiples of 64, the ``wkv`` count set to 0 before and read after (32
     launches per cohort, none at decode), the same checks (prefill +
@@ -1122,14 +1141,298 @@ def phase_serve(torch, np, card, arch, kernels, per_prefill, lens, tag,
     return nums
 
 
+# --------------------------------------------------------------------------
+# the paper's remaining pieces and the reactive control plane
+# --------------------------------------------------------------------------
+
+TABLE2_DETERMINISTIC = ("linear_regression", "random_forest", "xgb")
+
+
+def _wall(torch, fn, calls=1):
+    """Seconds per call of ``fn`` on the host clock, the card drained."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        out = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / calls, out
+
+
+def phase_paper_models(torch, np, card):
+    """Figs. 6-7 and Table II on the card, through ``bench_torch_paper``.
+    The resource model's per-type lines (float64) against the same fit on
+    the CPU; then the five regressors at ``bench_predictors``' full size,
+    each fitted and timed on the card, the deterministic ones (linear,
+    forest, boosting) also fitted on the CPU: their predictions must agree
+    to rtol 1e-4."""
+    from bench_torch_paper import resource_fits, table2_model, table2_split
+    from repro_torch.core.predictors import ALL_MODELS
+    from repro_torch.core.resource_model import ResourcePredictor
+
+    cpu = torch.device("cpu")
+    out = {"resource": {}, "table2": {}}
+    for w, fit_s, rp, data in resource_fits(card):
+        ref = ResourcePredictor(device=cpu).fit(w, *data)
+        for kind in ("cpu_fits", "mem_fits"):
+            a, b = getattr(rp, kind)[w], getattr(ref, kind)[w]
+            if not np.allclose([a.slope, a.intercept],
+                               [b.slope, b.intercept], rtol=1e-12, atol=0):
+                raise AssertionError(f"{w} {kind}: card {a} != cpu {b}")
+        r2c, r2m = rp.r2(w, *data)
+        row = {"r2_cpu": r2c, "r2_mem": r2m,
+               "slope_cpu": rp.cpu_fits[w].slope,
+               "slope_mem": rp.mem_fits[w].slope, "fit_us": fit_s * 1e6}
+        say("paper_models", figure="6-7", workload=w, **row)
+        if min(r2c, r2m) < 0.9:
+            raise AssertionError(f"{w}: QPS -> CPU/MEM not linear {row}")
+        out["resource"][w] = row
+
+    data_s, split = table2_split(card, fast=False)
+    Xtr, Xte, ytr, yte = split
+    say("paper_models", table="II", rows=len(ytr) + len(yte),
+        train=len(ytr), test=len(yte), dataset_s=data_s)
+    for name, cls in ALL_MODELS.items():
+        fit_s, pred_s, _, pred, e = table2_model(name, split, card,
+                                                 fast=False, calls=20)
+        if pred.device.type != card.type:
+            raise AssertionError(f"{name} predicted on {pred.device}")
+        row = {"fit_s": fit_s, "predict_us": pred_s * 1e6, **e}
+        if name in TABLE2_DETERMINISTIC:
+            want = cls(device=cpu).fit(Xtr, ytr).predict(Xte).numpy()
+            got = pred.cpu().numpy()
+            row["max_rel_diff_vs_cpu"] = float(
+                np.max(np.abs(got - want) / np.maximum(np.abs(want), 1e-6)))
+            if not np.allclose(got, want, rtol=1e-4, atol=1e-4):
+                raise AssertionError(f"{name}: card != cpu "
+                                     f"({row['max_rel_diff_vs_cpu']})")
+        if not np.isfinite(list(e.values())).all():
+            raise AssertionError(f"{name}: {e}")
+        say("paper_models", table="II", model=name, **row)
+        out["table2"][name] = row
+    return out
+
+
+def phase_motivation(torch, np, K, card):
+    """Table I on the card through ``bench_torch_paper``: 20 single-node
+    rollouts of 120 ticks, one ``runqlat_hist`` launch a tick."""
+    from bench_torch_paper import motivation_table
+
+    K.launches = 0
+    wall_s, table = motivation_table(card)
+    launches, ticks = K.launches, 20 * 120
+    for k, (mape, r2) in table.items():
+        say("motivation", table="I", fit=k, mape=mape, r2=r2)
+    if launches != ticks:
+        raise AssertionError(f"{launches} runqlat_hist launches for "
+                             f"{ticks} ticks")
+    for exp in ("exp1", "exp2"):
+        if not (table[f"{exp}_runqlat_resp"][1] > table[f"{exp}_cpu_resp"][1]):
+            raise AssertionError(f"{exp}: runqlat does not fit RT better "
+                                 f"than CPU: {table}")
+    return {"table1": table, "runqlat_hist_launches": launches,
+            "ticks": ticks, "ticks_per_s": ticks / wall_s}
+
+
+def _run_ticks(gaps, settle=40):
+    from repro_torch.cluster.state import CHUNK
+    return 30 + sum(-(-g // CHUNK) * CHUNK for g in gaps) + settle
+
+
+def _control_ms(loop, phases=("snapshot", "verify", "detect", "plan")):
+    """Host ms per control step by phase (from the loop's PhaseTimers)."""
+    s = loop.timers.summary()
+    steps = max(loop.stats.steps, 1)
+    ms = {p: 1e3 * s[p]["total_s"] / steps for p in phases if p in s}
+    ms["step"] = sum(ms.values())
+    return ms
+
+
+def controlled_card_vs_cpu(torch, np, card, rf, pods, gaps, ticks):
+    """One controlled 12-node ICO run on the card and on the CPU with one
+    noise stream and the same forest: the same placements and actions,
+    response times and reductions to rtol 1e-4."""
+    from repro_torch.cluster import state as cstate
+    from repro_torch.cluster.experiment import run_experiment
+    from repro_torch.control import ControlLoop, scheduler_loop_config
+    from repro_torch.core import ICOScheduler, InterferenceQuantifier
+
+    cpu = torch.device("cpu")
+    gen = torch.Generator(device=card).manual_seed(11)
+    stream = [cstate.draw_noise(gen, 12, cstate.CHUNK)
+              for _ in range(ticks // cstate.CHUNK)]
+    rf_cpu = copy.copy(rf)
+    rf_cpu.device = cpu
+    rf_cpu.forest = {k: v.cpu() for k, v in rf.forest.items()}
+    res = {}
+    for dev, model, noise in (
+            (card, rf, stream),
+            (cpu, rf_cpu, [[to_device(cpu, n) for n in ch] for ch in stream])):
+        q = InterferenceQuantifier(model.predict)
+        res[dev.type] = dataclasses.asdict(run_experiment(
+            ICOScheduler(q), pods, gaps, num_nodes=12, seed=7,
+            control_loop=ControlLoop(q, scheduler_loop_config("ICO")),
+            device=dev, noise=noise))
+    a, b = res[card.type], res["cpu"]
+    for f in ("placed", "rejected", "queued_retries", "mitigations"):
+        if a[f] != b[f]:
+            raise AssertionError(f"controlled {f}: card {a[f]} != cpu {b[f]}")
+    for f in ("avg_rt", "p90_rt", "p99_rt", "predicted_reduction",
+              "realized_reduction"):
+        if not np.isclose(a[f], b[f], rtol=1e-4):
+            raise AssertionError(f"controlled {f}: card {a[f]} != cpu {b[f]}")
+    return {"mitigations": a["mitigations"], "p99_rt_card": a["p99_rt"],
+            "p99_rt_cpu": b["p99_rt"],
+            "predicted_reduction_card": a["predicted_reduction"],
+            "predicted_reduction_cpu": b["predicted_reduction"]}
+
+
+def phase_control_12(torch, np, K, RT, card, rf):
+    """``bench_control``'s profile grid at trace seed 0: every scheduler
+    without and with its ``scheduler_loop_config`` loop (12 nodes,
+    ``bursty_trace(num_online=14, seed=0)``, sim seed 7); then ICO's plans
+    without and with control replayed under 20 seeds with the fused kernel
+    (one run's p99 is one noisy sample; the 20 seeds give the spread),
+    each seed-7 entry held to its run."""
+    from repro_torch.cluster.experiment import (
+        bursty_trace,
+        make_schedulers,
+        replay_plan_batched,
+        run_experiment,
+    )
+    from repro_torch.control import ControlLoop, scheduler_loop_config
+    from repro_torch.core import InterferenceQuantifier
+
+    pods, gaps = bursty_trace(num_online=14, seed=0)
+    ticks = _run_ticks(gaps)
+    out, plans, ico = {}, {}, {}
+    K.launches = 0
+    for with_control in (False, True):
+        for name, sched in make_schedulers(rf).items():
+            loop = (ControlLoop(InterferenceQuantifier(rf.predict),
+                                scheduler_loop_config(name))
+                    if with_control else None)
+            keep = plans.setdefault(with_control, {}) if name == "ICO" \
+                else None
+            r = run_experiment(sched, pods, gaps, num_nodes=12, seed=7,
+                               control_loop=loop, plan_out=keep,
+                               device=card)
+            row = {"p99_rt": r.p99_rt, "avg_rt": r.avg_rt,
+                   "placed": r.placed, "rejected": r.rejected,
+                   "mitigations": r.mitigations,
+                   "predicted_reduction": r.predicted_reduction,
+                   "realized_reduction": r.realized_reduction}
+            if loop is not None:
+                row["control_ms"] = json.dumps(_control_ms(loop))
+                row["by_kind"] = json.dumps(loop.stats.by_kind)
+            say("control_12", scheduler=name,
+                control="on" if with_control else "off", **row)
+            out[(name, with_control)] = row
+            if name == "ICO":
+                ico[with_control] = r
+            if not np.isfinite([r.avg_rt, r.p99_rt]).all() or \
+                    r.placed + r.rejected != len(pods):
+                raise AssertionError(f"{name} control={with_control}: {r}")
+    if K.launches != len(out) * ticks:
+        raise AssertionError(f"{K.launches} runqlat_hist launches for "
+                             f"{len(out)} x {ticks} ticks")
+    if out[("ICO", True)]["mitigations"] == 0:
+        raise AssertionError("the ICO loop applied no mitigation")
+    for name in ("RR", "HUP"):
+        if "migrate" in out[(name, True)]["by_kind"] or \
+                "scale_out" in out[(name, True)]["by_kind"]:
+            raise AssertionError(f"{name} profile moved pods")
+    same = controlled_card_vs_cpu(torch, np, card, rf, pods, gaps, ticks)
+    say("control_12", card_vs_cpu="ICO+control", **same)
+
+    p99 = {}
+    for with_control, plan in plans.items():
+        RT.launches, K.launches = 0, 0
+        wall_s, rep = _wall(torch, lambda: replay_plan_batched(
+            plan, sim_seeds=tuple(range(20)), window_ticks=40,
+            use_fused=True, device=card))
+        bticks = rep["padded_windows"] * 40
+        by_seed = {e["sim_seed"]: e for e in rep["seeds"]}
+        p99[with_control] = np.array([by_seed[s]["p99_rt"]
+                                      for s in range(20)])
+        say("control_12", replay="ICO+control" if with_control else "ICO",
+            seeds=20, num_windows=rep["num_windows"], batched_ticks=bticks,
+            rollout_tick_launches=RT.launches, wall_s=wall_s,
+            p99_mean=float(p99[with_control].mean()),
+            p99_std=float(p99[with_control].std()),
+            seed7_p99=by_seed[7]["p99_rt"],
+            run_p99=ico[with_control].p99_rt)
+        if RT.launches != bticks or K.launches != 0:
+            raise AssertionError(
+                f"replay launches: rollout_tick {RT.launches} for {bticks} "
+                f"ticks, runqlat_hist {K.launches}")
+        for f in ("avg_rt", "p90_rt", "p99_rt"):
+            want = getattr(ico[with_control], f)
+            if not np.isclose(by_seed[7][f], want, rtol=1e-3):
+                raise AssertionError(f"replay seed 7 {f} {by_seed[7][f]} "
+                                     f"!= run {want}")
+    wins = int((p99[True] < p99[False]).sum())
+    say("control_12", replay="ICO, control on vs off", seeds=20,
+        p99_wins=wins, p99_gain_mean=float((p99[False] - p99[True]).mean()))
+    return {"grid": {f"{k[0]}_{'on' if k[1] else 'off'}": v
+                     for k, v in out.items()}, "p99_wins": wins}
+
+
+def phase_control_1000(torch, np, K, card, rf, fleet, pods, gaps,
+                       ico_ticks_per_s):
+    """The 1,000-node ICO run of ``ico_1000`` with the ICO control loop,
+    stepped every 40 ticks."""
+    from repro_torch.cluster.experiment import run_experiment
+    from repro_torch.control import ControlLoop, scheduler_loop_config
+    from repro_torch.core import ICOScheduler, InterferenceQuantifier
+
+    q = InterferenceQuantifier(rf.predict)
+    loop = ControlLoop(q, scheduler_loop_config("ICO"))
+    ticks = _run_ticks(gaps)
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    K.launches = 0
+    wall_s, res = _wall(torch, lambda: run_experiment(
+        ICOScheduler(q), pods, gaps, fleet=fleet, seed=7, control_loop=loop,
+        control_window=40, device=card))
+    launches = K.launches
+    s = loop.stats
+    nums = {"ticks": ticks, "ticks_per_s": ticks / wall_s,
+            "ico_1000_ticks_per_s": ico_ticks_per_s,
+            "steps": s.steps, "hotspots_flagged": s.hotspots_flagged,
+            "actions": s.actions_applied,
+            "by_kind": json.dumps(s.by_kind),
+            "verified": s.actions_verified,
+            "discarded": s.verifications_discarded,
+            "predicted_reduction": s.predicted_reduction,
+            "realized_reduction": s.realized_reduction,
+            "control_ms": json.dumps(_control_ms(loop)),
+            "rollout_s": loop.timers.totals["rollout"],
+            "avg_rt": res.avg_rt, "p90_rt": res.p90_rt,
+            "p99_rt": res.p99_rt, "placed": res.placed,
+            "rejected": res.rejected,
+            "max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "memory_allocated_at_start": held,
+            "runqlat_hist_launches": launches}
+    if launches != ticks:
+        raise AssertionError(f"{launches} runqlat_hist launches for "
+                             f"{ticks} ticks")
+    if loop.detector.device.type != card.type:
+        raise AssertionError(f"the detector ran on {loop.detector.device}")
+    if res.placed + res.rejected != len(pods) or \
+            not np.isfinite([res.avg_rt, res.p99_rt]).all():
+        raise AssertionError(f"bad controlled run {res}")
+    return nums
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 1
-    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
-        __file__)), "src"))
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path[:0] = [os.path.join(root, "src"),
+                    os.path.join(root, "benchmarks")]
     import numpy as np
 
     from repro_torch.cluster import state as cstate
@@ -1244,6 +1547,7 @@ def main() -> int:
         phase_profile(torch, K, c, sched, pods[:20])
     done("profile")
     torch.cuda.reset_peak_memory_stats()
+    held1000 = torch.cuda.memory_allocated()
     plan1000: dict = {}
     K.launches = 0
     with timers.phase("ico_1000"):
@@ -1257,7 +1561,7 @@ def main() -> int:
          placed=res.placed, rejected=res.rejected,
          queued_retries=res.queued_retries, ticks_per_s=ticks / wall,
          max_memory_allocated=torch.cuda.max_memory_allocated(),
-         runqlat_hist_launches=launches)
+         memory_allocated_at_start=held1000, runqlat_hist_launches=launches)
     if launches != ticks:   # one launch a tick bins both slot kinds
         raise AssertionError(f"{launches} kernel launches for {ticks} ticks")
     if res.placed + res.rejected != len(pods) or res.placed == 0:
@@ -1370,7 +1674,23 @@ def main() -> int:
         say("replay_profile", path=name, **nums)
     done("replay_profile")
 
-    # 11-13. the serving path: both kernels, then zamba2-1.2b at full width
+    # 11-14. the paper's remaining pieces and the reactive control plane
+    with timers.phase("paper_models"):
+        phase_paper_models(torch, np, card)
+    done("paper_models")
+    with timers.phase("motivation"):
+        mot = phase_motivation(torch, np, K, card)
+    done("motivation", runqlat_hist_launches=mot["runqlat_hist_launches"],
+         ticks=mot["ticks"], ticks_per_s=mot["ticks_per_s"])
+    with timers.phase("control_12"):
+        phase_control_12(torch, np, K, RT, card, rf)
+    done("control_12")
+    with timers.phase("control_1000"):
+        c1000 = phase_control_1000(torch, np, K, card, rf, fleet, pods, gaps,
+                                   ticks / wall)
+    done("control_1000", **c1000)
+
+    # 15-17. the serving path: both kernels, then zamba2-1.2b at full width
     # (float32 products in full float32 for every plain version)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1395,7 +1715,7 @@ def main() -> int:
             lambda rng, n: rng.integers(256, 1025, n), "zamba2")
     done("serve_zamba2")
 
-    # 14-15. the rwkv6-7b serving path: the wkv kernel, then the model at
+    # 18-19. the rwkv6-7b serving path: the wkv kernel, then the model at
     # full width and depth
     with timers.phase("wkv_kernel"):
         wkvk = phase_wkv_kernel(torch, R, build, card)

@@ -3,7 +3,8 @@
 Port of ``repro.cluster.dataset``: randomized placements on the simulator,
 recording per online placement the Table-III feature row (pod QPS + node
 telemetry at decision time) and the label, the pod's realized average
-runqlat over the next window.
+runqlat over the next window; and the per-type QPS -> (CPU, MEM) samples
+the resource model is fitted on (Figs. 6-7).
 """
 from __future__ import annotations
 
@@ -86,3 +87,17 @@ def generate_latency_dataset(num_placements: int = 400, num_nodes: int = 10,
             cluster.remove(uids[rng.integers(len(uids))])
 
     return np.asarray(X, np.float64), np.asarray(y, np.float64)
+
+
+def generate_resource_dataset(workload: str, num_points: int = 120,
+                              seed: int = 0):
+    """(qps, cpu, mem) float64 samples for one online workload type
+    (Figs. 6-7): the profile's lines with 5% / 4% multiplicative noise."""
+    rng = np.random.default_rng(seed)
+    prof = W.ONLINE_PROFILES[workload]
+    qps = rng.uniform(20, 1200, num_points)
+    cpu = prof.cpu_per_qps * qps + prof.cpu_base
+    cpu = cpu * (1 + 0.05 * rng.normal(size=num_points))
+    mem = prof.mem_per_qps * qps + prof.mem_base
+    mem = mem * (1 + 0.04 * rng.normal(size=num_points))
+    return qps, np.maximum(cpu, 0.05), np.maximum(mem, 0.05)

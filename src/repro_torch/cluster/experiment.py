@@ -1,10 +1,12 @@
 """End-to-end scheduler comparison -- reproduces Figs. 13-15.
 
-Port of ``repro.cluster.experiment`` (without the control plane, the
-forecast service and the trace recorder, which later slices bring): runs
-identical pod-arrival traces under ICO / RR / HUP / LQP and reports online
-avg/p90/p99 response time plus cross-node CPU/MEM utilization spread.
-Rejected pods wait in a bounded retry queue, per Algorithm 1.
+Port of ``repro.cluster.experiment`` (without the forecast service and the
+trace recorder, which later slices bring): runs identical pod-arrival
+traces under ICO / RR / HUP / LQP and reports online avg/p90/p99 response
+time plus cross-node CPU/MEM utilization spread.  Rejected pods wait in a
+bounded retry queue, per Algorithm 1.  ``run_experiment(control_loop=)``
+steps a ``repro_torch.control.ControlLoop`` after every rollout window
+(mitigation on/off reruns).
 
 ``run_experiment(plan_out=...)`` records a run's placement plan, and
 ``replay_plan_batched`` re-evaluates that plan under many simulation seeds
@@ -38,7 +40,8 @@ from repro_torch.core import (
     SchedulerConfig,
 )
 from repro_torch.core.predictors import RandomForestRegressor
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, sync
+from repro_torch.obs import PhaseTimers
 
 
 @dataclasses.dataclass
@@ -52,6 +55,9 @@ class ExperimentResult:
     placed: int
     rejected: int
     queued_retries: int = 0   # placements that succeeded via the retry queue
+    mitigations: int = 0      # control-loop actions applied DURING THIS RUN
+    predicted_reduction: float = 0.0  # cost-model claim for this run's actions
+    realized_reduction: float = 0.0   # what post-action verification observed
 
 
 def train_default_predictor(seed: int = 0, num_placements: int = 250, *,
@@ -139,6 +145,9 @@ def run_experiment(
     settle_ticks: int = 40,
     *,
     fleet=None,
+    control_loop=None,
+    forecast=None,
+    control_window: int | None = None,
     retry_limit: int = 8,
     retry_attempts: int = 3,
     recorder=None,
@@ -150,6 +159,15 @@ def run_experiment(
 
     fleet: optional ``repro_torch.cluster.fleet.Fleet``; when given it
         defines the node population and ``num_nodes`` is taken from it.
+    control_loop: optional ``repro_torch.control.ControlLoop``, or a
+        zero-argument factory returning one (a fresh loop per run).  Its
+        ``step`` runs after every rollout window; the result's mitigation
+        numbers are this run's deltas of the loop's lifetime stats.
+    forecast: the forecast service is not ported yet; passing one raises.
+    control_window: with a control loop, slice each inter-arrival rollout
+        into windows of at most this many ticks and step after each.  RT is
+        sampled before every step (a migration frees its source slot, and
+        sampling afterwards would drop the moved pod's worst window).
     retry_limit / retry_attempts: Algorithm 1's bounded retry queue.
     recorder: trace recording is not ported yet; passing one raises.
     device: where the simulation runs (``None`` -> the CUDA card).
@@ -161,7 +179,23 @@ def run_experiment(
     """
     if recorder is not None:
         raise NotImplementedError(
-            "run_experiment: the trace recorder is not ported yet")
+            "run_experiment: the trace recorder is not ported yet "
+            "(ROADMAP Queue A item 3)")
+    if forecast is not None:
+        raise NotImplementedError(
+            "run_experiment(forecast=): the forecast service is not ported "
+            "yet (ROADMAP Queue A item 2, the proactive half of the control "
+            "plane)")
+    if control_loop is not None and not hasattr(control_loop, "step"):
+        control_loop = control_loop()  # factory -> fresh per-run instance
+    # the loop's timers double as the driver's, so rollout and control
+    # phases land in one summary; an uncontrolled run gets its own
+    timers = control_loop.timers if control_loop is not None else PhaseTimers()
+    stats0 = (0, 0.0, 0.0)
+    if control_loop is not None:
+        s = control_loop.stats
+        stats0 = (s.actions_applied, s.predicted_reduction,
+                  s.realized_reduction)
     cluster = Cluster(num_nodes=num_nodes, seed=seed, fleet=fleet,
                       device=device, noise=noise)
     num_nodes = cluster.n  # a fleet overrides the scalar argument
@@ -170,6 +204,14 @@ def run_experiment(
     cpu_series, mem_series = [], []
     placed = rejected = queued_retries = 0
     retry_q: deque[tuple[Pod, int]] = deque()  # (pod, attempts so far)
+    last_view = None  # advance()'s last window view, reusable at the same t
+
+    def snapshot():
+        """One view per arrival tick; nothing mutates the cluster between
+        advance()'s last window view and this one, so that view is reused."""
+        if last_view is not None and last_view.t == cluster.t:
+            return last_view
+        return cluster.view()
 
     def offer(pod: Pod, view) -> bool:
         node = scheduler.select_node(pod, view)
@@ -188,17 +230,37 @@ def run_experiment(
                 retry_q.append((qpod, failed + 1))
 
     def advance(ticks: int, record_util: bool = True) -> None:
-        # one window per gap; the settle phase records RT but not the util
-        # series (Figs. 14-15 average balance over the arrival phase)
-        cluster.rollout(ticks)
-        rt_all.append(cluster.online_rt_samples())
-        if record_util:
-            cpu_series.append(cluster.last["cpu_util"])
-            mem_series.append(cluster.last["mem_util"])
+        """Roll forward, sampling RT (and stepping the loop) per window.
+        The settle phase records RT but not the util series (Figs. 14-15
+        average balance over the arrival phase)."""
+        nonlocal last_view
+        while ticks > 0:
+            w = ticks
+            if control_loop is not None and control_window is not None:
+                w = min(control_window, ticks)
+            t0 = cluster.t
+            with timers.phase("rollout"):
+                cluster.rollout(w)
+                sync(cluster.device)
+            rt_all.append(cluster.online_rt_samples())
+            if record_util:
+                cpu_series.append(cluster.last["cpu_util"])
+                mem_series.append(cluster.last["mem_util"])
+            if control_loop is not None:
+                with timers.phase("snapshot"):
+                    view = last_view = cluster.view()
+                if control_loop.step(cluster, view=view):
+                    # mitigation moved pods: the cached view predates it
+                    last_view = None
+            # count the ticks actually simulated: rollout rounds up to
+            # CHUNK multiples, and decrementing by the request would
+            # re-simulate the overshoot and diverge from an unsliced run
+            progress = int(cluster.t - t0)
+            ticks -= progress if progress > 0 else w
 
     for pod, gap in zip(pods, gaps):
         pod = dataclasses.replace(pod)  # fresh copy per scheduler
-        view = cluster.view()
+        view = snapshot()
         drain_retries(view)
         if offer(pod, view):
             placed += 1
@@ -208,7 +270,7 @@ def run_experiment(
             rejected += 1
         advance(gap)
 
-    drain_retries(cluster.view())
+    drain_retries(snapshot())
     rejected += len(retry_q)  # still queued at trace end: never placed
     advance(settle_ticks, record_util=False)
 
@@ -217,6 +279,12 @@ def run_experiment(
         rt = np.full(1, np.nan)  # no online pod ever ran
     cpu = torch.stack(cpu_series).cpu().numpy()  # (T, N)
     mem = torch.stack(mem_series).cpu().numpy()
+    mitigations, predicted, realized = 0, 0.0, 0.0
+    if control_loop is not None:
+        s = control_loop.stats
+        mitigations = s.actions_applied - stats0[0]
+        predicted = s.predicted_reduction - stats0[1]
+        realized = s.realized_reduction - stats0[2]
     if plan_out is not None:
         plan_out.update(
             log=list(cluster.log),
@@ -236,6 +304,9 @@ def run_experiment(
         placed=placed,
         rejected=rejected,
         queued_retries=queued_retries,
+        mitigations=mitigations,
+        predicted_reduction=predicted,
+        realized_reduction=realized,
     )
 
 
@@ -389,19 +460,39 @@ def compare_schedulers(
     num_nodes: int = 12,
     seed: int = 7,
     predictor=None,
+    control: bool = False,
+    control_config=None,
     trace: tuple | None = None,
+    control_window: int | None = None,
     fleet=None,
     *,
     device=None,
 ) -> dict[str, ExperimentResult]:
-    """Figs. 13-15 comparison across ICO / RR / HUP / LQP (no control
-    loop).  ``trace`` optionally replaces the default arrival trace with a
-    (pods, gaps) pair; ``fleet`` swaps in a heterogeneous population."""
+    """Figs. 13-15 comparison across ICO / RR / HUP / LQP.
+
+    ``control=True`` pairs every scheduler with its own fresh
+    ``ControlLoop`` (built per run from the shared predictor, so detector
+    state, cooldowns and corrections never leak across schedulers), with
+    the scheduler's tuned profile (``scheduler_loop_config``) unless
+    ``control_config`` pins one.  ``trace`` optionally replaces the default
+    arrival trace with a (pods, gaps) pair; ``control_window`` and
+    ``fleet`` are forwarded to ``run_experiment``.
+    """
     device = resolve_device(device)
     predictor = predictor or train_default_predictor(seed=seed, device=device)
     pods, gaps = trace if trace is not None else _arrival_trace(num_pods, seed)
-    return {
-        name: run_experiment(sched, pods, gaps, num_nodes=num_nodes,
-                             seed=seed, fleet=fleet, device=device)
-        for name, sched in make_schedulers(predictor).items()
-    }
+    out = {}
+    for name, sched in make_schedulers(predictor).items():
+        loop = None
+        if control:
+            from repro_torch.control import ControlLoop, scheduler_loop_config
+
+            cfg = (control_config if control_config is not None
+                   else scheduler_loop_config(name))
+            loop = lambda cfg=cfg: ControlLoop(  # noqa: E731
+                InterferenceQuantifier(predictor.predict), cfg)
+        out[name] = run_experiment(sched, pods, gaps, num_nodes=num_nodes,
+                                   seed=seed, fleet=fleet, control_loop=loop,
+                                   control_window=control_window,
+                                   device=device)
+    return out

@@ -131,6 +131,9 @@ class Fleet:
     def num_nodes(self) -> int:
         return len(self.classes)
 
+    def node_class(self, node: int) -> MachineClass:
+        return self.classes[node]
+
     def class_names(self) -> tuple[str, ...]:
         return tuple(c.name for c in self.classes)
 

@@ -207,6 +207,41 @@ class Cluster:
             self.log.append(("resize_on", self.t, node, s, float(qps)))
         return True
 
+    def pods_on_node(self, node: int) -> list[dict]:
+        """Host-side inventory of the live pods on a node (for the
+        mitigation policy), read from the state in one copy."""
+        self.reconcile()
+        st = self.state
+        row = torch.cat([st.on_type[node].float(), st.on_qps_mean[node],
+                         st.off_cores[node], st.off_burst[node],
+                         st.off_remaining[node].float()]).cpu().numpy()
+        on_type, qps = row[:S_ON], row[S_ON:2 * S_ON]
+        cores, burst, remaining = (row[2 * S_ON:2 * S_ON + S_OFF],
+                                   row[2 * S_ON + S_OFF:2 * S_ON + 2 * S_OFF],
+                                   row[2 * S_ON + 2 * S_OFF:])
+        out = []
+        for uid, (kind, n_, s) in self._pod_slots.items():
+            if n_ != node:
+                continue
+            if kind == "on":
+                out.append({
+                    "uid": uid, "kind": "on", "slot": s,
+                    "workload": W.ONLINE_BY_TYPE[int(on_type[s])],
+                    "qps": float(qps[s]),
+                })
+            else:
+                out.append({
+                    "uid": uid, "kind": "off", "slot": s,
+                    "cores": float(cores[s]),
+                    "burst": float(burst[s]),
+                    "remaining": int(remaining[s]),
+                })
+        return out
+
+    def active_pod_count(self) -> int:
+        """Number of active slots across the cluster (invariant checks)."""
+        return int(self.state.on_active.sum() + self.state.off_active.sum())
+
     def slot_uids(self) -> np.ndarray:
         """(N, S_ON + S_OFF) tenant uid per slot, -1 when vacant (online
         slots first, offline offset by S_ON)."""

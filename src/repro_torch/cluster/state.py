@@ -44,12 +44,6 @@ import math
 import numpy as np
 import torch
 
-from repro_torch.control.detector import DetectorConfig, node_track_step
-from repro_torch.control.forecast import (
-    NUM_FEATURES,
-    ForecastConfig,
-    _forecast_update,
-)
 from repro_torch.core import metric
 from repro_torch.kernels import rollout_tick
 
@@ -854,6 +848,10 @@ def _window_lite(state: ClusterState, profiles, fleet, t0: float,
 def fold_configs(det_cfg=None, fc_cfg=None) -> tuple[dict, dict]:
     """Scalar bundles for the folded detector node track and forecaster
     moment update (defaults are ``DetectorConfig`` / ``ForecastConfig``)."""
+    # the control package imports the cluster modules: import it here
+    from repro_torch.control.detector import DetectorConfig
+    from repro_torch.control.forecast import ForecastConfig
+
     d = det_cfg or DetectorConfig()
     f = fc_cfg or ForecastConfig()
     det = dict(decay=d.decay, alpha=d.baseline_alpha, slack=d.slack,
@@ -868,6 +866,8 @@ def init_fold_state(num_nodes: int, *, device):
     """Zeroed carry for the folded detector node track and forecaster
     moments: (det hist, det mu, det cusum, det steps, fc A, fc b, fc err,
     fc count).  ``steps`` is a host integer shared by every row."""
+    from repro_torch.control.forecast import NUM_FEATURES
+
     def z(shape, dtype=torch.float32):
         return torch.zeros(shape, dtype=dtype, device=device)
 
@@ -897,6 +897,9 @@ def scan_windows(state: ClusterState, profiles, fleet, t0: float, noise,
     window-mean qps (W, R, S_ON), cpu/mem util (W, R) and the detector's
     hotspot flags (W, R).
     """
+    from repro_torch.control.detector import node_track_step
+    from repro_torch.control.forecast import _forecast_update
+
     num_windows, cpw = events["op"].shape[:2]
     rows, device = state.num_nodes, state.device
     dh, dmu, dcu, dsteps, A, b, err, cnt = fold0

@@ -6,8 +6,10 @@ per-node delay-curve parameters are float64 numpy arrays built from the
 ``MachineClass`` Python floats (never widened from float32), and the tenant
 map ``slot_uids`` is the host-side numpy array the shell keeps.
 
-The forecast fields of the JAX view belong to the control-plane slice and
-are not here yet.
+The control plane reads ``node_runqlat_avg`` (cached per view) and the
+topology prices ``zone_of`` / ``transfer_cost`` / ``migrate_cost_factor``.
+The forecast fields of the JAX view and ``forecast_drift`` come with the
+forecast slice.
 """
 from __future__ import annotations
 
@@ -15,6 +17,8 @@ import dataclasses
 
 import numpy as np
 import torch
+
+from repro_torch.core import metric
 
 
 @dataclasses.dataclass
@@ -48,9 +52,22 @@ class ClusterView:
     delay_scale: np.ndarray | None = None        # (N,) float64
     rho_knee: np.ndarray | None = None           # (N,) float64
 
+    _node_runqlat_avg: torch.Tensor | None = dataclasses.field(
+        default=None, init=False, repr=False, compare=False)
+
     @property
     def num_nodes(self) -> int:
         return len(self.cpu_sum)
+
+    def node_runqlat_avg(self) -> torch.Tensor:
+        """(N,) average runqlat of this window's node histograms, on the
+        view's device (cached)."""
+        if self._node_runqlat_avg is None:
+            hists = self.slot_hists
+            if hists is None:
+                hists = torch.cat([self.online_hists, self.offline_hists], 1)
+            self._node_runqlat_avg = metric.avg_runqlat(hists.sum(1))
+        return self._node_runqlat_avg
 
     def take(self, idx) -> "ClusterView":
         """A candidate sub-view with every per-node leading axis sliced to
@@ -89,3 +106,24 @@ class ClusterView:
             delay_scale=take(self.delay_scale),
             rho_knee=take(self.rho_knee),
         )
+
+    def zone_of(self, node: int) -> int:
+        """Availability zone of a node (0 on a topology-less view)."""
+        if self.fleet is None:
+            return 0
+        return self.fleet.topology.zone_of(node)
+
+    def transfer_cost(self, src: int, dst: int, gb: float) -> float:
+        """Seconds to move ``gb`` GB src -> dst over the bottleneck link; a
+        topology-less view prices every pair at the same-rack rate."""
+        if self.fleet is None:
+            from repro_torch.cluster.fleet import Topology
+            return Topology.flat(self.num_nodes).transfer_cost(src, dst, gb)
+        return self.fleet.topology.transfer_cost(src, dst, gb)
+
+    def migrate_cost_factor(self, src: int, dst: int, gb: float) -> float:
+        """Transfer cost relative to the same-rack price (1.0 without a
+        topology)."""
+        if self.fleet is None:
+            return 1.0
+        return self.fleet.topology.cost_factor(src, dst, gb)

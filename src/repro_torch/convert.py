@@ -1,5 +1,5 @@
-"""Carry state, forests, views and model weights from the JAX package into
-the port.
+"""Carry state, fitted predictors, detectors, views and model weights from
+the JAX package into the port.
 
 Each function reads only attributes and numpy-convertible arrays of the
 object it is given, so this module imports nothing of ``repro`` or
@@ -16,7 +16,15 @@ import torch
 
 from repro_torch.cluster.state import ClusterState, FleetParams
 from repro_torch.cluster.view import ClusterView
-from repro_torch.core.predictors.forest import RandomForestRegressor
+from repro_torch.control.detector import DetectorConfig, StreamingDetector
+from repro_torch.core.predictors import (
+    SVR,
+    LinearRegression,
+    MLPRegressor,
+    RandomForestRegressor,
+    XGBRegressor,
+)
+from repro_torch.core.predictors.mlp import MLP
 from repro_torch.models.model import Model
 
 _STATE_DTYPES = {
@@ -53,6 +61,16 @@ def fold_from_numpy(fold, *, device) -> tuple:
             _tensor(count, torch.int32, device))
 
 
+_FOREST_DTYPES = {"feature": torch.int64, "left": torch.int64,
+                  "right": torch.int64, "threshold": torch.float32,
+                  "value": torch.float32}
+
+
+def _forest(forest, device) -> dict:
+    return {k: _tensor(forest[k], dt, device)
+            for k, dt in _FOREST_DTYPES.items()}
+
+
 def forest_from_numpy(rf, *, device) -> RandomForestRegressor:
     """A fitted JAX ``RandomForestRegressor`` -> the port's, with the same
     flattened trees."""
@@ -60,11 +78,64 @@ def forest_from_numpy(rf, *, device) -> RandomForestRegressor:
         n_estimators=rf.n_estimators, max_depth=rf.max_depth,
         min_samples_leaf=rf.min_samples_leaf, feature_frac=rf.feature_frac,
         seed=rf.seed, device=device)
-    dtypes = {"feature": torch.int64, "left": torch.int64,
-              "right": torch.int64, "threshold": torch.float32,
-              "value": torch.float32}
-    out.forest = {k: _tensor(rf.forest[k], dt, device)
-                  for k, dt in dtypes.items()}
+    out.forest = _forest(rf.forest, device)
+    return out
+
+
+# constructor arguments, then fitted float32 arrays, of the other models
+_PREDICTORS = {
+    "LinearRegression": (LinearRegression, ("reg",),
+                         ("w", "mu", "sigma", "y_mu")),
+    "SVR": (SVR, ("n_features", "gamma", "epsilon", "C", "lr", "steps",
+                  "seed"),
+            ("W", "phase", "w", "b", "mu", "sigma", "y_mu", "y_sigma")),
+    "MLPRegressor": (MLPRegressor, ("hidden", "lr", "steps", "batch", "seed"),
+                     ("mu", "sigma", "y_mu", "y_sigma")),
+    "XGBRegressor": (XGBRegressor, ("n_estimators", "max_depth",
+                                    "learning_rate", "reg_lambda",
+                                    "subsample", "feature_frac",
+                                    "min_samples_leaf", "seed"), ()),
+}
+
+
+def predictor_from_numpy(model, *, device):
+    """A fitted JAX ``LinearRegression``, ``SVR``, ``MLPRegressor``,
+    ``XGBRegressor`` or ``RandomForestRegressor`` -> the port's, holding
+    the same fitted values."""
+    name = type(model).__name__
+    if name == "RandomForestRegressor":
+        return forest_from_numpy(model, device=device)
+    cls, args, arrays = _PREDICTORS[name]
+    out = cls(**{a: getattr(model, a) for a in args}, device=device)
+    for a in arrays:
+        setattr(out, a, _tensor(getattr(model, a), torch.float32, device))
+    if name == "MLPRegressor":
+        out.model = MLP([{k: _tensor(v, torch.float32, device)
+                          for k, v in layer.items()}
+                         for layer in model.params])
+    elif name == "XGBRegressor":
+        out.forest = _forest(model.forest, device)
+        out.base = float(model.base)
+    return out
+
+
+def detector_from_numpy(det, *, device) -> StreamingDetector:
+    """A JAX ``StreamingDetector`` -> the port's, in the same state (its
+    accumulators, step count, slot track and last outputs)."""
+    out = StreamingDetector(det.n, DetectorConfig(**dataclasses.asdict(det.cfg)),
+                            device=device)
+    for k in ("hist", "mu", "cusum", "f_cusum"):
+        setattr(out, k, _tensor(getattr(det, k), torch.float32, device))
+    out.steps = int(np.asarray(det.steps))
+    if det.num_slots is not None:
+        out.num_slots = det.num_slots
+        for k in ("slot_hist", "slot_prev", "slot_score"):
+            setattr(out, k, _tensor(getattr(det, k), torch.float32, device))
+    for k in ("slot_scores", "last_hot", "last_proactive"):
+        v = getattr(det, k)
+        setattr(out, k, None if v is None else np.array(v))
+    out.last_diag = (None if det.last_diag is None else
+                     {k: np.array(v) for k, v in det.last_diag.items()})
     return out
 
 
@@ -82,6 +153,8 @@ def view_from_numpy(view, *, device, fleet=None) -> ClusterView:
     """
     kw = {}
     for f in dataclasses.fields(ClusterView):
+        if not f.init:
+            continue
         v = getattr(view, f.name, None)
         if v is None or f.name == "fleet":
             continue

@@ -1,5 +1,6 @@
 """The paper's core on tensors: the runqlat metric, Eq. 1/3 quantifier,
-the Random-Forest predictor, ICO and the RR/HUP/LQP baselines."""
+the Table II predictors, the resource model, ICO and the RR/HUP/LQP
+baselines."""
 from repro_torch.core.baselines import (
     HUPScheduler,
     LQPScheduler,
@@ -11,10 +12,12 @@ from repro_torch.core.interference import (
     node_interference,
     pod_interference,
 )
+from repro_torch.core.resource_model import ResourcePredictor
 from repro_torch.core.scheduler import ICOScheduler, SchedulerConfig
 
 __all__ = [
     "HUPScheduler", "ICOScheduler", "InterferenceQuantifier",
-    "InterferenceWeights", "LQPScheduler", "RoundRobinScheduler",
-    "SchedulerConfig", "node_interference", "pod_interference",
+    "InterferenceWeights", "LQPScheduler", "ResourcePredictor",
+    "RoundRobinScheduler", "SchedulerConfig", "node_interference",
+    "pod_interference",
 ]

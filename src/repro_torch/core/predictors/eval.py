@@ -2,6 +2,7 @@
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 
 def train_test_split(X, y, test_frac: float = 0.25, seed: int = 0):
@@ -13,9 +14,16 @@ def train_test_split(X, y, test_frac: float = 0.25, seed: int = 0):
     return X[tr], X[te], y[tr], y[te]
 
 
-def evaluate(y_true: np.ndarray, y_pred: np.ndarray) -> dict:
-    y_true = np.asarray(y_true, np.float64)
-    y_pred = np.asarray(y_pred, np.float64)
+def _host(a) -> np.ndarray:
+    if isinstance(a, torch.Tensor):
+        a = a.detach().cpu().numpy()
+    return np.asarray(a, np.float64)
+
+
+def evaluate(y_true, y_pred) -> dict:
+    """Metrics of numpy arrays or tensors on any device."""
+    y_true = _host(y_true)
+    y_pred = _host(y_pred)
     err = y_pred - y_true
     mae = float(np.abs(err).mean())
     mse = float((err**2).mean())

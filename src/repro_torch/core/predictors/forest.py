@@ -10,6 +10,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.predictors import trees as T
+from repro_torch.device import resolve_device
 
 
 class RandomForestRegressor:
@@ -21,14 +22,14 @@ class RandomForestRegressor:
         feature_frac: float = 0.6,
         seed: int = 0,
         *,
-        device,
+        device=None,
     ):
         self.n_estimators = n_estimators
         self.max_depth = max_depth
         self.min_samples_leaf = min_samples_leaf
         self.feature_frac = feature_frac
         self.seed = seed
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.forest = None
 
     def fit(self, X: np.ndarray, y: np.ndarray) -> "RandomForestRegressor":

@@ -149,16 +149,44 @@ def test_node_track_step_matches_jax(steps):
     assert hot.any() == (steps >= cfg.warmup)
 
 
+def _streaming_outputs(cfg):
+    """Proactive mask and attribution of a StreamingDetector fed a slot
+    arrival and a forecast drift, for the two fields only it reads."""
+    det = tdet.StreamingDetector(2, cfg, device="cpu")
+    pro = []
+    for i in range(6):
+        hists = np.zeros((2, 3, 200), np.float32)
+        hists[:, 0, 4] = 64.0                    # both nodes calm at 20
+        if i >= 3:
+            hists[0, 2, 6] = 64.0                # an arrival at 30
+            hists[1, 0] = 0.0
+            hists[1, 0, 8] = 64.0                # node 1 rises to 40 ...
+        fc = np.array([-1e9, 400.0 if i >= 3 else -1e9], np.float32)
+        det.update(hists, fc)                    # ... as forecast
+        pro.append(det.last_proactive.tolist())
+    return pro, det.attribution().tolist()
+
+
 def test_detector_config_matches_jax():
     """Each field of the port's configs has JAX's default and changes what
-    ``fold_configs`` hands the window scan (no field is inert)."""
+    ``fold_configs`` hands the window scan or, for the two fields only the
+    streaming detector reads, what that detector flags and attributes (no
+    field is inert)."""
+    assert ([f.name for f in dataclasses.fields(tdet.DetectorConfig)]
+            == [f.name for f in dataclasses.fields(jdet.DetectorConfig)])
+    streaming_only = {"proactive_threshold", "attribution_floor"}
     base = tstate.fold_configs()
+    base_streaming = _streaming_outputs(tdet.DetectorConfig())
     for i, (port_cls, jax_cfg) in enumerate(
             ((tdet.DetectorConfig, jdet.DetectorConfig()),
              (tfc.ForecastConfig, jfc.ForecastConfig()))):
         for f in dataclasses.fields(port_cls):
             default = getattr(port_cls(), f.name)
             assert default == getattr(jax_cfg, f.name), f.name
+            if f.name in streaming_only:
+                cfg = port_cls(**{f.name: default * 8})
+                assert _streaming_outputs(cfg) != base_streaming, f.name
+                continue
             cfg = port_cls(**{f.name: default + 1})
             got = tstate.fold_configs(**{("det_cfg", "fc_cfg")[i]: cfg})
             assert got[i] != base[i], f.name
