@@ -58,31 +58,48 @@ Phases, each printed with its numbers and wall time:
     forests against their CPU fits to rtol 1e-4;
 12. ``motivation`` (through ``bench_torch_paper``): Table I on the card,
     2,400 single-node ticks, one ``runqlat_hist`` launch each;
-13. ``control_12``: ``bench_control``'s profile grid at trace seed 0 (12
-    nodes, ``bursty_trace(num_online=14, seed=0)``, sim seed 7), each
-    scheduler without and with its ``scheduler_loop_config`` loop, ms per
-    control step; the controlled ICO run on the card against the CPU with
-    one noise stream (same actions, RT to rtol 1e-4); then ICO's plans
-    without and with control replayed under 20 seeds with the fused tick
-    (p99 per seed, wins), each seed-7 entry held to its run;
-14. ``control_1000``: phase 4's 1,000-node ICO run with the ICO control
+13. ``control_12`` (through ``benchmarks/bench_torch_control.py``): the
+    profile grid at (trace seed, sim seed) (0, 7), (0, 11) and (1, 12) (12
+    nodes, ``bursty_trace(num_online=14)``), each scheduler without and
+    with its ``scheduler_loop_config`` loop, p99 off and on, actions, ms
+    per control step, one ``runqlat_hist`` launch a tick; the controlled
+    ICO run on the card against the CPU with one noise stream at (0, 7)
+    (same actions, RT to rtol 1e-4); then per seed ICO's plans without and
+    with control replayed under 20 seeds with the fused tick (p99 per
+    seed, wins, ``rollout_tick`` launches equal to the batched ticks), the
+    entry at the run's own sim seed held to its run at 1e-3;
+14. ``proactive_12`` (through ``bench_torch_control``): ICO off / reactive
+    / proactive and the unified stack (ICO-F and the proactive loop
+    sharing one ``ForecastService``) on the 3-day ``PROACTIVE_TRACE`` at
+    trace seed 0, sim seed 11, one ``runqlat_hist`` launch a tick; the
+    unified run traced to a temporary file (every action's chain resolved,
+    at least one ``TrustGateTransition``); the unified stack with the
+    leverage gate widened on a one-day trace on the card against the CPU on
+    one noise stream (counts exact, RT to rtol 1e-4);
+15. ``control_1000``: phase 4's 1,000-node ICO run with the ICO control
     loop stepped every 40 ticks: ticks/s beside phase 4's, ms per control
     step by phase, actions, peak memory, one ``runqlat_hist`` launch a
     tick;
-15. ``flash_attention`` against its plain version: the bf16 wgmma/TMA
+16. ``unified_1000``: the same fleet and trace under ICO-F with the
+    proactive ICO-F loop, both on one ``ForecastService`` (the loop every
+    40 ticks): ticks/s beside phases 4 and 15, host ms of the forecast
+    phase per step, nodes with a trusted pod at the end, proactive flags
+    and actions, one ``runqlat_hist`` launch a tick, the forecaster's
+    tensors on the card;
+17. ``flash_attention`` against its plain version: the bf16 wgmma/TMA
     kernel at zamba2-1.2b's prefill shapes (B 4, S 1024, H 32, hd 64,
     causal), at hd 128 and at a ragged GQA shape (S 1000, 9 heads over 3 KV
     heads, window 100); the float32 SIMT kernel at that ragged shape with
     and without the window; each timed beside the plain version and
     PyTorch's ``scaled_dot_product_attention``, the bf16 ones also beside
     the earlier SIMT kernel on the same inputs;
-16. ``ssd`` against its plain version (y and final state): the bf16
+18. ``ssd`` against its plain version (y and final state): the bf16
     tensor-core kernel at the same prefill's shapes (B 4, T 1024, H 64, P
     64, N 64), at a ragged T of 1000 and at the served smoke model's width
     (H 2, P 64, N 16), two calls bit-equal; each timed beside the plain
     version and the earlier SIMT kernel on the same inputs (CUDA events and
     device time from CUDA graphs);
-17. the serving path at full width: zamba2-1.2b (1.17 B parameters, random
+19. the serving path at full width: zamba2-1.2b (1.17 B parameters, random
     bf16 weights from a generator seeded 0) behind ``ServeEngine(max_batch
     =4)``, 16 requests with prompts of 256-1,024 tokens and 32 new tokens
     each, both kernels' counts set to 0 before and read after; then one
@@ -90,13 +107,13 @@ Phases, each printed with its numbers and wall time:
     in bf16 and with the same weights in float32, prefill(x[:-1]) +
     decode(x[-1]) against the full forward (kernel and plain paths), and a
     profile of one cohort's prefill and of eight decode steps;
-18. ``wkv`` (y and final state) against its plain version at rwkv6-7b's
+20. ``wkv`` (y and final state) against its plain version at rwkv6-7b's
     prefill shapes (B 4, T 1024, H 64, P 64, float32) at the served decay
     0.302 (where the chunked form's 1e-30 floors bind) and at real decays
     (also against the naive recurrence), at T 100 and 910 (chunks of 100
     and 65) and at P 16, timed beside the plain version and the earlier
     serial-chunk kernel;
-19. the same serving path for rwkv6-7b at full width and depth (7.53 B
+21. the same serving path for rwkv6-7b at full width and depth (7.53 B
     parameters, ~15 GB of bf16 weights), prompts of 256-1,024 tokens in
     multiples of 64, the ``wkv`` count set to 0 before and read after (32
     launches per cohort, none at decode), the same checks (prefill +
@@ -1238,7 +1255,8 @@ def _run_ticks(gaps, settle=40):
     return 30 + sum(-(-g // CHUNK) * CHUNK for g in gaps) + settle
 
 
-def _control_ms(loop, phases=("snapshot", "verify", "detect", "plan")):
+def _control_ms(loop, phases=("snapshot", "verify", "forecast", "detect",
+                              "plan")):
     """Host ms per control step by phase (from the loop's PhaseTimers)."""
     s = loop.timers.summary()
     steps = max(loop.stats.steps, 1)
@@ -1286,95 +1304,282 @@ def controlled_card_vs_cpu(torch, np, card, rf, pods, gaps, ticks):
             "predicted_reduction_cpu": b["predicted_reduction"]}
 
 
-def phase_control_12(torch, np, K, RT, card, rf):
-    """``bench_control``'s profile grid at trace seed 0: every scheduler
-    without and with its ``scheduler_loop_config`` loop (12 nodes,
-    ``bursty_trace(num_online=14, seed=0)``, sim seed 7); then ICO's plans
-    without and with control replayed under 20 seeds with the fused kernel
-    (one run's p99 is one noisy sample; the 20 seeds give the spread),
-    each seed-7 entry held to its run."""
-    from repro_torch.cluster.experiment import (
-        bursty_trace,
-        make_schedulers,
-        replay_plan_batched,
-        run_experiment,
-    )
-    from repro_torch.control import ControlLoop, scheduler_loop_config
-    from repro_torch.core import InterferenceQuantifier
+CONTROL_SEEDS = [(0, 7), (0, 11), (1, 12)]   # (trace seed, sim seed)
 
-    pods, gaps = bursty_trace(num_online=14, seed=0)
-    ticks = _run_ticks(gaps)
-    out, plans, ico = {}, {}, {}
-    K.launches = 0
-    for with_control in (False, True):
-        for name, sched in make_schedulers(rf).items():
-            loop = (ControlLoop(InterferenceQuantifier(rf.predict),
-                                scheduler_loop_config(name))
-                    if with_control else None)
-            keep = plans.setdefault(with_control, {}) if name == "ICO" \
-                else None
-            r = run_experiment(sched, pods, gaps, num_nodes=12, seed=7,
-                               control_loop=loop, plan_out=keep,
-                               device=card)
+
+def phase_control_12(torch, np, K, RT, card, rf):
+    """``bench_torch_control``'s profile grid at (trace seed, sim seed) (0,
+    7) and the bench's (0, 11) and (1, 12): every scheduler without and with
+    its ``scheduler_loop_config`` loop (12 nodes, ``bursty_trace(
+    num_online=14)``), one ``runqlat_hist`` launch a tick; the controlled
+    ICO run on the card against the CPU at (0, 7); then, per seed, ICO's
+    plans without and with control replayed under 20 seeds with the fused
+    kernel (one run's p99 is one noisy sample; the 20 seeds give the
+    spread), each replay's entry at the run's own sim seed held to that
+    run."""
+    from bench_torch_control import grid_seed
+
+    from repro_torch.cluster.experiment import bursty_trace, replay_plan_batched
+
+    summary = {}
+    for trace_seed, sim_seed in CONTROL_SEEDS:
+        tag = f"{trace_seed}/{sim_seed}"
+        pods, gaps = bursty_trace(num_online=14, seed=trace_seed)
+        ticks = _run_ticks(gaps)
+        plans: dict = {}
+        K.launches = 0
+        runs = grid_seed(rf, trace_seed, sim_seed, device=card, plans=plans)
+        if K.launches != len(runs) * ticks:
+            raise AssertionError(f"seed {tag}: {K.launches} runqlat_hist "
+                                 f"launches for {len(runs)} x {ticks} ticks")
+        for (name, with_control), (r, loop, wall_s) in runs.items():
             row = {"p99_rt": r.p99_rt, "avg_rt": r.avg_rt,
                    "placed": r.placed, "rejected": r.rejected,
-                   "mitigations": r.mitigations,
+                   "mitigations": r.mitigations, "wall_s": wall_s,
                    "predicted_reduction": r.predicted_reduction,
                    "realized_reduction": r.realized_reduction}
             if loop is not None:
                 row["control_ms"] = json.dumps(_control_ms(loop))
                 row["by_kind"] = json.dumps(loop.stats.by_kind)
-            say("control_12", scheduler=name,
+            say("control_12", seed=tag, scheduler=name,
                 control="on" if with_control else "off", **row)
-            out[(name, with_control)] = row
-            if name == "ICO":
-                ico[with_control] = r
             if not np.isfinite([r.avg_rt, r.p99_rt]).all() or \
                     r.placed + r.rejected != len(pods):
-                raise AssertionError(f"{name} control={with_control}: {r}")
-    if K.launches != len(out) * ticks:
-        raise AssertionError(f"{K.launches} runqlat_hist launches for "
-                             f"{len(out)} x {ticks} ticks")
-    if out[("ICO", True)]["mitigations"] == 0:
-        raise AssertionError("the ICO loop applied no mitigation")
-    for name in ("RR", "HUP"):
-        if "migrate" in out[(name, True)]["by_kind"] or \
-                "scale_out" in out[(name, True)]["by_kind"]:
-            raise AssertionError(f"{name} profile moved pods")
-    same = controlled_card_vs_cpu(torch, np, card, rf, pods, gaps, ticks)
-    say("control_12", card_vs_cpu="ICO+control", **same)
+                raise AssertionError(f"{tag} {name} control={with_control}: "
+                                     f"{r}")
+            if name in ("RR", "HUP") and with_control and (
+                    "migrate" in row["by_kind"]
+                    or "scale_out" in row["by_kind"]):
+                raise AssertionError(f"{tag}: {name} profile moved pods")
+        for name in ("ICO", "RR", "HUP", "LQP"):
+            off, on = runs[(name, False)][0], runs[(name, True)][0]
+            say("control_12", seed=tag, scheduler=name,
+                p99_off=off.p99_rt, p99_on=on.p99_rt,
+                actions=on.mitigations, win=bool(on.p99_rt < off.p99_rt))
+        if runs[("ICO", True)][0].mitigations == 0:
+            raise AssertionError(f"seed {tag}: the ICO loop applied nothing")
+        if (trace_seed, sim_seed) == (0, 7):
+            same = controlled_card_vs_cpu(torch, np, card, rf, pods, gaps,
+                                          ticks)
+            say("control_12", seed=tag, card_vs_cpu="ICO+control", **same)
 
-    p99 = {}
-    for with_control, plan in plans.items():
-        RT.launches, K.launches = 0, 0
-        wall_s, rep = _wall(torch, lambda: replay_plan_batched(
-            plan, sim_seeds=tuple(range(20)), window_ticks=40,
-            use_fused=True, device=card))
-        bticks = rep["padded_windows"] * 40
-        by_seed = {e["sim_seed"]: e for e in rep["seeds"]}
-        p99[with_control] = np.array([by_seed[s]["p99_rt"]
-                                      for s in range(20)])
-        say("control_12", replay="ICO+control" if with_control else "ICO",
-            seeds=20, num_windows=rep["num_windows"], batched_ticks=bticks,
-            rollout_tick_launches=RT.launches, wall_s=wall_s,
-            p99_mean=float(p99[with_control].mean()),
-            p99_std=float(p99[with_control].std()),
-            seed7_p99=by_seed[7]["p99_rt"],
-            run_p99=ico[with_control].p99_rt)
-        if RT.launches != bticks or K.launches != 0:
-            raise AssertionError(
-                f"replay launches: rollout_tick {RT.launches} for {bticks} "
-                f"ticks, runqlat_hist {K.launches}")
-        for f in ("avg_rt", "p90_rt", "p99_rt"):
-            want = getattr(ico[with_control], f)
-            if not np.isclose(by_seed[7][f], want, rtol=1e-3):
-                raise AssertionError(f"replay seed 7 {f} {by_seed[7][f]} "
-                                     f"!= run {want}")
-    wins = int((p99[True] < p99[False]).sum())
-    say("control_12", replay="ICO, control on vs off", seeds=20,
-        p99_wins=wins, p99_gain_mean=float((p99[False] - p99[True]).mean()))
-    return {"grid": {f"{k[0]}_{'on' if k[1] else 'off'}": v
-                     for k, v in out.items()}, "p99_wins": wins}
+        p99 = {}
+        for with_control, plan in plans.items():
+            RT.launches, K.launches = 0, 0
+            wall_s, rep = _wall(torch, lambda: replay_plan_batched(
+                plan, sim_seeds=tuple(range(20)), window_ticks=40,
+                use_fused=True, device=card))
+            bticks = rep["padded_windows"] * 40
+            by_seed = {e["sim_seed"]: e for e in rep["seeds"]}
+            run = runs[("ICO", with_control)][0]
+            p99[with_control] = np.array([by_seed[s]["p99_rt"]
+                                          for s in range(20)])
+            say("control_12", seed=tag,
+                replay="ICO+control" if with_control else "ICO",
+                seeds=20, num_windows=rep["num_windows"],
+                batched_ticks=bticks, rollout_tick_launches=RT.launches,
+                wall_s=wall_s, p99_mean=float(p99[with_control].mean()),
+                p99_std=float(p99[with_control].std()),
+                own_seed_p99=by_seed[sim_seed]["p99_rt"], run_p99=run.p99_rt)
+            if RT.launches != bticks or K.launches != 0:
+                raise AssertionError(
+                    f"seed {tag} replay launches: rollout_tick {RT.launches} "
+                    f"for {bticks} ticks, runqlat_hist {K.launches}")
+            for f in ("avg_rt", "p90_rt", "p99_rt"):
+                want = getattr(run, f)
+                if not np.isclose(by_seed[sim_seed][f], want, rtol=1e-3):
+                    raise AssertionError(
+                        f"seed {tag} replay entry {sim_seed} {f} "
+                        f"{by_seed[sim_seed][f]} != run {want}")
+        wins = int((p99[True] < p99[False]).sum())
+        say("control_12", seed=tag, replay="ICO, control on vs off",
+            seeds=20, p99_wins=wins,
+            p99_gain_mean=float((p99[False] - p99[True]).mean()))
+        summary[tag] = {"p99_off": runs[("ICO", False)][0].p99_rt,
+                        "p99_on": runs[("ICO", True)][0].p99_rt,
+                        "replay_wins": wins}
+    return summary
+
+
+PROACTIVE_SEED = (0, 11)
+
+
+def _unified_card_vs_cpu(torch, np, card):
+    """The unified stack (ICO-F admission, the proactive loop and one shared
+    service) on a one-day 12-node trace on the card and on the CPU, fed one
+    noise stream drawn on the card: counts exact, response times to rtol
+    1e-4.  The leverage gate is widened to 1.0 in both runs so that it
+    opens early in the day (the default needs ~0.9 of a diurnal period),
+    and the predicted pod runqlat is a constant (as in
+    ``tests/test_torch_obs.py``): under the forest's placements the
+    reactive track takes nearly every flag and few proactive ones are
+    left to compare."""
+    from repro_torch.cluster import state as cstate
+    from repro_torch.cluster.experiment import bursty_trace, run_experiment
+    from repro_torch.control import (
+        ControlLoop,
+        ForecastConfig,
+        ForecastService,
+        scheduler_loop_config,
+    )
+    from repro_torch.core import ICOFScheduler, InterferenceQuantifier
+
+    cpu = torch.device("cpu")
+    pods, gaps = bursty_trace(num_online=14, seed=3, burst_gap=(40, 70),
+                              days=1.0)
+    ticks = _run_ticks(gaps)
+    gen = torch.Generator(device=card).manual_seed(13)
+    stream = [cstate.draw_noise(gen, 12, cstate.CHUNK)
+              for _ in range(ticks // cstate.CHUNK)]
+    cfg = dataclasses.replace(scheduler_loop_config("ICO-F", proactive=True),
+                              forecast=ForecastConfig(max_leverage=1.0))
+    res, stats = {}, {}
+    for dev, noise in (
+            (card, stream),
+            (cpu, [[to_device(cpu, n) for n in ch] for ch in stream])):
+        q = InterferenceQuantifier(
+            lambda X: torch.full((X.shape[0],), 0.1, device=X.device))
+        svc = ForecastService(cfg.forecast, cfg.horizon, device=dev)
+        loop = ControlLoop(q, cfg, forecast_service=svc)
+        res[dev.type] = dataclasses.asdict(run_experiment(
+            ICOFScheduler(q), pods, gaps, num_nodes=12, seed=3,
+            control_loop=loop, forecast=svc, control_window=40, device=dev,
+            noise=noise))
+        stats[dev.type] = dataclasses.asdict(loop.stats)
+    a, b = res[card.type], res["cpu"]
+    for f in ("placed", "rejected", "queued_retries", "mitigations",
+              "proactive_mitigations"):
+        if a[f] != b[f]:
+            raise AssertionError(f"unified {f}: card {a[f]} != cpu {b[f]}")
+    for f in ("hotspots_flagged", "proactive_flagged", "by_kind"):
+        if stats[card.type][f] != stats["cpu"][f]:
+            raise AssertionError(f"unified {f}: card {stats[card.type][f]} "
+                                 f"!= cpu {stats['cpu'][f]}")
+    for f in ("avg_rt", "p90_rt", "p99_rt", "predicted_reduction",
+              "realized_reduction"):
+        if not np.isclose(a[f], b[f], rtol=1e-4):
+            raise AssertionError(f"unified {f}: card {a[f]} != cpu {b[f]}")
+    if stats[card.type]["proactive_flagged"] == 0:
+        raise AssertionError("the open-gate unified run raised no forecast "
+                             "flag")
+    return {"ticks": ticks, "mitigations": a["mitigations"],
+            "proactive_mitigations": a["proactive_mitigations"],
+            "proactive_flagged": stats[card.type]["proactive_flagged"],
+            "p99_rt_card": a["p99_rt"], "p99_rt_cpu": b["p99_rt"]}
+
+
+def phase_proactive_12(torch, np, K, card, rf):
+    """``bench_torch_control``'s proactive axis at trace seed 0, sim seed
+    11: ICO off / reactive / proactive and the unified stack on the 3-day
+    ``PROACTIVE_TRACE`` (loop every 40 ticks), one ``runqlat_hist`` launch
+    a tick; the unified run traced (saved to a temporary JSONL file) and
+    its action chains checked from the trace; then the unified stack on
+    the card against the CPU on one noise stream."""
+    import tempfile
+
+    from bench_torch_control import MODES, PROACTIVE_TRACE, proactive_seed
+
+    from repro_torch.cluster.experiment import bursty_trace
+
+    _, gaps = bursty_trace(seed=PROACTIVE_SEED[0], **PROACTIVE_TRACE)
+    ticks = _run_ticks(gaps)
+    K.launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        row = proactive_seed(rf, *PROACTIVE_SEED, device=card,
+                             trace_path=os.path.join(tmp, "unified.jsonl"))
+    if K.launches != len(MODES) * ticks:
+        raise AssertionError(f"{K.launches} runqlat_hist launches for "
+                             f"{len(MODES)} x {ticks} ticks")
+    nums = {}
+    for mode in MODES:
+        r, loop, svc, wall_s = row["runs"][mode]
+        m = {"p99_rt": r.p99_rt, "avg_rt": r.avg_rt, "placed": r.placed,
+             "rejected": r.rejected, "mitigations": r.mitigations,
+             "proactive_mitigations": r.proactive_mitigations,
+             "wall_s": wall_s, "ticks_per_s": ticks / wall_s}
+        if loop is not None:
+            s = loop.stats
+            m.update(proactive_flagged=s.proactive_flagged,
+                     hotspots_flagged=s.hotspots_flagged,
+                     control_ms=json.dumps(_control_ms(loop)))
+        if loop is not None and loop.forecaster is not None:
+            m["forecast_calibration"] = loop.forecaster.calibration_error()
+            if loop.forecaster.A.device.type != card.type:
+                raise AssertionError(f"{mode}: the forecaster ran on "
+                                     f"{loop.forecaster.A.device}")
+        say("proactive_12", mode=mode, ticks=ticks, **m)
+        nums[mode] = m
+        if not np.isfinite([r.avg_rt, r.p99_rt]).all():
+            raise AssertionError(f"{mode}: {r}")
+    if nums["proactive"]["proactive_flagged"] == 0:
+        raise AssertionError("the proactive mode raised no forecast flag")
+    if not np.isfinite(nums["proactive"]["forecast_calibration"]):
+        raise AssertionError("no forecaster calibration error")
+    tr = row["trace"]
+    say("proactive_12", trace=tr["path"], events=tr["events"],
+        executed=tr["executed"], trust_gate_events=tr["trust_gate_events"],
+        chain_ok=tr["chain_ok"])
+    if not tr["chain_ok"] or tr["trust_gate_events"] == 0:
+        raise AssertionError(f"unified trace: {tr}")
+    same = _unified_card_vs_cpu(torch, np, card)
+    say("proactive_12", card_vs_cpu="unified, open gate", **same)
+    return {m: {k: nums[m][k] for k in ("p99_rt", "mitigations",
+                                        "proactive_mitigations")}
+            for m in MODES}
+
+
+def phase_unified_1000(torch, np, K, card, rf, fleet, pods, gaps, tps):
+    """Phase 4's 1,000-node fleet and arrival trace under ICO-F with the
+    proactive ICO-F loop, the scheduler and the loop sharing one
+    ``ForecastService``, the loop stepped every 40 ticks.  ``tps`` holds
+    ``ico_1000``'s and ``control_1000``'s ticks/s from this run."""
+    from repro_torch.cluster.experiment import run_experiment
+    from repro_torch.control import (
+        ControlLoop,
+        ForecastService,
+        scheduler_loop_config,
+    )
+    from repro_torch.core import ICOFScheduler, InterferenceQuantifier
+
+    q = InterferenceQuantifier(rf.predict)
+    cfg = scheduler_loop_config("ICO-F", proactive=True)
+    svc = ForecastService(cfg.forecast, cfg.horizon, device=card)
+    loop = ControlLoop(q, cfg, forecast_service=svc)
+    ticks = _run_ticks(gaps)
+    K.launches = 0
+    wall_s, res = _wall(torch, lambda: run_experiment(
+        ICOFScheduler(q), pods, gaps, fleet=fleet, seed=7, control_loop=loop,
+        forecast=svc, control_window=40, device=card))
+    launches = K.launches
+    s = loop.stats
+    f = svc.forecaster
+    t_fut = svc._last_t + svc.horizon * svc._dt
+    trusted_nodes = int(f.confidence(t_fut).any(-1).sum())
+    steps = max(s.steps, 1)
+    nums = {"ticks": ticks, "ticks_per_s": ticks / wall_s, **tps,
+            "steps": s.steps, "forecast_ms_per_step":
+                1e3 * loop.timers.totals.get("forecast", 0.0) / steps,
+            "control_ms": json.dumps(_control_ms(loop)),
+            "trusted_nodes_at_end": trusted_nodes,
+            "proactive_flagged": s.proactive_flagged,
+            "hotspots_flagged": s.hotspots_flagged,
+            "actions": s.actions_applied,
+            "proactive_actions": s.proactive_applied,
+            "by_kind": json.dumps(s.by_kind),
+            "forecast_calibration": f.calibration_error(),
+            "avg_rt": res.avg_rt, "p90_rt": res.p90_rt, "p99_rt": res.p99_rt,
+            "placed": res.placed, "rejected": res.rejected,
+            "runqlat_hist_launches": launches}
+    if launches != ticks:
+        raise AssertionError(f"{launches} runqlat_hist launches for {ticks} "
+                             "ticks")
+    for k in ("A", "b", "err", "count"):
+        if getattr(f, k).device.type != card.type:
+            raise AssertionError(f"forecaster {k} on {getattr(f, k).device}")
+    if res.placed + res.rejected != len(pods) or \
+            not np.isfinite([res.avg_rt, res.p99_rt]).all():
+        raise AssertionError(f"bad unified run {res}")
+    return nums
 
 
 def phase_control_1000(torch, np, K, card, rf, fleet, pods, gaps,
@@ -1674,7 +1879,8 @@ def main() -> int:
         say("replay_profile", path=name, **nums)
     done("replay_profile")
 
-    # 11-14. the paper's remaining pieces and the reactive control plane
+    # 11-16. the paper's remaining pieces and the control plane, reactive
+    # and proactive
     with timers.phase("paper_models"):
         phase_paper_models(torch, np, card)
     done("paper_models")
@@ -1683,14 +1889,23 @@ def main() -> int:
     done("motivation", runqlat_hist_launches=mot["runqlat_hist_launches"],
          ticks=mot["ticks"], ticks_per_s=mot["ticks_per_s"])
     with timers.phase("control_12"):
-        phase_control_12(torch, np, K, RT, card, rf)
-    done("control_12")
+        c12 = phase_control_12(torch, np, K, RT, card, rf)
+    done("control_12", seeds=json.dumps(c12))
+    with timers.phase("proactive_12"):
+        p12 = phase_proactive_12(torch, np, K, card, rf)
+    done("proactive_12", modes=json.dumps(p12))
     with timers.phase("control_1000"):
         c1000 = phase_control_1000(torch, np, K, card, rf, fleet, pods, gaps,
                                    ticks / wall)
     done("control_1000", **c1000)
+    with timers.phase("unified_1000"):
+        u1000 = phase_unified_1000(
+            torch, np, K, card, rf, fleet, pods, gaps,
+            {"ico_1000_ticks_per_s": ticks / wall,
+             "control_1000_ticks_per_s": c1000["ticks_per_s"]})
+    done("unified_1000", **u1000)
 
-    # 15-17. the serving path: both kernels, then zamba2-1.2b at full width
+    # 17-19. the serving path: both kernels, then zamba2-1.2b at full width
     # (float32 products in full float32 for every plain version)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1715,7 +1930,7 @@ def main() -> int:
             lambda rng, n: rng.integers(256, 1025, n), "zamba2")
     done("serve_zamba2")
 
-    # 18-19. the rwkv6-7b serving path: the wkv kernel, then the model at
+    # 20-21. the rwkv6-7b serving path: the wkv kernel, then the model at
     # full width and depth
     with timers.phase("wkv_kernel"):
         wkvk = phase_wkv_kernel(torch, R, build, card)

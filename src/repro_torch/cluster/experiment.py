@@ -1,12 +1,14 @@
 """End-to-end scheduler comparison -- reproduces Figs. 13-15.
 
-Port of ``repro.cluster.experiment`` (without the forecast service and the
-trace recorder, which later slices bring): runs identical pod-arrival
-traces under ICO / RR / HUP / LQP and reports online avg/p90/p99 response
-time plus cross-node CPU/MEM utilization spread.  Rejected pods wait in a
-bounded retry queue, per Algorithm 1.  ``run_experiment(control_loop=)``
-steps a ``repro_torch.control.ControlLoop`` after every rollout window
-(mitigation on/off reruns).
+Port of ``repro.cluster.experiment``: runs identical pod-arrival traces
+under ICO / RR / HUP / LQP (and ICO-F when asked) and reports online
+avg/p90/p99 response time plus cross-node CPU/MEM utilization spread.
+Rejected pods wait in a bounded retry queue, per Algorithm 1.
+``run_experiment(control_loop=)`` steps a ``repro_torch.control.ControlLoop``
+after every rollout window (mitigation on/off reruns); ``forecast=``
+threads a ``ForecastService`` through the admission snapshots (and, when
+the loop was built with the same instance, the loop); ``recorder=`` traces
+the whole run.
 
 ``run_experiment(plan_out=...)`` records a run's placement plan, and
 ``replay_plan_batched`` re-evaluates that plan under many simulation seeds
@@ -33,6 +35,7 @@ from repro_torch.cluster.state import TICKS_PER_DAY
 from repro_torch.cluster.workloads import Pod
 from repro_torch.core import (
     HUPScheduler,
+    ICOFScheduler,
     ICOScheduler,
     InterferenceQuantifier,
     LQPScheduler,
@@ -41,7 +44,7 @@ from repro_torch.core import (
 )
 from repro_torch.core.predictors import RandomForestRegressor
 from repro_torch.device import resolve_device, sync
-from repro_torch.obs import PhaseTimers
+from repro_torch.obs import PhaseTimers, PhaseTimings, RetryDrained, RetryQueued
 
 
 @dataclasses.dataclass
@@ -56,6 +59,7 @@ class ExperimentResult:
     rejected: int
     queued_retries: int = 0   # placements that succeeded via the retry queue
     mitigations: int = 0      # control-loop actions applied DURING THIS RUN
+    proactive_mitigations: int = 0    # subset planned from forecast drift
     predicted_reduction: float = 0.0  # cost-model claim for this run's actions
     realized_reduction: float = 0.0   # what post-action verification observed
 
@@ -70,16 +74,21 @@ def train_default_predictor(seed: int = 0, num_placements: int = 250, *,
                                  device=device).fit(X, y)
 
 
-def make_schedulers(predictor, cfg: SchedulerConfig | None = None):
-    """The Figs. 13-15 scheduler set."""
+def make_schedulers(predictor, cfg: SchedulerConfig | None = None,
+                    forecast: bool = False):
+    """The Figs. 13-15 scheduler set; ``forecast=True`` adds ICO-F (opt-in:
+    without a ``ForecastService`` it scores exactly as ICO)."""
     cfg = cfg or SchedulerConfig()
     q = InterferenceQuantifier(predictor.predict)
-    return {
+    out = {
         "ICO": ICOScheduler(q, cfg),
         "RR": RoundRobinScheduler(cfg),
         "HUP": HUPScheduler(q, cfg),
         "LQP": LQPScheduler(cfg),
     }
+    if forecast:
+        out["ICO-F"] = ICOFScheduler(q, cfg)
+    return out
 
 
 def _arrival_trace(num_pods: int, seed: int):
@@ -163,13 +172,21 @@ def run_experiment(
         zero-argument factory returning one (a fresh loop per run).  Its
         ``step`` runs after every rollout window; the result's mitigation
         numbers are this run's deltas of the loop's lifetime stats.
-    forecast: the forecast service is not ported yet; passing one raises.
-    control_window: with a control loop, slice each inter-arrival rollout
-        into windows of at most this many ticks and step after each.  RT is
-        sampled before every step (a migration frees its source slot, and
-        sampling afterwards would drop the moved pod's worst window).
+    forecast: optional ``repro_torch.control.ForecastService``, or a
+        zero-argument factory (a fresh service per run).  It observes every
+        telemetry window and annotates the admission snapshots, so ICO-F
+        admits against projected contention; pass the instance the loop
+        was built with to share one projection.
+    control_window: with a control loop or a forecast service, slice each
+        inter-arrival rollout into windows of at most this many ticks and
+        step / observe after each.  RT is sampled before every step (a
+        migration frees its source slot, and sampling afterwards would drop
+        the moved pod's worst window).
     retry_limit / retry_attempts: Algorithm 1's bounded retry queue.
-    recorder: trace recording is not ported yet; passing one raises.
+    recorder: optional ``repro_torch.obs.TraceRecorder``: threaded into the
+        scheduler (restored on exit), the loop and the service (unless they
+        carry their own) and the driver (windows, retry-queue transitions,
+        phase times).  Tracing only observes: the run is the same.
     device: where the simulation runs (``None`` -> the CUDA card).
     noise: optional per-chunk tick-noise stream for the cluster (see
         ``Cluster``); ``None`` draws from the cluster's generator.
@@ -177,29 +194,32 @@ def run_experiment(
         (the cluster's mutation log and the trace geometry) for
         ``replay_plan_batched``.
     """
-    if recorder is not None:
-        raise NotImplementedError(
-            "run_experiment: the trace recorder is not ported yet "
-            "(ROADMAP Queue A item 3)")
-    if forecast is not None:
-        raise NotImplementedError(
-            "run_experiment(forecast=): the forecast service is not ported "
-            "yet (ROADMAP Queue A item 2, the proactive half of the control "
-            "plane)")
     if control_loop is not None and not hasattr(control_loop, "step"):
         control_loop = control_loop()  # factory -> fresh per-run instance
+    if forecast is not None and not hasattr(forecast, "observe"):
+        forecast = forecast()          # factory -> fresh per-run instance
+    sched_recorder_prev = getattr(scheduler, "recorder", None)
+    if recorder is not None:
+        if control_loop is not None and control_loop.recorder is None:
+            control_loop.recorder = recorder
+        if forecast is not None and forecast.recorder is None:
+            forecast.recorder = recorder
+        if hasattr(scheduler, "recorder"):
+            scheduler.recorder = recorder
     # the loop's timers double as the driver's, so rollout and control
     # phases land in one summary; an uncontrolled run gets its own
     timers = control_loop.timers if control_loop is not None else PhaseTimers()
-    stats0 = (0, 0.0, 0.0)
+    stats0 = (0, 0, 0.0, 0.0)
     if control_loop is not None:
         s = control_loop.stats
-        stats0 = (s.actions_applied, s.predicted_reduction,
-                  s.realized_reduction)
+        stats0 = (s.actions_applied, s.proactive_applied,
+                  s.predicted_reduction, s.realized_reduction)
     cluster = Cluster(num_nodes=num_nodes, seed=seed, fleet=fleet,
                       device=device, noise=noise)
     num_nodes = cluster.n  # a fleet overrides the scalar argument
     cluster.rollout(30)
+    if recorder is not None:
+        recorder.begin_window(cluster.t)
     rt_all: list[torch.Tensor] = []
     cpu_series, mem_series = [], []
     placed = rejected = queued_retries = 0
@@ -207,36 +227,56 @@ def run_experiment(
     last_view = None  # advance()'s last window view, reusable at the same t
 
     def snapshot():
-        """One view per arrival tick; nothing mutates the cluster between
+        """One view per arrival tick, annotated with the shared projection
+        when a service is attached; nothing mutates the cluster between
         advance()'s last window view and this one, so that view is reused."""
         if last_view is not None and last_view.t == cluster.t:
-            return last_view
-        return cluster.view()
+            view = last_view
+        else:
+            view = cluster.view()
+        if forecast is not None:
+            forecast.observe(view)   # idempotent if advance() already did
+            forecast.annotate(view)
+        return view
 
-    def offer(pod: Pod, view) -> bool:
+    def offer(pod: Pod, view, retry: bool = False) -> bool:
         node = scheduler.select_node(pod, view)
-        return node >= 0 and cluster.place(pod, node)
+        ok = node >= 0 and cluster.place(pod, node)
+        if recorder is not None:
+            # the uid exists only after a successful place: bind it, and
+            # the outcome, onto the admission the scheduler just emitted
+            recorder.resolve_admission(uid=pod.uid if ok else -1,
+                                       placed=ok, retry=retry)
+        return ok
 
     def drain_retries(view) -> None:
         nonlocal placed, rejected, queued_retries
         for _ in range(len(retry_q)):
-            qpod, failed = retry_q.popleft()
-            if offer(qpod, view):
+            qpod, failed = retry_q.popleft()  # failed = prior re-offers
+            if offer(qpod, view, retry=True):
                 placed += 1
                 queued_retries += 1
+                outcome, uid = "placed", qpod.uid
             elif failed + 1 >= retry_attempts:
                 rejected += 1
+                outcome, uid = "rejected", -1
             else:
                 retry_q.append((qpod, failed + 1))
+                outcome, uid = "requeued", -1
+            if recorder is not None:
+                recorder.emit(RetryDrained(
+                    workload=qpod.workload, qps=float(qpod.qps),
+                    outcome=outcome, uid=uid, attempts=failed + 1))
 
     def advance(ticks: int, record_util: bool = True) -> None:
         """Roll forward, sampling RT (and stepping the loop) per window.
         The settle phase records RT but not the util series (Figs. 14-15
         average balance over the arrival phase)."""
         nonlocal last_view
+        stepped = control_loop is not None or forecast is not None
         while ticks > 0:
             w = ticks
-            if control_loop is not None and control_window is not None:
+            if stepped and control_window is not None:
                 w = min(control_window, ticks)
             t0 = cluster.t
             with timers.phase("rollout"):
@@ -246,12 +286,22 @@ def run_experiment(
             if record_util:
                 cpu_series.append(cluster.last["cpu_util"])
                 mem_series.append(cluster.last["mem_util"])
-            if control_loop is not None:
+            # window boundary: RT sampled, control not yet stepped -- this
+            # window's hotspot and action events carry the new index
+            if recorder is not None:
+                recorder.begin_window(cluster.t)
+            if stepped:
                 with timers.phase("snapshot"):
                     view = last_view = cluster.view()
-                if control_loop.step(cluster, view=view):
+                if forecast is not None:
+                    forecast.observe(view)
+                if control_loop is not None and control_loop.step(
+                        cluster, view=view):
                     # mitigation moved pods: the cached view predates it
                     last_view = None
+            tw = timers.pop_window()
+            if recorder is not None and tw:
+                recorder.emit(PhaseTimings(timings=tw))
             # count the ticks actually simulated: rollout rounds up to
             # CHUNK multiples, and decrementing by the request would
             # re-simulate the overshoot and diverge from an unsliced run
@@ -266,6 +316,9 @@ def run_experiment(
             placed += 1
         elif retry_attempts > 0 and len(retry_q) < retry_limit:
             retry_q.append((pod, 0))
+            if recorder is not None:
+                recorder.emit(RetryQueued(workload=pod.workload,
+                                          qps=float(pod.qps), attempts=0))
         else:
             rejected += 1
         advance(gap)
@@ -273,18 +326,22 @@ def run_experiment(
     drain_retries(snapshot())
     rejected += len(retry_q)  # still queued at trace end: never placed
     advance(settle_ticks, record_util=False)
+    if recorder is not None and hasattr(scheduler, "recorder"):
+        # schedulers are reused across runs; the trace belongs to this one
+        scheduler.recorder = sched_recorder_prev
 
     rt = torch.cat(rt_all).cpu().numpy()
     if rt.size == 0:
         rt = np.full(1, np.nan)  # no online pod ever ran
     cpu = torch.stack(cpu_series).cpu().numpy()  # (T, N)
     mem = torch.stack(mem_series).cpu().numpy()
-    mitigations, predicted, realized = 0, 0.0, 0.0
+    mitigations, proactive, predicted, realized = 0, 0, 0.0, 0.0
     if control_loop is not None:
         s = control_loop.stats
         mitigations = s.actions_applied - stats0[0]
-        predicted = s.predicted_reduction - stats0[1]
-        realized = s.realized_reduction - stats0[2]
+        proactive = s.proactive_applied - stats0[1]
+        predicted = s.predicted_reduction - stats0[2]
+        realized = s.realized_reduction - stats0[3]
     if plan_out is not None:
         plan_out.update(
             log=list(cluster.log),
@@ -305,6 +362,7 @@ def run_experiment(
         rejected=rejected,
         queued_retries=queued_retries,
         mitigations=mitigations,
+        proactive_mitigations=proactive,
         predicted_reduction=predicted,
         realized_reduction=realized,
     )
@@ -462,37 +520,59 @@ def compare_schedulers(
     predictor=None,
     control: bool = False,
     control_config=None,
+    proactive: bool = False,
+    forecast: bool = False,
     trace: tuple | None = None,
     control_window: int | None = None,
     fleet=None,
     *,
     device=None,
 ) -> dict[str, ExperimentResult]:
-    """Figs. 13-15 comparison across ICO / RR / HUP / LQP.
+    """Figs. 13-15 comparison across ICO / RR / HUP / LQP (+ ICO-F).
 
     ``control=True`` pairs every scheduler with its own fresh
     ``ControlLoop`` (built per run from the shared predictor, so detector
     state, cooldowns and corrections never leak across schedulers), with
     the scheduler's tuned profile (``scheduler_loop_config``) unless
-    ``control_config`` pins one.  ``trace`` optionally replaces the default
-    arrival trace with a (pods, gaps) pair; ``control_window`` and
-    ``fleet`` are forwarded to ``run_experiment``.
+    ``control_config`` pins one; ``proactive=True`` switches the forecast
+    channel on.  ``forecast=True`` adds ICO-F and threads a fresh
+    ``ForecastService`` per run through the admission snapshots and (with
+    proactive control) that run's loop, wherever something consumes it.
+    ``trace`` optionally replaces the default arrival trace with a (pods,
+    gaps) pair; ``control_window`` and ``fleet`` are forwarded to
+    ``run_experiment``.
     """
+    from repro_torch.control import (
+        ControlLoop,
+        ForecastService,
+        scheduler_loop_config,
+    )
+
     device = resolve_device(device)
     predictor = predictor or train_default_predictor(seed=seed, device=device)
     pods, gaps = trace if trace is not None else _arrival_trace(num_pods, seed)
     out = {}
-    for name, sched in make_schedulers(predictor).items():
+    for name, sched in make_schedulers(predictor, forecast=forecast).items():
+        cfg = None
+        if control:
+            cfg = (control_config if control_config is not None
+                   else scheduler_loop_config(name, proactive=proactive))
+        svc = None
+        # a service only where something reads it: ICO-F's admission, or a
+        # proactive loop sharing the projection
+        if forecast and (name == "ICO-F" or (control and proactive)):
+            # the loop profile's gates and horizon: a shared service's own
+            # config governs the projection inside the loop
+            svc = (ForecastService(cfg.forecast, cfg.horizon, device=device)
+                   if cfg is not None else ForecastService(device=device))
         loop = None
         if control:
-            from repro_torch.control import ControlLoop, scheduler_loop_config
-
-            cfg = (control_config if control_config is not None
-                   else scheduler_loop_config(name))
-            loop = lambda cfg=cfg: ControlLoop(  # noqa: E731
-                InterferenceQuantifier(predictor.predict), cfg)
+            loop = lambda cfg=cfg, svc=svc: ControlLoop(  # noqa: E731
+                InterferenceQuantifier(predictor.predict), cfg,
+                forecast_service=svc)
         out[name] = run_experiment(sched, pods, gaps, num_nodes=num_nodes,
                                    seed=seed, fleet=fleet, control_loop=loop,
+                                   forecast=svc,
                                    control_window=control_window,
                                    device=device)
     return out

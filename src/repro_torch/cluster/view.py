@@ -8,8 +8,13 @@ map ``slot_uids`` is the host-side numpy array the shell keeps.
 
 The control plane reads ``node_runqlat_avg`` (cached per view) and the
 topology prices ``zone_of`` / ``transfer_cost`` / ``migrate_cost_factor``.
-The forecast fields of the JAX view and ``forecast_drift`` come with the
-forecast slice.
+
+The forecast fields (``forecast_runqlat`` / ``forecast_rho`` /
+``forecast_trusted``) are filled by ``ForecastService.annotate``: float64
+and bool tensors on the service's device, the per-node runqlat the shared
+projection expects ``horizon`` windows ahead.  They default to ``None``,
+and ``forecast_drift()`` is then ``None`` too, so ICO-F scores exactly as
+ICO.
 """
 from __future__ import annotations
 
@@ -46,6 +51,11 @@ class ClusterView:
     cpu_util: torch.Tensor | None = None         # (N,)
     mem_util: torch.Tensor | None = None         # (N,)
     slot_uids: np.ndarray | None = None          # (N, S) tenant uid, -1 vacant
+    # --- filled by ForecastService.annotate (None = channel closed) ---
+    forecast_runqlat: torch.Tensor | None = None  # (N,) float64 projection
+    forecast_rho: torch.Tensor | None = None      # (N,) float64 pressure,
+                                                  #      clamped at rho_cap
+    forecast_trusted: torch.Tensor | None = None  # (N,) >= 1 pod trusted
     node_class: tuple[str, ...] | None = None    # (N,) machine-class names
     fleet: object | None = None                  # repro_torch.cluster.fleet.Fleet
     delay_base: np.ndarray | None = None         # (N,) float64
@@ -99,6 +109,9 @@ class ClusterView:
             off_pressure=take(self.off_pressure),
             cpu_util=take(self.cpu_util), mem_util=take(self.mem_util),
             slot_uids=take(self.slot_uids),
+            forecast_runqlat=take(self.forecast_runqlat),
+            forecast_rho=take(self.forecast_rho),
+            forecast_trusted=take(self.forecast_trusted),
             node_class=(None if self.node_class is None
                         else tuple(self.node_class[i] for i in idx_np)),
             fleet=None,
@@ -127,3 +140,16 @@ class ClusterView:
         if self.fleet is None:
             return 1.0
         return self.fleet.topology.cost_factor(src, dst, gb)
+
+    def forecast_drift(self) -> torch.Tensor | None:
+        """(N,) float64 projected runqlat increase at the horizon, in
+        latency units: ``None`` while the forecast channel is closed, zero
+        on nodes with no trusted pod (so forecast-aware scoring degrades
+        exactly to present-time scoring when the gate is shut)."""
+        if self.forecast_runqlat is None:
+            return None
+        drift = torch.clamp_min(
+            self.forecast_runqlat - self.node_runqlat_avg(), 0.0)
+        if self.forecast_trusted is not None:
+            drift = torch.where(self.forecast_trusted, drift, 0.0)
+        return drift

@@ -10,15 +10,19 @@
       budget.
   act     (``actions``) -- evict-offline, migrate-online, scale-out,
       vertical-resize, applied through the ``Cluster`` primitives.
+  forecast (``forecast``) -- a per-pod decayed diurnal-harmonic QPS
+      regression (one batched update on the device) projects node runqlat
+      ``horizon`` windows ahead through the delay curve; the detector's
+      forecast channel turns predicted drift into proactive flags.  The
+      ``ForecastService`` owning it is shared by the loop and ICO-F.
   verify  (``loop``) -- one window after acting, predicted against
       realized reduction; a per-kind correction feeds back into the
       ranking.
 
 ``loop.ControlLoop`` ties them together; ``run_experiment(...,
 control_loop=...)`` and ``compare_schedulers(..., control=True)`` rerun
-the Figs. 13-15 comparison with mitigation.  The forecaster's moment update
-(``forecast._forecast_update``) is here for the batched replay; the
-forecast service and the proactive channel come with a later slice.
+the Figs. 13-15 comparison with mitigation, ``proactive=`` and
+``forecast=`` with the forecast channel and ICO-F.
 """
 from repro_torch.control.actions import (
     Action,
@@ -28,6 +32,13 @@ from repro_torch.control.actions import (
     VerticalResize,
 )
 from repro_torch.control.detector import DetectorConfig, StreamingDetector
+from repro_torch.control.forecast import (
+    ForecastConfig,
+    ForecastService,
+    NodeProjection,
+    QPSForecaster,
+    project_node_pressure,
+)
 from repro_torch.control.loop import (
     SCHEDULER_PROFILES,
     ControlLoop,
@@ -44,8 +55,9 @@ from repro_torch.control.policy import (
 
 __all__ = [
     "Action", "ControlLoop", "ControlLoopConfig", "ControlStats",
-    "DetectorConfig", "EvictOffline", "MigrateOnline", "MitigationPolicy",
-    "PolicyConfig", "SCHEDULER_PROFILES", "ScaleOut", "StreamingDetector",
-    "VerticalResize", "node_delay_curve", "scheduler_loop_config",
-    "view_delay_params",
+    "DetectorConfig", "EvictOffline", "ForecastConfig", "ForecastService",
+    "MigrateOnline", "MitigationPolicy", "NodeProjection", "PolicyConfig",
+    "QPSForecaster", "SCHEDULER_PROFILES", "ScaleOut", "StreamingDetector",
+    "VerticalResize", "node_delay_curve", "project_node_pressure",
+    "scheduler_loop_config", "view_delay_params",
 ]

@@ -17,8 +17,9 @@ budget units the policy spends per control invocation:
 that finished or was removed between planning and acting makes the action
 a no-op.  The ControlLoop stamps ``pre_runqlat`` (the node's window
 average at apply time) and, one step later, ``realized_reduction``.
-Actions planned from forecast drift carry ``proactive=True``.  (JAX's
-``action_id`` exists only for its trace recorder, which is not ported.)
+Actions planned from forecast drift carry ``proactive=True``; a traced
+run's policy gives each chosen action the ``action_id`` that links its
+Planned -> Executed -> Verified events.
 """
 from __future__ import annotations
 
@@ -38,6 +39,7 @@ class Action:
     proactive: bool = False             # planned from forecast drift
     pre_runqlat: float = math.nan       # source node avg runqlat at apply
     realized_reduction: float = math.nan  # observed delta, one step later
+    action_id: int = -1                 # trace chain id (-1 untraced)
 
     kind = "noop"
 

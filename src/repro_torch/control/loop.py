@@ -15,9 +15,19 @@ ranking.  A post-action window is trusted only when the node's pod
 signature -- uids AND each pod's QPS/cores -- is unchanged; otherwise the
 sample is discarded.
 
-The proactive channel (a ``ForecastService`` projecting node runqlat
-ahead) and the trace recorder come with later slices: ``proactive=True``,
-``forecast_service=`` and ``recorder=`` raise ``NotImplementedError``.
+The loop is optionally proactive: with ``proactive=True`` every step feeds
+the view to a ``ForecastService`` -- one the loop owns (built on the
+cluster's device), or a caller's shared instance, so that ICO-F and the
+loop price contention with one projection, trust gate and ``rho_cap``.  The
+projection drives the detector's forecast channel; its ``proactive`` flags
+are priced at the forecast pressure, cost less, and skip post-action
+verification (the window they target is still ahead).  The projection
+stays on the device; the forecast pressure comes to the host in one copy,
+and only in a step that plans.
+
+With a ``recorder`` the loop emits ``HotspotFlag``, ``ActionExecuted``,
+``ActionVerified`` (and, through the policy, ``ActionPlanned``) events;
+``run`` also opens a window per rollout and emits ``PhaseTimings``.
 
 ``scheduler_loop_config`` maps a scheduler name to its tuned profile: ICO
 and LQP keep the aggressive default; RR and HUP get a conservative,
@@ -35,12 +45,17 @@ import torch
 
 from repro_torch.control.actions import Action
 from repro_torch.control.detector import DetectorConfig, StreamingDetector
+from repro_torch.control.forecast import ForecastConfig, ForecastService
 from repro_torch.control.policy import MitigationPolicy, PolicyConfig
 from repro_torch.device import sync
-from repro_torch.obs import MetricsRegistry, PhaseTimers
-
-_NEXT_SLICE = ("is not ported yet (ROADMAP Queue A item 2, the proactive "
-               "half of the control plane)")
+from repro_torch.obs import (
+    ActionExecuted,
+    ActionVerified,
+    HotspotFlag,
+    MetricsRegistry,
+    PhaseTimers,
+    PhaseTimings,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,11 +68,14 @@ class ControlLoopConfig:
                              # kind at most 2.5x (post-action windows are
                              # noisy; one sample must not bury a kind)
     corr_max: float = 2.0    # ... nor credit it more than 2x
-    proactive: bool = False  # the forecast channel (refused: next slice)
+    proactive: bool = False  # forecast channel + ahead-of-time mitigation
+    horizon: float = 6.0     # telemetry windows ahead to project
     history_limit: int = 512  # ring-buffer bound on ControlLoop.history
     detector: DetectorConfig = dataclasses.field(
         default_factory=DetectorConfig)
     policy: PolicyConfig = dataclasses.field(default_factory=PolicyConfig)
+    forecast: ForecastConfig = dataclasses.field(
+        default_factory=ForecastConfig)
 
 
 @dataclasses.dataclass
@@ -66,8 +84,10 @@ class ControlStats:
 
     steps: int = 0
     hotspots_flagged: int = 0
+    proactive_flagged: int = 0   # forecast-channel flags
     actions_planned: int = 0
     actions_applied: int = 0
+    proactive_applied: int = 0   # subset of applied planned ahead of time
     actions_verified: int = 0
     verifications_discarded: int = 0  # post-action windows too churned
     predicted_reduction: float = 0.0  # sum of predictions of verified
@@ -79,6 +99,12 @@ class ControlStats:
         """Mean relative |realized - predicted| error of the cost model."""
         return self.calibration_abs_error / max(self.predicted_reduction, 1e-9)
 
+    @property
+    def mean_calibration_abs_error(self) -> float:
+        """Mean |realized - predicted| per verified action (0.0 with
+        nothing verified)."""
+        return self.calibration_abs_error / max(self.actions_verified, 1)
+
 
 class ControlLoop:
     """Runtime interference-mitigation controller for one cluster."""
@@ -86,22 +112,16 @@ class ControlLoop:
     def __init__(self, quantifier, config: ControlLoopConfig | None = None,
                  forecast_service=None, recorder=None):
         self.cfg = config or ControlLoopConfig()
-        if self.cfg.proactive:
-            raise NotImplementedError(f"ControlLoop(proactive=True) "
-                                      f"{_NEXT_SLICE}")
-        if forecast_service is not None:
-            raise NotImplementedError(f"ControlLoop(forecast_service=) "
-                                      f"{_NEXT_SLICE}")
-        if recorder is not None:
-            raise NotImplementedError(
-                "ControlLoop(recorder=): the trace recorder is not ported "
-                "yet (ROADMAP Queue A item 3)")
         self.policy = MitigationPolicy(quantifier, self.cfg.policy)
         self.metrics = MetricsRegistry()
         self.timers = PhaseTimers()
         self.history: deque[dict] = deque(maxlen=self.cfg.history_limit)
         # per-kind calibration of predicted_reduction (1.0 = trust model)
         self.corrections: dict[str, float] = {}
+        # a caller's service is shared (e.g. with ICO-F) and survives
+        # reset(); its own config and horizon govern the projection
+        self._external_forecast = forecast_service
+        self._recorder = recorder
         self.reset()
 
     @property
@@ -110,8 +130,10 @@ class ControlLoop:
         return ControlStats(
             steps=int(v("steps")),
             hotspots_flagged=int(v("hotspots_flagged")),
+            proactive_flagged=int(v("proactive_flagged")),
             actions_planned=int(v("actions_planned")),
             actions_applied=int(v("actions_applied")),
+            proactive_applied=int(v("proactive_applied")),
             actions_verified=int(v("actions_verified")),
             verifications_discarded=int(v("verifications_discarded")),
             predicted_reduction=v("predicted_reduction"),
@@ -121,21 +143,45 @@ class ControlLoop:
                      in self.metrics.counters("applied_kind.").items()},
         )
 
+    @property
+    def recorder(self):
+        return self._recorder
+
+    @recorder.setter
+    def recorder(self, rec) -> None:
+        self._recorder = rec
+        # an internally owned service traces into the same sink; a shared
+        # one belongs to its owner, who wires it
+        if self._external_forecast is None and \
+                self.forecast_service is not None:
+            self.forecast_service.recorder = rec
+
     def reset(self) -> None:
         """Forget per-cluster state: detector, cooldowns, pending checks.
 
         Called when ``step`` sees a new cluster object.  Learned
         ``corrections`` and cumulative ``stats`` / ``history`` survive:
-        calibration belongs to the cost model, not to one cluster.
+        calibration belongs to the cost model, not to one cluster.  An
+        internally owned forecast service is rebuilt at the next ``step``
+        (on that cluster's device); a shared one is left to its owner.
         """
         self.detector: StreamingDetector | None = None
+        self.forecast_service: ForecastService | None = \
+            self._external_forecast
         self._cluster_ref = lambda: None
         self._last_acted: dict[int, int] = {}      # node -> step acted
         self._uid_last_acted: dict[int, int] = {}  # pod uid -> step
         self._pending: dict[int, int] = {}         # hot node -> step flagged
+        self._pending_pro: dict[int, int] = {}     # forecast-flagged
         self._to_verify: list[Action] = []         # applied last step
         self._verify_sig: dict[int, frozenset] = {}  # node -> pod signature
         self._slot_uids: np.ndarray | None = None  # last (N, S) tenants
+
+    @property
+    def forecaster(self):
+        """The service's per-pod fits (None while the channel is off)."""
+        svc = self.forecast_service
+        return svc.forecaster if svc is not None else None
 
     @staticmethod
     def _node_signature(cluster, node: int) -> frozenset:
@@ -160,6 +206,7 @@ class ControlLoop:
             return verified
         cfg = self.cfg
         m = self.metrics
+        rec = self._recorder
         by_node: dict[int, list[Action]] = {}
         for a in self._to_verify:
             by_node.setdefault(a.node, []).append(a)
@@ -167,6 +214,13 @@ class ControlLoop:
             if self._node_signature(cluster, node) != \
                     self._verify_sig.get(node):
                 m.inc("verifications_discarded", len(acts))
+                if rec:
+                    for a in acts:
+                        rec.emit(ActionVerified(
+                            action=a.kind, action_id=a.action_id, node=node,
+                            outcome="discarded",
+                            predicted=a.predicted_reduction,
+                            reason="signature_changed"))
                 continue
             delta = float(acts[0].pre_runqlat - window_avg[node])
             total_pred = sum(a.predicted_reduction for a in acts)
@@ -185,6 +239,12 @@ class ControlLoop:
                 m.inc("realized_reduction", a.realized_reduction)
                 m.inc("calibration_abs_error",
                       abs(a.realized_reduction - a.predicted_reduction))
+                if rec:
+                    rec.emit(ActionVerified(
+                        action=a.kind, action_id=a.action_id, node=node,
+                        outcome="verified", predicted=a.predicted_reduction,
+                        realized=a.realized_reduction,
+                        correction=self.corrections[a.kind]))
                 verified.append({
                     "node": node, "kind": a.kind,
                     "predicted": a.predicted_reduction,
@@ -208,6 +268,27 @@ class ControlLoop:
         if nodes.size:
             self.detector.clear_slots(nodes, slots)
 
+    def _forecast(self, view):
+        """Project each node's runqlat ``horizon`` windows ahead.
+
+        Feeds the service this window's view (idempotent if the driver
+        already did) and turns its projection into the detector's forecast
+        input: nodes the model says get meaningfully worse get the
+        projected runqlat, the rest the no-forecast sentinel.  Returns
+        ``(None, None)`` while the channel is off or not warmed up, else
+        (forecast input, forecast pressure) as float64 device tensors.
+        """
+        svc = self.forecast_service
+        if not self.cfg.proactive or svc is None or view.online_qps is None:
+            return None, None
+        svc.observe(view)
+        proj = svc.project(view)
+        if proj is None:
+            return None, None  # two windows are needed for the cadence
+        forecast_avg = torch.where(
+            proj.delta >= svc.cfg.min_predicted_drift, proj.runqlat, -1e9)
+        return forecast_avg, proj.rho
+
     def step(self, cluster, view=None) -> list[Action]:
         """One control iteration; returns the actions actually applied.
 
@@ -220,6 +301,11 @@ class ControlLoop:
             self.reset()
             self.detector = StreamingDetector(cluster.n, self.cfg.detector,
                                               device=cluster.device)
+            if self.forecast_service is None and self.cfg.proactive:
+                self.forecast_service = ForecastService(
+                    self.cfg.forecast, self.cfg.horizon,
+                    device=cluster.device)
+                self.forecast_service.recorder = self._recorder
             self._cluster_ref = weakref.ref(cluster)
         if view is None:
             view = cluster.view()
@@ -234,26 +320,44 @@ class ControlLoop:
         window_avg = view.node_runqlat_avg().cpu().numpy()
         with self.timers.phase("verify"):
             verified = self._verify(cluster, window_avg)
+        with self.timers.phase("forecast"):
+            forecast_avg, forecast_rho = self._forecast(view)
         with self.timers.phase("detect"):
-            hot = self.detector.update(slot_hists)
+            hot = self.detector.update(slot_hists, forecast_avg)
+        pro = self.detector.last_proactive
         m = self.metrics
+        rec = self._recorder
         step_no = int(m.inc("steps"))
         m.inc("hotspots_flagged", int(hot.sum()))
+        m.inc("proactive_flagged", int(pro.sum()))
+        if rec and (hot.any() or pro.any()):
+            self._emit_hotspots(hot, pro)
 
         # flags stay pending for one acting interval, so interval > 1 cannot
-        # lose them; flags raised during a node's cooldown expire
+        # lose them; flags raised during a node's cooldown expire.  A
+        # reactive flag outranks a pending proactive one
         for node in np.nonzero(hot)[0]:
             self._pending[int(node)] = step_no
-        self._pending = {n: s for n, s in self._pending.items()
-                         if step_no - s < self.cfg.interval}
+            self._pending_pro.pop(int(node), None)
+        for node in np.nonzero(pro)[0]:
+            if int(node) not in self._pending:
+                self._pending_pro[int(node)] = step_no
+        keep = lambda d: {n: s for n, s in d.items()  # noqa: E731
+                          if step_no - s < self.cfg.interval}
+        self._pending = keep(self._pending)
+        self._pending_pro = keep(self._pending_pro)
 
         # a freshly mitigated node gets cooldown steps for its telemetry to
         # reflect the action before more mitigations pile on
         actionable = np.zeros(cluster.n, bool)
         actionable[list(self._pending)] = True
+        actionable[list(self._pending_pro)] = True
         for node, step in self._last_acted.items():
             if step_no - step < self.cfg.cooldown:
                 actionable[node] = False
+        proactive_mask = np.zeros(cluster.n, bool)
+        proactive_mask[list(self._pending_pro)] = True
+        proactive_mask &= actionable
 
         applied: list[Action] = []
         if actionable.any() and step_no % self.cfg.interval == 0:
@@ -261,38 +365,92 @@ class ControlLoop:
                 uid for uid, step in self._uid_last_acted.items()
                 if step_no - step < self.cfg.uid_cooldown
             )
+            # the policy reads the forecast pressure of proactive nodes
+            # only: one copy to the host, and only when there are some
+            pressure = (forecast_rho.cpu().numpy()
+                        if forecast_rho is not None and proactive_mask.any()
+                        else None)
             with self.timers.phase("plan"):
                 plan = self.policy.plan(
                     cluster, view, actionable, exclude_uids=recently_acted,
                     corrections=self.corrections,
-                    attribution=self.detector.attribution())
+                    attribution=self.detector.attribution(),
+                    proactive=proactive_mask, forecast_pressure=pressure,
+                    recorder=rec)
             m.inc("actions_planned", len(plan))
             for action in plan:
                 if not action.apply(cluster):
                     continue
                 applied.append(action)
                 action.pre_runqlat = float(window_avg[action.node])
-                self._to_verify.append(action)
+                if action.proactive:
+                    # no post-window check: the window it mitigates is
+                    # horizon steps ahead, and next window's delta would
+                    # poison the per-kind corrections
+                    m.inc("proactive_applied")
+                else:
+                    self._to_verify.append(action)
                 m.inc("actions_applied")
                 m.inc(f"applied_kind.{action.kind}")
-                self._last_acted[action.node] = step_no
+                if not action.proactive:
+                    # proactive actions skip the node cooldown: if the
+                    # incident still develops, the reactive track must be
+                    # free to respond (uid_cooldown prevents ping-pong)
+                    self._last_acted[action.node] = step_no
                 self._pending.pop(action.node, None)
+                self._pending_pro.pop(action.node, None)
                 uid = getattr(action, "uid", -1)
                 if uid >= 0:
                     self._uid_last_acted[uid] = step_no
-            for node in {a.node for a in applied}:
+                if rec:
+                    rec.emit(ActionExecuted(
+                        action=action.kind, action_id=action.action_id,
+                        node=action.node, uid=uid,
+                        dst=getattr(action, "dst", -1),
+                        proactive=action.proactive,
+                        pre_runqlat=action.pre_runqlat,
+                        predicted_reduction=action.predicted_reduction))
+            for node in {a.node for a in applied if not a.proactive}:
                 self._verify_sig[node] = self._node_signature(cluster, node)
-        if hot.any() or applied or verified:
+        if hot.any() or pro.any() or applied or verified:
             self.history.append({
                 "step": step_no,
-                "window": step_no - 1,
+                "window": rec.window if rec else step_no - 1,
                 "t": float(view.t),
                 "hot_nodes": np.nonzero(hot)[0].tolist(),
+                "proactive_nodes": np.nonzero(pro)[0].tolist(),
                 "hot_slots": self.detector.hot_slots(),
                 "applied": [a.describe() for a in applied],
                 "verified": verified,
             })
         return applied
+
+    def _emit_hotspots(self, hot: np.ndarray, pro: np.ndarray) -> None:
+        """One HotspotFlag per flagged node from the detector's host
+        diagnostics (``cusum`` / ``f_cusum`` are the pre-consumption trip
+        values: a flag zeroes the live accumulators)."""
+        rec = self._recorder
+        diag = self.detector.last_diag
+        slots = self.detector.hot_slots()
+        scores = self.detector.slot_scores
+        for node in np.nonzero(hot | pro)[0]:
+            node = int(node)
+            if pro[node]:
+                channel = "forecast"
+            elif diag["drift_hot"][node]:
+                channel = "drift"
+            else:
+                channel = "acute"
+            slot = slots.get(node, -1)
+            rec.emit(HotspotFlag(
+                node=node, channel=channel,
+                avg=float(diag["avg"][node]), mu=float(diag["mu"][node]),
+                p_tail=float(diag["p_tail"][node]),
+                cusum=float(diag["cusum_trip"][node]),
+                f_cusum=float(diag["f_cusum_trip"][node]),
+                slot=slot,
+                slot_score=float(scores[node, slot]) if slot >= 0 else 0.0,
+            ))
 
     def run(self, cluster, num_ticks: int, k: int | None = None
             ) -> ControlStats:
@@ -300,10 +458,12 @@ class ControlLoop:
 
         Progress is read from the cluster's clock (rollout rounds up to
         CHUNK multiples); a rollout that advances it by zero ticks raises
-        instead of spinning forever.
+        instead of spinning forever.  With a recorder, each rollout opens a
+        telemetry window and the window's phase times are emitted.
         """
         k = k or cluster.CHUNK
         done = 0
+        rec = self._recorder
         while done < num_ticks:
             t0 = cluster.t
             with self.timers.phase("rollout"):
@@ -316,7 +476,12 @@ class ControlLoop:
                     f"({done}/{num_ticks} ticks done): refusing to spin "
                     f"forever -- check num_ticks vs the cluster's chunking")
             done += progress
+            if rec:
+                rec.begin_window(cluster.t)
             self.step(cluster)
+            tw = self.timers.pop_window()
+            if rec and tw:
+                rec.emit(PhaseTimings(timings=tw))
         return self.stats
 
 
@@ -329,6 +494,8 @@ class ControlLoop:
 # source-side relief (evict / throttle).
 SCHEDULER_PROFILES: dict[str, ControlLoopConfig] = {
     "ICO": ControlLoopConfig(),
+    # ICO-F is ICO until the forecast gate opens: ICO's profile
+    "ICO-F": ControlLoopConfig(),
     "LQP": ControlLoopConfig(),
     "RR": ControlLoopConfig(
         uid_cooldown=8,

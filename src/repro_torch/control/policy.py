@@ -140,7 +140,7 @@ class MitigationPolicy:
 
     def plan(self, cluster, view, hot, exclude_uids=frozenset(),
              corrections=None, attribution=None, proactive=None,
-             forecast_pressure=None) -> list[Action]:
+             forecast_pressure=None, recorder=None) -> list[Action]:
         """view: the ``ClusterView`` telemetry snapshot.
         exclude_uids: pods recently acted on (per-pod anti-ping-pong).
         corrections: per-kind multiplicative calibration of
@@ -150,7 +150,10 @@ class MitigationPolicy:
             drift only: their candidates cost ``proactive_cost_scale`` and
             are tagged ``proactive=True``.
         forecast_pressure: optional (N,) forecast run-queue pressure at
-            which a proactive node's relief is priced.
+            which a proactive node's relief is priced (host values).
+        recorder: optional ``TraceRecorder``; each chosen action gets an
+            ``action_id`` and an ``ActionPlanned`` event recording the
+            greedy ranking it won (correction, net gain, rank).
         """
         hot = np.asarray(hot, bool)
         corrections = corrections or {}
@@ -189,6 +192,18 @@ class MitigationPolicy:
             spent += a.cost
             per_node[a.node] = per_node.get(a.node, 0) + 1
             used_uids.add(uid)
+        if recorder:
+            from repro_torch.obs import ActionPlanned
+
+            for rank, a in enumerate(chosen):
+                a.action_id = recorder.next_action_id()
+                recorder.emit(ActionPlanned(
+                    action=a.kind, action_id=a.action_id, node=a.node,
+                    uid=getattr(a, "uid", -1), dst=getattr(a, "dst", -1),
+                    cost=a.cost, predicted_reduction=a.predicted_reduction,
+                    correction=corrections.get(a.kind, 1.0),
+                    net_gain=net_gain(a), rank=rank, proactive=a.proactive,
+                ))
         return chosen
 
     def _candidates(self, cluster, view, node: int, hot: np.ndarray,

@@ -1,5 +1,5 @@
-"""Carry state, fitted predictors, detectors, views and model weights from
-the JAX package into the port.
+"""Carry state, fitted predictors, detectors, forecast fits, views and model
+weights from the JAX package into the port.
 
 Each function reads only attributes and numpy-convertible arrays of the
 object it is given, so this module imports nothing of ``repro`` or
@@ -17,6 +17,7 @@ import torch
 from repro_torch.cluster.state import ClusterState, FleetParams
 from repro_torch.cluster.view import ClusterView
 from repro_torch.control.detector import DetectorConfig, StreamingDetector
+from repro_torch.control.forecast import ForecastConfig, ForecastService
 from repro_torch.core.predictors import (
     SVR,
     LinearRegression,
@@ -139,7 +140,22 @@ def detector_from_numpy(det, *, device) -> StreamingDetector:
     return out
 
 
-_VIEW_DTYPES = {"on_active": torch.bool, "on_type": torch.int32}
+def forecast_service_from_numpy(state: dict, *, device, config=None,
+                                horizon: float = 6.0) -> ForecastService:
+    """A JAX ``ForecastService.state_dict()`` (numpy fits, cadence) -> a
+    port ``ForecastService`` on ``device``, warm-started exactly as JAX's
+    ``load_state_dict`` does (the clock of the last observation is not
+    carried).  ``config`` is a JAX or port ``ForecastConfig``."""
+    cfg = (None if config is None
+           else ForecastConfig(**dataclasses.asdict(config)))
+    svc = ForecastService(cfg, horizon, device=device)
+    svc.load_state_dict(state)
+    return svc
+
+
+_VIEW_DTYPES = {"on_active": torch.bool, "on_type": torch.int32,
+                "forecast_runqlat": torch.float64,
+                "forecast_rho": torch.float64, "forecast_trusted": torch.bool}
 _VIEW_HOST = ("t", "slot_uids", "node_class", "delay_base", "delay_scale",
               "rho_knee")
 
@@ -147,8 +163,8 @@ _VIEW_HOST = ("t", "slot_uids", "node_class", "delay_base", "delay_scale",
 def view_from_numpy(view, *, device, fleet=None) -> ClusterView:
     """A JAX ``ClusterView`` -> the port's.  Telemetry becomes tensors
     (float fields float32: the JAX float64 features are float32 values
-    widened, except the band masses, which round back to the same float32);
-    the uid map and float64 delay params stay numpy.  ``fleet`` is the
+    widened, except the band masses, which round back to the same float32;
+    the forecast projection stays float64); the uid map and float64 delay params stay numpy.  ``fleet`` is the
     port's ``Fleet`` to attach (the JAX view's fleet is not carried over).
     """
     kw = {}

@@ -9,10 +9,13 @@ LQP -- Low QPS Priority: the node with the lowest total online QPS.
 
 All honour ICO's feasibility thresholds and divide by each node's own
 capacity.  Dtypes follow the JAX package's numpy code: utilization in
-float32, HUP's score in float64 (its Eq. 3 term is float64).
+float32, HUP's score in float64 (its Eq. 3 term is float64).  With a
+``recorder`` attached each emits an ``AdmissionDecision`` holding the
+terms its own policy scored on (host copies).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.core.scheduler import SchedulerConfig
@@ -25,23 +28,43 @@ def _projected_utilization(pod, view, cfg: SchedulerConfig):
     return cpu, mem, feasible
 
 
+def _emit_admission(scheduler, pod, best: int, breakdown: dict) -> None:
+    """The baselines' AdmissionDecision; tensors come to the host."""
+    from repro_torch.obs import AdmissionDecision
+
+    scheduler.recorder.emit(AdmissionDecision(
+        scheduler=scheduler.name, workload=pod.workload, qps=float(pod.qps),
+        online=bool(pod.is_online), cpu_demand=float(pod.cpu_demand),
+        mem_demand=float(pod.mem_demand), chosen=int(best),
+        breakdown={k: v.cpu().numpy() if isinstance(v, torch.Tensor) else v
+                   for k, v in breakdown.items()},
+    ))
+
+
 class RoundRobinScheduler:
     name = "RR"
 
     def __init__(self, config: SchedulerConfig | None = None):
         self.cfg = config or SchedulerConfig()
         self._next = 0
+        self.recorder = None
 
     def select_node(self, pod, view) -> int:
+        rotation_start = self._next
         _, _, feasible = _projected_utilization(pod, view, self.cfg)
         feasible = feasible.cpu().numpy()
         n = feasible.shape[0]
+        best = -1
         for k in range(n):
             idx = (self._next + k) % n
             if feasible[idx]:
                 self._next = (idx + 1) % n
-                return int(idx)
-        return -1
+                best = int(idx)
+                break
+        if self.recorder:
+            _emit_admission(self, pod, best, {
+                "feasible": feasible, "rotation_start": rotation_start})
+        return best
 
 
 class HUPScheduler:
@@ -52,6 +75,7 @@ class HUPScheduler:
     def __init__(self, quantifier, config: SchedulerConfig | None = None):
         self.q = quantifier
         self.cfg = config or SchedulerConfig()
+        self.recorder = None
 
     def select_node(self, pod, view) -> int:
         cpu, mem, feasible = _projected_utilization(pod, view, self.cfg)
@@ -60,7 +84,12 @@ class HUPScheduler:
         score = cpu * mem - intf_h - intf_p  # Eq. (7)
         score = torch.where(feasible, score, -torch.inf)
         best = int(torch.argmax(score))
-        return best if bool(torch.isfinite(score[best])) else -1
+        best = best if bool(torch.isfinite(score[best])) else -1
+        if self.recorder:
+            _emit_admission(self, pod, best, {
+                "utiliz_cpu": cpu, "utiliz_mem": mem, "intf_h": intf_h,
+                "intf_p": intf_p, "feasible": feasible, "score": score})
+        return best
 
 
 class LQPScheduler:
@@ -70,9 +99,14 @@ class LQPScheduler:
 
     def __init__(self, config: SchedulerConfig | None = None):
         self.cfg = config or SchedulerConfig()
+        self.recorder = None
 
     def select_node(self, pod, view) -> int:
         _, _, feasible = _projected_utilization(pod, view, self.cfg)
         qps = torch.where(feasible, view.online_qps_sum.double(), torch.inf)
         best = int(torch.argmin(qps))
-        return best if bool(torch.isfinite(qps[best])) else -1
+        best = best if bool(torch.isfinite(qps[best])) else -1
+        if self.recorder:
+            _emit_admission(self, pod, best, {
+                "online_qps_sum": qps, "feasible": feasible})
+        return best

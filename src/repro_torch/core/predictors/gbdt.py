@@ -88,5 +88,6 @@ class XGBRegressor:
     def predict(self, X) -> torch.Tensor:
         """(N, F) rows (tensor or array) -> (N,) float32 predictions."""
         X = torch.as_tensor(X, dtype=torch.float32, device=self.device)
-        return (T.forest_predict(self.forest, X, self.max_depth).sum(0)
+        return (T.tree_rows(T.forest_predict(self.forest, X,
+                                             self.max_depth)).sum(-1)
                 + self.base)

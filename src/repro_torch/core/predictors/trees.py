@@ -170,3 +170,13 @@ def forest_predict(forest: dict, X: torch.Tensor, max_depth: int
         nxt = torch.where(go_left, left.gather(1, idx), right.gather(1, idx))
         idx = torch.where(f < 0, idx, nxt)
     return forest["value"].gather(1, idx)
+
+
+def tree_rows(preds: torch.Tensor) -> torch.Tensor:
+    """A (T, N) prediction as contiguous (N, T) rows, to reduce over the
+    trees along the last axis: every row then takes the same order of
+    additions, so identical rows get identical results, as in XLA's
+    reduce.  Over axis 0 of the (T, N) layout the CPU's trailing columns
+    take another vector path, so two nodes with the same leaves could
+    differ by an ulp and break ICO's argmax ties unlike JAX."""
+    return preds.t().contiguous()

@@ -4,18 +4,31 @@
     utiliz_cpu_h = (cpu_cur_h + w_d * cpu_pod) / cpu_sum_h                    (5)
     utiliz_mem_h = (mem_cur_h + w_e * mem_pod) / mem_sum_h                    (6)
 
-Port of ``repro.core.scheduler`` (ICO; ICO-F waits for the control-plane
-slice).  Nodes over the thresholds (CPU > 0.70, MEM > 0.80) are excluded;
-the best score wins and -1 means no feasible node.  Scoring runs on the
-view's device.  Past ``SchedulerConfig.candidate_k`` nodes the top-k
-prefilter (``repro_torch.cluster.fleet.topk_candidates``) picks the
-candidates and the interference terms run on only those.
+Port of ``repro.core.scheduler``.  Nodes over the thresholds (CPU > 0.70,
+MEM > 0.80) are excluded; the best score wins and -1 means no feasible
+node.  Scoring runs on the view's device.  Past
+``SchedulerConfig.candidate_k`` nodes the top-k prefilter
+(``repro_torch.cluster.fleet.topk_candidates``) picks the candidates and
+the interference terms run on only those.
+
+``ICOFScheduler`` ("ICO-F") adds the projected node runqlat drift of a
+view that ``ForecastService.annotate`` filled to ``intf_h``: the same
+projection, trust gate and ``rho_cap`` clamp the mitigation loop prices
+relief with.  Without an annotation, or on nodes with no trusted pod, it
+scores exactly as ICO.
+
+With a ``recorder`` attached, ``select_node`` emits an
+``AdmissionDecision`` with the per-node Eq. (4)-(6) terms, computed on the
+host in numpy from the same view as the JAX package computes them.
 """
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
+
+from repro_torch.core.interference import INTF_NORM
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,12 +73,18 @@ class ICOScheduler:
     def __init__(self, quantifier, config: SchedulerConfig | None = None):
         self.q = quantifier
         self.cfg = config or SchedulerConfig()
+        self.recorder = None  # optional TraceRecorder: AdmissionDecision
+                              # events with the Eq. (4)-(6) breakdown
 
     def _interference(self, pod, view):
-        """(intf_h, intf_p) for Eq. (4)."""
+        """(intf_h, intf_p) for Eq. (4) -- the hook ICO-F augments."""
         intf_h = self.q.intf_nodes(view.online_hists, view.offline_hists)
         intf_p = self.q.intf_pod(pod.qps, view.features)
         return intf_h, intf_p
+
+    def _forecast_term(self, view):
+        """Per-node forecast addend to ``intf_h`` (None for plain ICO)."""
+        return None
 
     def _score(self, pod, view):
         if view.num_nodes > self.cfg.candidate_k:
@@ -112,9 +131,83 @@ class ICOScheduler:
         pod: object with .qps, .cpu_demand, .mem_demand.
         view: ``repro_torch.cluster.view.ClusterView``.
         """
-        best, _ = self._score(pod, view)
+        best, score = self._score(pod, view)
+        if self.recorder:
+            self.recorder.emit(self._admission_event(
+                pod, view, score.cpu().numpy(), int(best)))
         return int(best)
 
     def scores(self, pod, view) -> torch.Tensor:
         _, score = self._score(pod, view)
         return score
+
+    def _admission_event(self, pod, view, score: np.ndarray, best: int):
+        """The AdmissionDecision with the Eq. (4)-(6) term breakdown over
+        every node of ``view``, recomputed in numpy from the view's host
+        copies (so ``explain`` reproduces the score from the trace alone)."""
+        from repro_torch.obs import AdmissionDecision
+
+        cfg = self.cfg
+        cpu_sum = view.cpu_sum.cpu().numpy().astype(np.float64)
+        mem_sum = view.mem_sum.cpu().numpy().astype(np.float64)
+        utiliz_cpu = (view.cpu_cur.cpu().numpy()
+                      + cfg.w_d * pod.cpu_demand) / cpu_sum
+        utiliz_mem = (view.mem_cur.cpu().numpy()
+                      + cfg.w_e * pod.mem_demand) / mem_sum
+        feasible = ((utiliz_cpu <= cfg.cpu_threshold)
+                    & (utiliz_mem <= cfg.mem_threshold))
+        intf_h, intf_p = self._interference(pod, view)
+        breakdown = {
+            "utiliz_cpu": utiliz_cpu,
+            "utiliz_mem": utiliz_mem,
+            "intf_h": intf_h.cpu().numpy(),
+            "intf_p": intf_p.cpu().numpy(),
+            "feasible": feasible,
+            "score": score,
+        }
+        fterm = self._forecast_term(view)
+        if fterm is not None:
+            # intf_h above already holds ICO-F's addend: split it back out
+            # so the stored terms decompose the score once
+            breakdown["forecast_term"] = fterm.cpu().numpy()
+            breakdown["intf_h"] = (breakdown["intf_h"]
+                                   - breakdown["forecast_term"])
+        return AdmissionDecision(
+            scheduler=self.name, workload=pod.workload, qps=float(pod.qps),
+            online=bool(pod.is_online), cpu_demand=float(pod.cpu_demand),
+            mem_demand=float(pod.mem_demand), chosen=best,
+            breakdown=breakdown,
+        )
+
+
+class ICOFScheduler(ICOScheduler):
+    """ICO-F: Algorithm 1 scoring on projected contention.
+
+    ``intf_h`` gains ``w_f * forecast_drift / OVERFLOW_EDGE`` (float64, as
+    JAX's numpy adds it to the float32 term before the float32 scorer):
+    the node runqlat increase the shared projection expects ``horizon``
+    windows ahead.  A view without an annotation gives ``forecast_drift()
+    is None`` and the score is ICO's term for term.
+    """
+
+    name = "ICO-F"
+
+    def __init__(self, quantifier, config: SchedulerConfig | None = None,
+                 w_f: float = 1.0):
+        super().__init__(quantifier, config)
+        if not w_f > 0.0:
+            raise ValueError("w_f must be > 0 (use ICOScheduler to disable)")
+        self.w_f = w_f
+
+    def _interference(self, pod, view):
+        intf_h, intf_p = super()._interference(pod, view)
+        fterm = self._forecast_term(view)
+        if fterm is not None:
+            intf_h = intf_h.double() + fterm
+        return intf_h, intf_p
+
+    def _forecast_term(self, view):
+        drift = view.forecast_drift()
+        if drift is None:
+            return None
+        return self.w_f * INTF_NORM * drift

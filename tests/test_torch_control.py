@@ -13,6 +13,7 @@ from repro.cluster import experiment as jexp
 from repro.cluster.dataset import generate_latency_dataset as jdata
 from repro.cluster.simulator import Cluster as JCluster
 from repro.control import ControlLoop as JLoop
+from repro.control import ForecastConfig as JForecastConfig
 from repro.control import MitigationPolicy as JPolicy
 from repro.control import StreamingDetector as JDetector
 from repro.control import scheduler_loop_config as jprofile
@@ -30,6 +31,8 @@ from repro_torch.control import (
     ControlStats,
     DetectorConfig,
     EvictOffline,
+    ForecastConfig,
+    ForecastService,
     MigrateOnline,
     MitigationPolicy,
     PolicyConfig,
@@ -42,8 +45,9 @@ from repro_torch.convert import detector_from_numpy, forest_from_numpy
 from repro_torch.core import metric
 from repro_torch.core.baselines import RoundRobinScheduler as TRR
 from repro_torch.core.interference import InterferenceQuantifier
+from repro_torch.core.scheduler import ICOFScheduler
 from repro_torch.core.scheduler import ICOScheduler as TICO
-from repro_torch.obs import PhaseTimers
+from repro_torch.obs import PhaseTimers, TraceRecorder
 from test_torch_noise import assert_state_equal, jax_noise_stream
 
 CPU = torch.device("cpu")
@@ -737,8 +741,10 @@ def test_loop_run_interleaves_rollout_and_control():
 def test_scheduler_profiles_match_jax():
     """Invariant: RR and HUP keep source relief only
     (``destination_actions=False``); every profile equals JAX's."""
-    for name in ("ICO", "RR", "HUP", "LQP", "unknown"):
-        got, want = scheduler_loop_config(name), jprofile(name)
+    for name, pro in [(n, p) for n in ("ICO", "ICO-F", "RR", "HUP", "LQP",
+                                       "unknown") for p in (False, True)]:
+        got, want = scheduler_loop_config(name, pro), jprofile(name, pro)
+        assert got.proactive == pro
         for f in dataclasses.fields(got):
             g, w = getattr(got, f.name), getattr(want, f.name)
             if dataclasses.is_dataclass(g):
@@ -751,20 +757,58 @@ def test_scheduler_profiles_match_jax():
     assert scheduler_loop_config("unknown") == ControlLoopConfig()
 
 
-def test_refusals_name_the_next_slice():
+def _run_small(**kw):
+    pods, gaps = texp.bursty_trace(num_online=5, num_bursts=1,
+                                   jobs_per_burst=2, seed=1)
+    return pods, texp.run_experiment(
+        kw.pop("sched", TICO(_cheap_quantifier())), pods, gaps, num_nodes=6,
+        seed=3, settle_ticks=10, control_window=20, device=CPU, **kw)
+
+
+@pytest.mark.parametrize("call", [
+    "proactive_loop", "proactive_profile", "forecast_service", "recorder",
+    "run_experiment_forecast", "run_experiment_recorder",
+    "make_schedulers_forecast"])
+def test_formerly_refused_calls_now_run(call):
+    """The calls the reactive slice refused run now (each is held to JAX by
+    the parity tests of ``test_torch_forecast`` / ``test_torch_obs`` and
+    the proactive run below)."""
     q = _cheap_quantifier()
-    with pytest.raises(NotImplementedError, match="proactive"):
-        ControlLoop(q, ControlLoopConfig(proactive=True))
-    with pytest.raises(NotImplementedError, match="proactive"):
-        ControlLoop(q, scheduler_loop_config("ICO", proactive=True))
-    with pytest.raises(NotImplementedError, match="forecast_service"):
-        ControlLoop(q, forecast_service=object())
-    with pytest.raises(NotImplementedError, match="recorder"):
-        ControlLoop(q, recorder=object())
-    pods, gaps = texp.bursty_trace(num_online=2, num_bursts=0, seed=0)
-    with pytest.raises(NotImplementedError, match="forecast"):
-        texp.run_experiment(TRR(), pods, gaps, device=CPU,
-                            forecast=object())
+    if call in ("proactive_loop", "proactive_profile"):
+        cfg = (ControlLoopConfig(proactive=True) if call == "proactive_loop"
+               else scheduler_loop_config("ICO", proactive=True))
+        loop = ControlLoop(q, cfg)
+        c = _overloaded_cluster()
+        for _ in range(3):
+            c.rollout(10)
+            loop.step(c)
+        assert loop.forecast_service.device == c.device
+        assert int(loop.forecaster.count.sum()) > 0
+    elif call == "forecast_service":
+        svc = ForecastService(device=CPU)
+        loop = ControlLoop(q, ControlLoopConfig(proactive=True),
+                           forecast_service=svc)
+        _, r = _run_small(control_loop=loop, forecast=svc)
+        assert loop.forecast_service is svc and svc.forecaster is not None
+        assert r.proactive_mitigations <= r.mitigations
+    elif call == "recorder":
+        rec = TraceRecorder()
+        loop = ControlLoop(q, recorder=rec)
+        loop.run(_overloaded_cluster(), num_ticks=60, k=20)
+        assert loop.recorder is rec and rec.query("hotspot")
+    elif call == "run_experiment_forecast":
+        svc = ForecastService(device=CPU)
+        pods, r = _run_small(sched=ICOFScheduler(q), forecast=lambda: svc)
+        assert r.placed + r.rejected == len(pods) and svc._dt is not None
+    elif call == "run_experiment_recorder":
+        rec = TraceRecorder()
+        pods, r = _run_small(recorder=rec, control_loop=ControlLoop(q))
+        assert r.placed == len(rec.query("admission", placed=True))
+        assert rec.query("phase_timings")
+    else:
+        scheds = texp.make_schedulers(_CheapPredictor(), forecast=True)
+        assert list(scheds) == ["ICO", "RR", "HUP", "LQP", "ICO-F"]
+        assert isinstance(scheds["ICO-F"], ICOFScheduler)
 
 
 # ---------------- the controlled experiment ----------------
@@ -894,3 +938,110 @@ def test_compare_schedulers_threads_a_loop_per_scheduler():
         assert np.isfinite(r.p99_rt) and r.mitigations >= 0
         assert r.placed + r.rejected == len(pods)
         assert np.isfinite([r.predicted_reduction, r.realized_reduction]).all()
+
+
+# ---------------- the proactive channel ----------------
+
+def _proactive_runs():
+    """JAX's and the port's proactive ICO runs (the loop owns its service)
+    on a half-day 12-node trace, JAX's draws injected.  The leverage gate
+    is widened (``max_leverage`` 1.0) in both, so that it opens within the
+    trace."""
+    pods, gaps = jexp.bursty_trace(num_online=14, seed=3, burst_gap=(40, 70),
+                                   days=0.5)
+    jq = JQuant(lambda X: np.full(np.asarray(X).shape[0], 0.1))
+    jcfg = dataclasses.replace(jprofile("ICO", proactive=True),
+                               forecast=JForecastConfig(max_leverage=1.0))
+    jloop = JLoop(jq, jcfg)
+    want = jexp.run_experiment(JICO(jq), pods, gaps, num_nodes=12, seed=3,
+                               control_loop=jloop, control_window=40)
+    tq = InterferenceQuantifier(lambda X: torch.full((X.shape[0],), 0.1))
+    tcfg = dataclasses.replace(scheduler_loop_config("ICO", proactive=True),
+                               forecast=ForecastConfig(max_leverage=1.0))
+    tloop = ControlLoop(tq, tcfg)
+    got = texp.run_experiment(TICO(tq), pods, gaps, num_nodes=12, seed=3,
+                              control_loop=tloop, control_window=40,
+                              device=CPU, noise=jax_noise_stream(3, 12))
+    return want, got, jloop, tloop
+
+
+def test_proactive_run_matches_jax():
+    want, got, jloop, tloop = _proactive_runs()
+    for f in ("placed", "rejected", "queued_retries", "mitigations",
+              "proactive_mitigations"):
+        assert getattr(got, f) == getattr(want, f), f
+    for f in ("avg_rt", "p90_rt", "p99_rt", "predicted_reduction",
+              "realized_reduction"):
+        assert getattr(got, f) == pytest.approx(getattr(want, f), rel=1e-4), f
+    js, ts = jloop.stats, tloop.stats
+    for f in ("steps", "hotspots_flagged", "proactive_flagged",
+              "actions_applied", "proactive_applied", "actions_verified",
+              "verifications_discarded", "by_kind"):
+        assert getattr(ts, f) == getattr(js, f), f
+    assert ts.proactive_applied > 0
+    assert ([h["proactive_nodes"] for h in tloop.history]
+            == [h["proactive_nodes"] for h in jloop.history])
+    assert tloop.forecaster.calibration_error() == pytest.approx(
+        jloop.forecaster.calibration_error(), rel=1e-4)
+    assert "forecast" in tloop.timers.totals
+
+
+def test_compare_schedulers_forecast_adds_icof():
+    """forecast=True adds ICO-F with a per-run service; on a short trace the
+    gate never opens, so ICO-F's run is ICO's."""
+    pods, gaps = texp.bursty_trace(num_online=5, num_bursts=1,
+                                   jobs_per_burst=2, seed=1)
+    res = texp.compare_schedulers(num_nodes=6, seed=3,
+                                  predictor=_CheapPredictor(), forecast=True,
+                                  trace=(pods, gaps), control_window=20,
+                                  device=CPU)
+    assert list(res) == ["ICO", "RR", "HUP", "LQP", "ICO-F"]
+    assert res["ICO-F"].p99_rt == res["ICO"].p99_rt
+    assert res["ICO-F"].placed == res["ICO"].placed
+    assert scheduler_loop_config("ICO-F").policy.destination_actions
+
+
+def test_compare_schedulers_proactive_shares_a_service():
+    pods, gaps = texp.bursty_trace(num_online=5, num_bursts=1,
+                                   jobs_per_burst=2, seed=1)
+    res = texp.compare_schedulers(num_nodes=6, seed=3,
+                                  predictor=_CheapPredictor(), control=True,
+                                  proactive=True, forecast=True,
+                                  trace=(pods, gaps), control_window=20,
+                                  device=CPU)
+    assert set(res) == {"ICO", "ICO-F", "RR", "HUP", "LQP"}
+    for r in res.values():
+        assert r.placed + r.rejected == len(pods) and np.isfinite(r.p99_rt)
+        assert 0 <= r.proactive_mitigations <= r.mitigations
+
+
+def test_loop_proactive_smoke_and_stats():
+    c = _overloaded_cluster()
+    loop = ControlLoop(_cheap_quantifier(), ControlLoopConfig(proactive=True))
+    for _ in range(8):
+        c.rollout(10)
+        loop.step(c)
+    s = loop.stats
+    assert s.actions_applied > 0
+    assert 0 <= s.proactive_applied <= s.actions_applied
+    assert loop.forecaster is not None and loop.forecaster.last_pred is not None
+    cal = loop.forecaster.calibration_error()
+    assert np.isnan(cal) or cal >= 0
+    for h in loop.history:
+        assert "proactive_nodes" in h
+
+
+def test_run_experiment_threads_proactive_counters():
+    loop = ControlLoop(_cheap_quantifier(), ControlLoopConfig(proactive=True))
+    _, r = _run_small(control_loop=loop)
+    assert r.proactive_mitigations == loop.stats.proactive_applied
+    assert r.proactive_mitigations <= r.mitigations and np.isfinite(r.p99_rt)
+
+
+def test_core_reexports_control_api():
+    import repro_torch.core as core
+
+    assert core.ControlLoop is ControlLoop
+    assert core.ControlLoopConfig is ControlLoopConfig
+    with pytest.raises(AttributeError):
+        core.definitely_not_a_symbol

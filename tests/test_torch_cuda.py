@@ -638,3 +638,131 @@ def test_small_rwkv_serve_run_goes_through_the_wkv_kernel(card):
     assert stats["finished"] == 4
     assert all(len(r.tokens) == 4 for r in eng.finished)
     assert WKV.launches - before == cfg.num_layers
+
+
+# ---------------- the forecast slice and the recorder on the card ---------
+
+def _diurnal_stream(n, s, windows, seed):
+    rng = np.random.default_rng(seed)
+    mean = rng.uniform(100, 600, (n, s))
+    phase = rng.uniform(0, 2 * np.pi, (n, s))
+    active = rng.uniform(size=(n, s)) < 0.8
+    for k in range(windows):
+        t = 30.0 + 40.0 * k
+        qps = mean * (1 + 0.35 * np.sin(2 * np.pi * t / 2880.0 + phase)
+                      + 0.03 * rng.standard_normal((n, s)))
+        yield t, qps.astype(np.float32), active
+
+
+def _forecast_view(t, qps, active, device):
+    from repro_torch.cluster.view import ClusterView
+
+    n, s = qps.shape
+    hists = torch.zeros((n, s + 2, 200))
+    hists[:, 0, 6] = 64.0
+    return ClusterView(
+        t=t, online_qps=torch.as_tensor(qps, device=device),
+        on_active=torch.as_tensor(active, device=device),
+        on_type=(torch.arange(n * s).reshape(n, s) % 4).int().to(device),
+        off_pressure=torch.linspace(0, 10, n, device=device),
+        cpu_sum=torch.full((n,), 32.0, device=device),
+        slot_hists=hists.to(device),
+        slot_uids=np.arange(n * (s + 2)).reshape(n, s + 2))
+
+
+@pytest.mark.cuda
+def test_forecaster_and_service_on_the_card_equal_the_cpu(card):
+    from repro_torch.control import ForecastService, QPSForecaster
+
+    cpu = torch.device("cpu")
+    n, s = 64, 4
+    fc = {d: QPSForecaster(n, s, device=d) for d in (card, cpu)}
+    svc = {d: ForecastService(device=d) for d in (card, cpu)}
+    for t, qps, active in _diurnal_stream(n, s, 90, seed=1):
+        for d in (card, cpu):
+            fc[d].update(t, qps, active)
+            svc[d].observe(_forecast_view(t, qps, active, d))
+    g, c = fc[card], fc[cpu]
+    # the card's sin / cos differ from the CPU's by ulps; summed over 90
+    # windows a moment whose terms cancel keeps that absolute error, so
+    # each moment is held relative to its own scale
+    for k in ("A", "b", "err"):
+        want = getattr(c, k)
+        torch.testing.assert_close(getattr(g, k).cpu(), want, rtol=1e-5,
+                                   atol=1e-6 * float(want.abs().max()))
+    assert torch.equal(g.count.cpu(), c.count)
+    assert torch.equal(g.confidence(t + 240.0).cpu(), c.confidence(t + 240.0))
+    pg = svc[card].project(_forecast_view(t, qps, active, card))
+    pc = svc[cpu].project(_forecast_view(t, qps, active, cpu))
+    assert pc.trusted.any()
+    assert torch.equal(pg.trusted.cpu(), pc.trusted)
+    for k in ("runqlat", "rho", "delta"):
+        torch.testing.assert_close(getattr(pg, k).cpu(), getattr(pc, k),
+                                   rtol=1e-4, atol=1e-3)
+    assert svc[card].forecaster.A.device.type == "cuda"
+
+
+@pytest.mark.cuda
+def test_icof_topk_scores_on_the_card_equal_the_cpu(card):
+    from repro_torch.cluster.view import ClusterView
+    from repro_torch.core import (
+        ICOFScheduler,
+        InterferenceQuantifier,
+        SchedulerConfig,
+    )
+
+    n = 300
+    g = torch.Generator().manual_seed(4)
+    hists = torch.zeros((n, 2, 200))
+    hists[torch.arange(n), 0, torch.randint(5, 60, (n,), generator=g)] = 50
+    fields = dict(
+        cpu_cur=torch.rand(n, generator=g) * 20, cpu_sum=torch.full((n,), 32.0),
+        mem_cur=torch.rand(n, generator=g) * 40, mem_sum=torch.full((n,), 64.0),
+        online_hists=hists, offline_hists=torch.zeros((n, 2, 200)),
+        features=torch.rand((n, 45), generator=g) * 300,
+        forecast_trusted=torch.rand(n, generator=g) < 0.6)
+    views = {}
+    for d in (card, torch.device("cpu")):
+        v = ClusterView(**{k: x.to(d) for k, x in fields.items()})
+        v.forecast_runqlat = (v.node_runqlat_avg().double()
+                              + (torch.rand(n, generator=g.manual_seed(9))
+                                 * 400).double().to(d))
+        views[d.type] = v
+    sched = ICOFScheduler(InterferenceQuantifier(lambda X: X[:, 21]),
+                          SchedulerConfig(candidate_k=64), w_f=2.0)
+    pod = Pod("web_search", 250.0, True)
+    pod.cpu_demand, pod.mem_demand = 3.0, 4.0
+    got = sched.scores(pod, views["cuda"]).cpu()
+    want = sched.scores(pod, views["cpu"])
+    assert torch.equal(torch.isfinite(got), torch.isfinite(want))
+    fin = torch.isfinite(want)
+    assert int(fin.sum()) == 64
+    torch.testing.assert_close(got[fin], want[fin], rtol=1e-5, atol=1e-6)
+    assert (sched.select_node(pod, views["cuda"])
+            == sched.select_node(pod, views["cpu"]))
+
+
+@pytest.mark.cuda
+def test_recorder_off_run_equals_no_recorder_run_on_the_card(card):
+    from repro_torch.cluster.experiment import bursty_trace, run_experiment
+    from repro_torch.control import ControlLoop, ControlLoopConfig
+    from repro_torch.core import ICOScheduler, InterferenceQuantifier
+    from repro_torch.obs import NULL_RECORDER, TraceRecorder
+
+    pods, gaps = bursty_trace(num_online=8, num_bursts=2, jobs_per_burst=3,
+                              seed=5, burst_gap=(20, 30),
+                              job_duration=(60, 100))
+
+    def run(recorder):
+        q = InterferenceQuantifier(
+            lambda X: torch.full((X.shape[0],), 0.1, device=X.device))
+        return run_experiment(
+            ICOScheduler(q), pods, gaps, num_nodes=5, seed=5,
+            control_loop=ControlLoop(q, ControlLoopConfig(proactive=True)),
+            control_window=20, recorder=recorder, device=card)
+
+    off = run(None)
+    rec = TraceRecorder()
+    assert run(rec) == off
+    assert run(NULL_RECORDER) == off
+    assert len(rec.events) > 0

@@ -167,16 +167,53 @@ def _streaming_outputs(cfg):
     return pro, det.attribution().tolist()
 
 
+def _service_outputs(cfg):
+    """Gates and projection of a ForecastService for the fields only the
+    service reads: node 0's pod is fitted over most of a period (trusted,
+    its forecast pressure clamped), node 1's arrived late (its short arc
+    fails the leverage gate)."""
+    from repro_torch.cluster.view import ClusterView
+
+    svc = tfc.ForecastService(cfg, device="cpu")
+    rng = np.random.default_rng(0)
+    for k in range(60):
+        t = 30.0 + 40.0 * k
+        qps = 900.0 * (1 + 0.35 * np.sin(2 * np.pi * t / 2880.0 + 0.3)
+                       + 0.02 * rng.standard_normal(2))
+        hists = torch.zeros((2, 1, 200))
+        hists[:, 0, 4] = 64.0
+        view = ClusterView(
+            t=t, online_qps=torch.tensor(qps[:, None], dtype=torch.float32),
+            on_active=torch.tensor([[True], [k >= 50]]),
+            on_type=torch.zeros((2, 1), dtype=torch.int32),
+            off_pressure=torch.zeros(2), cpu_sum=torch.full((2,), 32.0),
+            slot_hists=hists, slot_uids=np.zeros((2, 1), np.int64))
+        svc.observe(view)
+    svc.horizon = 30.0
+    proj = svc.project(view)
+    gated = (proj.delta >= cfg.min_predicted_drift).tolist()
+    return (proj.trusted.tolist(), proj.rho.tolist(), proj.delta.tolist(),
+            gated)
+
+
+# a value of each service-only field that must change _service_outputs
+_SERVICE_PROBES = {"min_windows": 1000, "max_rel_err": 1e-3,
+                   "max_leverage": 5.0, "rho_cap": 5.0,
+                   "min_predicted_drift": 1e4}
+
+
 def test_detector_config_matches_jax():
     """Each field of the port's configs has JAX's default and changes what
-    ``fold_configs`` hands the window scan or, for the two fields only the
-    streaming detector reads, what that detector flags and attributes (no
+    ``fold_configs`` hands the window scan or, for the fields only the
+    streaming detector or the forecast service reads, what that detector
+    flags and attributes or what the service projects and passes on (no
     field is inert)."""
     assert ([f.name for f in dataclasses.fields(tdet.DetectorConfig)]
             == [f.name for f in dataclasses.fields(jdet.DetectorConfig)])
     streaming_only = {"proactive_threshold", "attribution_floor"}
     base = tstate.fold_configs()
     base_streaming = _streaming_outputs(tdet.DetectorConfig())
+    base_service = _service_outputs(tfc.ForecastConfig())
     for i, (port_cls, jax_cfg) in enumerate(
             ((tdet.DetectorConfig, jdet.DetectorConfig()),
              (tfc.ForecastConfig, jfc.ForecastConfig()))):
@@ -186,6 +223,10 @@ def test_detector_config_matches_jax():
             if f.name in streaming_only:
                 cfg = port_cls(**{f.name: default * 8})
                 assert _streaming_outputs(cfg) != base_streaming, f.name
+                continue
+            if f.name in _SERVICE_PROBES:
+                cfg = port_cls(**{f.name: _SERVICE_PROBES[f.name]})
+                assert _service_outputs(cfg) != base_service, f.name
                 continue
             cfg = port_cls(**{f.name: default + 1})
             got = tstate.fold_configs(**{("det_cfg", "fc_cfg")[i]: cfg})

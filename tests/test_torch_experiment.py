@@ -102,11 +102,28 @@ def test_dataset_and_default_predictor_on_cpu():
 
 
 def test_run_experiment_refuses_a_recorder(forests):
-    _, trf = forests
-    pods, gaps = jexp._arrival_trace(2, seed=0)
-    with pytest.raises(NotImplementedError):
-        texp.run_experiment(TICO(TQuant(trf.predict)), pods, gaps,
-                            device="cpu", recorder=object())
+    """Named for the refusal it held while the trace recorder was not
+    ported; now ``run_experiment(recorder=)`` takes one, only observes (the
+    run equals an untraced one), and records JAX's admissions."""
+    from repro.obs import TraceRecorder as JRecorder
+    from repro_torch.obs import TraceRecorder
+
+    jrf, trf = forests
+    pods, gaps = jexp._arrival_trace(6, seed=0)
+    kw = dict(num_nodes=6, seed=3, device="cpu")
+    rec = TraceRecorder()
+    traced = texp.run_experiment(TICO(TQuant(trf.predict)), pods, gaps,
+                                 recorder=rec, noise=jax_noise_stream(3, 6),
+                                 **kw)
+    plain = texp.run_experiment(TICO(TQuant(trf.predict)), pods, gaps,
+                                noise=jax_noise_stream(3, 6), **kw)
+    assert traced == plain
+    jrec = JRecorder()
+    jexp.run_experiment(JICO(JQuant(jrf.predict)), pods, gaps, num_nodes=6,
+                        seed=3, recorder=jrec)
+    got, want = rec.query("admission"), jrec.query("admission")
+    assert [(e.chosen, e.uid, e.placed) for e in got] == \
+        [(e.chosen, e.uid, e.placed) for e in want]
 
 
 def test_bursty_trace_matches_jax():
@@ -116,3 +133,24 @@ def test_bursty_trace_matches_jax():
         assert tg == jg
         assert [dataclasses.astuple(p) for p in tp] == \
             [dataclasses.astuple(p) for p in jp]
+
+
+@pytest.mark.parametrize("n_rows", [6, 37])
+def test_forest_prediction_is_row_independent_as_jax(forests, n_rows):
+    """Identical feature rows (fresh, empty nodes) get identical
+    predictions, bit for bit JAX's for this 8-tree forest, so ICO breaks
+    argmax ties as JAX does.  Reduced over axis 0 of the (trees, rows)
+    layout, the CPU's trailing rows took another vector path and came out
+    an ulp apart."""
+    from repro_torch.core.predictors import trees as T
+
+    jrf, trf = forests
+    rng = np.random.default_rng(n_rows)
+    X = rng.uniform(0, 1, (n_rows, 45)).astype(np.float32) * 300
+    X[n_rows // 2:] = X[0]
+    got = trf.predict(torch.as_tensor(X)).numpy()
+    np.testing.assert_array_equal(got, np.asarray(jrf.predict(X)))
+    assert len(set(got[n_rows // 2:].tolist())) == 1 and got[0] == got[-1]
+    leaves = T.forest_predict(trf.forest, torch.as_tensor(X), trf.max_depth)
+    assert T.tree_rows(leaves).is_contiguous()
+    assert torch.equal(T.tree_rows(leaves), leaves.t())

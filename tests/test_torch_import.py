@@ -28,6 +28,12 @@ def test_every_port_module_imports_without_jax_or_repro():
     for mod in ("repro_torch.kernels.rollout_tick",
                 "repro_torch.control.detector",
                 "repro_torch.control.forecast",
+                "repro_torch.control.loop",
+                "repro_torch.cluster.trace",
+                "repro_torch.cluster.view",
+                "repro_torch.obs.events",
+                "repro_torch.obs.recorder",
+                "repro_torch.obs.explain",
                 "repro_torch.kernels.flash_attention",
                 "repro_torch.kernels.ssd",
                 "repro_torch.kernels.rwkv_wkv",
