@@ -118,7 +118,31 @@ Phases, each printed with its numbers and wall time:
     multiples of 64, the ``wkv`` count set to 0 before and read after (32
     launches per cohort, none at decode), the same checks (prefill +
     decode against the forward over a cohort's first 64 tokens) and
-    profiles.
+    profiles;
+22. ``flash_widths``: the SIMT flash kernel (``csrc/flash_attention.cu``)
+    against its plain version at every head width the wgmma kernel does
+    not take, in both dtypes (hd 8, 16, 80, 256 at B 2, S 1000, H 8 over
+    KV 4), and at gemma3-4b's prefill (B 4, S 2048, H 8 over 4, hd 256,
+    bf16) for its global layer (causal) and its local one (window 1,024),
+    each timed beside the plain version and SDPA;
+23-27. the same serving path (``SERVE_FAMILIES``) for gemma3-4b (full
+    depth, 3.88 B parameters, prompts of 1,025-2,048 tokens so that its
+    window binds), internlm2-20b and deepseek-coder-33b (full depth, 19.86
+    B and 33.34 B, ~40 GB and ~67 GB of bf16 weights), qwen3-moe-235b-a22b
+    (full width, 8 of 94 layers) and dbrx-132b (6 of 40), one flash launch
+    per layer per cohort and none at decode; before each, what earlier
+    phases hold on the card must be under 2 GB (phases 2-16 run inside
+    ``cluster_paths`` and release theirs when it returns).  The float32
+    kernel-vs-plain copy is the first two layers for the three large
+    models; an MoE's plain run is held to the kernel run's routing
+    (``PinnedRouting``), the tokens that would route otherwise reported;
+28. ``metric_pipeline``: ``benchmarks/bench_torch_metric_pipeline.py`` at
+    1,000 and 4,000 nodes x 14 x 256 samples (CUDA events), every sample
+    binned once, the histograms equal to the plain version's;
+29. ``colocation``: ``examples/torch_colocation_sim.py`` ``--selftest``
+    and its demo on the card (ICO places 14 pods, the smollm smoke model
+    serves 8 requests through the SIMT flash kernel, Eq. 1 of its
+    runqlat histogram).
 
 Then it prints the card's name and power limit, one JSON line of kernel
 numbers, and last ``{"ok": true, "device": {...}}``.  Any failure raises
@@ -126,7 +150,9 @@ and exits non-zero; without a card it exits 1 before doing anything.
 """
 import copy
 import dataclasses
+import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -642,7 +668,7 @@ def _simt_flash(torch, FA, build, q, k, v, causal, window):
     through the wrapper's float32 entry with the bf16 dtype code: the port
     routes bf16 to the wgmma kernel since it replaced this one, and this
     keeps the earlier kernel's time beside the new one in the same run."""
-    fn = FA._entry(torch.float32)
+    fn = FA._entry(FA.SIMT)
     out = torch.empty_like(q)
     B, S, H, hd = q.shape
     dev, stream = build.device_and_stream(q)
@@ -657,72 +683,105 @@ def _simt_flash(torch, FA, build, q, k, v, causal, window):
     return run
 
 
+def _flash_case(torch, FA, build, g, card, name, B, S, H, KV, hd, dtype,
+                window, iters=200):
+    """One shape: the wrapper's kernel against the plain version (causal,
+    ``window`` 0 or a sliding window), each timed beside the plain version
+    and SDPA (order plain, kernel, kernel, plain, library: ``is_causal``
+    without a window, a boolean window mask with one); a bf16 shape that
+    the wgmma kernel takes is also timed through the SIMT kernel on the
+    same inputs.  The bound counts q, k, v and o once and the products of
+    the (query, key) pairs the masks keep."""
+    import torch.nn.functional as F
+
+    q, k, v = (torch.randn((B, S, h, hd), generator=g, device=card,
+                           dtype=torch.float32).to(dtype)
+               for h in (H, KV, KV))
+    got = FA.flash_attention(q, k, v, causal=True, sliding_window=window)
+    want = FA.flash_attention_plain(q, k, v, causal=True,
+                                    sliding_window=window)
+    torch.cuda.synchronize()
+    rtol, atol = KERNEL_TOL[str(dtype).split(".")[-1]]
+    err = _close(torch, got, want, rtol, atol, f"flash {name}")
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    i = torch.arange(S, device=card)
+    keep = (i[:, None] >= i[None, :]) & (
+        i[None, :] > i[:, None] - window - 1 if window else True)
+    sdpa = dict(is_causal=True) if not window else dict(attn_mask=keep)
+    fns = [
+        ("plain", lambda: FA.flash_attention_plain(
+            q, k, v, sliding_window=window)),
+        ("kernel", lambda: FA.flash_attention(
+            q, k, v, sliding_window=window)),
+        ("kernel2", lambda: FA.flash_attention(
+            q, k, v, sliding_window=window)),
+        ("plain2", lambda: FA.flash_attention_plain(
+            q, k, v, sliding_window=window)),
+        ("library", lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, enable_gqa=KV != H, **sdpa))]
+    extra = {}
+    kernel = FA.route(dtype, hd)
+    if kernel is FA.SM90:
+        simt = _simt_flash(torch, FA, build, q, k, v, True, window)
+        extra["simt_max_abs_err"] = _close(torch, simt(), want, rtol, atol,
+                                           f"SIMT flash {name}")
+        fns.append(("simt", simt))
+    del got, want
+    ms = {n: cuda_ms(fn, iters=iters, warmup=max(2, iters // 10))
+          for n, fn in fns}
+    if kernel is FA.SM90:
+        extra["simt_ms"] = ms["simt"]
+    nbytes = q.element_size() * 2 * (q.numel() + k.numel())  # q,k,v; o
+    pairs = int(keep.sum())                    # attended (query, key)
+    nops = 4 * hd * B * H * pairs              # QK^T and PV
+    peak = BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S
+    byte_ms, op_ms = nbytes / HBM_BYTES_PER_S * 1e3, nops / peak * 1e3
+    return dict(
+        shape=f"B{B} S{S} H{H}/{KV} hd{hd} {dtype} window{window}",
+        kernel=kernel[0], max_abs_err=err, bytes=nbytes, flops=nops,
+        bound_ms=max(byte_ms, op_ms),
+        bound_by="bytes" if byte_ms >= op_ms else "operations",
+        ms=min(ms["kernel"], ms["kernel2"]),
+        plain_ms=min(ms["plain"], ms["plain2"]),
+        library_ms=ms["library"], **extra, runs=json.dumps(ms))
+
+
 def phase_flash_kernel(torch, FA, build, card):
     """``flash_attention`` against its plain version: bf16 (the wgmma/TMA
     kernel) at the serve phase's prefill shapes, at hd 128 and at a ragged
     GQA shape with a window; float32 (the SIMT kernel) at the ragged shape
-    with and without the window.  Each timed beside the plain version and
-    SDPA (order plain, kernel, kernel, plain, library); the bf16 ones also
-    beside the earlier SIMT kernel on the same inputs."""
-    import torch.nn.functional as F
-
+    with and without the window; the bf16 ones also timed through the
+    earlier SIMT kernel on the same inputs."""
     g = torch.Generator(device=card).manual_seed(1)
     cases = [("main", 4, 1024, 32, 32, 64, torch.bfloat16, 0),
              ("main_hd128", 4, 1024, 16, 16, 128, torch.bfloat16, 0),
              ("ragged_bf16", 1, 1000, 9, 3, 64, torch.bfloat16, 100),
              ("ragged", 1, 1000, 9, 3, 64, torch.float32, 0),
              ("ragged_window", 1, 1000, 9, 3, 64, torch.float32, 100)]
+    return {c[0]: _flash_case(torch, FA, build, g, card, *c) for c in cases}
+
+
+# gemma3-4b's prefill (B 4, S 2,048, H 8 over KV 4, hd 256), its global and
+# its local (window 1,024) layers, then each width only the SIMT kernel
+# takes (the smoke configs' 8 and 16, hubert-xlarge's 80, gemma3's 256) in
+# both dtypes at a ragged GQA shape
+WIDTH_CASES = [("gemma3_global", 4, 2048, 8, 4, 256, "bfloat16", 0, 50),
+               ("gemma3_local", 4, 2048, 8, 4, 256, "bfloat16", 1024, 50)] + [
+    (f"hd{hd}_{dt}", 2, 1000, 8, 4, hd, dt, 0, 100)
+    for hd in (8, 16, 80, 256) for dt in ("bfloat16", "float32")]
+
+
+def phase_flash_widths(torch, FA, build, card):
+    """The SIMT kernel at every head width the wgmma kernel does not take,
+    against the plain version, timed beside it and SDPA (``_flash_case``);
+    fewer timed calls at gemma3's shape, whose plain version takes ms."""
+    g = torch.Generator(device=card).manual_seed(2)
     out = {}
-    for name, B, S, H, KV, hd, dtype, window in cases:
-        q, k, v = (torch.randn((B, S, h, hd), generator=g, device=card,
-                               dtype=torch.float32).to(dtype)
-                   for h in (H, KV, KV))
-        got = FA.flash_attention(q, k, v, causal=True, sliding_window=window)
-        want = FA.flash_attention_plain(q, k, v, causal=True,
-                                        sliding_window=window)
-        torch.cuda.synchronize()
-        rtol, atol = KERNEL_TOL[str(dtype).split(".")[-1]]
-        err = _close(torch, got, want, rtol, atol, f"flash {name}")
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        i = torch.arange(S, device=card)
-        keep = (i[:, None] >= i[None, :]) & (
-            i[None, :] > i[:, None] - window - 1 if window else True)
-        sdpa = dict(is_causal=True) if not window else dict(attn_mask=keep)
-        fns = [
-            ("plain", lambda: FA.flash_attention_plain(
-                q, k, v, sliding_window=window)),
-            ("kernel", lambda: FA.flash_attention(
-                q, k, v, sliding_window=window)),
-            ("kernel2", lambda: FA.flash_attention(
-                q, k, v, sliding_window=window)),
-            ("plain2", lambda: FA.flash_attention_plain(
-                q, k, v, sliding_window=window)),
-            ("library", lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, enable_gqa=KV != H, **sdpa))]
-        extra = {}
-        if dtype == torch.bfloat16:
-            simt = _simt_flash(torch, FA, build, q, k, v, True, window)
-            extra["simt_max_abs_err"] = _close(torch, simt(), want, rtol,
-                                               atol, f"SIMT flash {name}")
-            fns.append(("simt", simt))
-        ms = _timed(fns)
-        if dtype == torch.bfloat16:
-            extra["simt_ms"] = ms["simt"]
-        nbytes = q.element_size() * 2 * (q.numel() + k.numel())  # q,k,v; o
-        pairs = int(keep.sum())                    # attended (query, key)
-        nops = 4 * hd * B * H * pairs              # QK^T and PV
-        peak = BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S
-        byte_ms, op_ms = nbytes / HBM_BYTES_PER_S * 1e3, nops / peak * 1e3
-        out[name] = dict(
-            shape=f"B{B} S{S} H{H}/{KV} hd{hd} {dtype} window{window}",
-            kernel=("flash_attention_sm90" if dtype == torch.bfloat16
-                    else "flash_attention"),
-            max_abs_err=err, bytes=nbytes, flops=nops,
-            bound_ms=max(byte_ms, op_ms),
-            bound_by="bytes" if byte_ms >= op_ms else "operations",
-            ms=min(ms["kernel"], ms["kernel2"]),
-            plain_ms=min(ms["plain"], ms["plain2"]),
-            library_ms=ms["library"], **extra, runs=json.dumps(ms))
+    for name, B, S, H, KV, hd, dt, window, iters in WIDTH_CASES:
+        out[name] = _flash_case(torch, FA, build, g, card, name, B, S, H, KV,
+                                hd, getattr(torch, dt), window, iters)
+        if out[name]["kernel"] != "flash_attention":
+            raise AssertionError(f"{name} routed to {out[name]['kernel']}")
     return out
 
 
@@ -949,22 +1008,82 @@ def _cache_leaves(cache):
                 yield f"{i}/{key}" + (f"/{k2}" if k2 else ""), t
 
 
+class PinnedRouting:
+    """While active, ``repro_torch.models.ffn.moe_route`` records each
+    call's experts by token, (B, T, k); after ``replay(select)`` each call
+    routes its tokens to the experts recorded for them (``select`` picks
+    the recorded tokens this call sees, all of them by default; gates,
+    positions and drops are recomputed for those experts, as
+    ``moe_route`` computes them) and counts the tokens whose own top-k set
+    differs.  So a comparison of two runs of an MoE model holds both to
+    one routing, and reports where an ulp (of the attention kernel, or of
+    the decode path against the full forward) moved a near tie of the
+    top-k: a token routed otherwise changes its MoE output by far more
+    than any tolerance that would still test the rest."""
+
+    def __init__(self, torch):
+        from repro_torch.models import ffn
+
+        self.torch, self.ffn, self.real = torch, ffn, ffn.moe_route
+        self.calls, self.at, self.select = [], None, None
+        self.differ, self.tokens = 0, 0
+
+    def __enter__(self):
+        self.ffn.moe_route = self.route
+        return self
+
+    def __exit__(self, *exc):
+        self.ffn.moe_route = self.real
+
+    def replay(self, select=lambda idx: idx):
+        self.at, self.select = 0, select
+
+    def route(self, x, router, **kw):
+        torch = self.torch
+        r = self.real(x, router, **kw)
+        B, T = x.shape[:2]
+        if self.at is None:
+            self.calls.append(r["expert_idx"].reshape(B, T, -1))
+            return r
+        idx = self.select(self.calls[self.at]).reshape(
+            r["expert_idx"].shape)
+        self.at += 1
+        own = r["expert_idx"].sort(-1).values != idx.sort(-1).values
+        self.differ += int(own.any(-1).sum())
+        self.tokens += B * T
+        probs = torch.softmax(r["logits"], dim=-1)
+        gate = probs.gather(-1, idx)
+        gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
+        NB, Nb, k = idx.shape
+        oh = torch.nn.functional.one_hot(idx, probs.shape[-1]).reshape(
+            NB, Nb * k, -1)
+        pos = ((oh.cumsum(1) - oh) * oh).sum(-1).reshape(NB, Nb, k)
+        keep = pos < r["cap"]
+        return dict(r, expert_idx=idx, pos=pos, keep=keep,
+                    gate=torch.where(keep, gate, 0.0))
+
+
 def kernel_vs_plain_prefill(torch, model, tokens, max_seq, dtype_name,
                             launches):
     """One prefill with the kernels, one with ``use_kernels=False``: the
     greedy tokens, and every logit and cache value within PREFILL_TOL.
     In bfloat16 a row may pick another token only where the plain path's
-    top two logits lie within the largest logit error (a near tie)."""
+    top two logits lie within the largest logit error (a near tie).  An
+    MoE model's plain run takes the kernel run's routing (``PinnedRouting``);
+    the tokens that would have been routed otherwise are reported."""
     cfg = model.cfg
-    k_logits, k_cache = model.prefill(tokens, max_seq)
-    model.cfg = dataclasses.replace(cfg, use_kernels=False)
-    try:
-        before = launches()
-        p_logits, p_cache = model.prefill(tokens, max_seq)
-        if launches() != before:
-            raise AssertionError("use_kernels=False launched a kernel")
-    finally:
-        model.cfg = cfg
+    pin = PinnedRouting(torch)
+    with pin:
+        k_logits, k_cache = model.prefill(tokens, max_seq)
+        pin.replay()
+        model.cfg = dataclasses.replace(cfg, use_kernels=False)
+        try:
+            before = launches()
+            p_logits, p_cache = model.prefill(tokens, max_seq)
+            if launches() != before:
+                raise AssertionError("use_kernels=False launched a kernel")
+        finally:
+            model.cfg = cfg
     rtol, atol, mean_tol = PREFILL_TOL[dtype_name]
     pairs = [("logits", k_logits, p_logits)] + [
         (path, t, dict(_cache_leaves(p_cache))[path])
@@ -992,7 +1111,10 @@ def kernel_vs_plain_prefill(torch, model, tokens, max_seq, dtype_name,
                              f"margins {margin.tolist()}")
     if not bool(torch.isfinite(k_logits).all()):
         raise AssertionError("non-finite logits")
-    return {f"{dtype_name}_greedy_rows_equal": int((~differ).sum()),
+    moe = ({f"{dtype_name}_moe_tokens_routed_otherwise": pin.differ,
+            f"{dtype_name}_moe_routed_tokens": pin.tokens}
+           if cfg.num_experts else {})
+    return {**moe, f"{dtype_name}_greedy_rows_equal": int((~differ).sum()),
             f"{dtype_name}_plain_top2_margins": json.dumps(
                 [round(float(m), 5) for m in margin]),
             f"{dtype_name}_logits_max_abs_err": logit_err,
@@ -1002,21 +1124,34 @@ def kernel_vs_plain_prefill(torch, model, tokens, max_seq, dtype_name,
             f"{dtype_name}_cache_leaves": len(pairs) - 1}
 
 
+def first_layers(cfg, n):
+    """``cfg`` cut to its first ``n`` layers (their specs, in order)."""
+    return dataclasses.replace(cfg, num_layers=n,
+                               pattern=tuple(cfg.layer_specs()[:n]),
+                               repeats=1, tail=())
+
+
 def phase_serve(torch, np, card, arch, kernels, per_prefill, lens, tag,
-                check_len=None, requests=16, max_batch=4, new_tokens=32):
-    """Serve ``arch`` at full width; then the kernel path against the plain
-    path on one cohort's prefill, prefill + decode against the full forward
-    (over the cohort's first ``check_len`` tokens, or all of them), and a
-    profile of one prefill and eight decode steps.
+                check_len=None, requests=16, max_batch=4, new_tokens=32,
+                layers=None, f32_layers=None):
+    """Serve ``arch`` at full width (its first ``layers`` layers, or all);
+    then the kernel path against the plain path on one cohort's prefill,
+    in bf16 and on a float32 copy of the same weights (of the first
+    ``f32_layers`` layers, or all), prefill + decode against the full
+    forward (over the cohort's first ``check_len`` tokens, or all of them;
+    an MoE at capacity factor E / k, so that the routing is per token), and
+    a profile of one prefill and eight decode steps.
 
     ``kernels`` maps each kernel's name to its module (with ``launches``),
     ``per_prefill`` to its launches in one cohort's prefill; ``lens(rng,
     n)`` draws the prompt lengths.  Prints ``[serve_<tag>]`` lines."""
     from repro_torch.configs import get_config
-    from repro_torch.models.model import Model
+    from repro_torch.models.model import Model, active_params
     from repro_torch.serve import ServeEngine
 
     cfg = get_config(arch)
+    if layers:
+        cfg = first_layers(cfg, layers)
     held_before = torch.cuda.memory_allocated()   # by earlier phases
     t0 = time.perf_counter()
     model = Model(cfg, device=card).init_params(
@@ -1071,7 +1206,9 @@ def phase_serve(torch, np, card, arch, kernels, per_prefill, lens, tag,
     counts = {name: K.launches for name, K in kernels.items()}
     del model.prefill, model.decode_step
     nums = dict(
-        params=sum(p.numel() for p in model.parameters()), init_s=init_s,
+        params=sum(p.numel() for p in model.parameters()),
+        active_params=active_params(cfg), layers=cfg.num_layers,
+        init_s=init_s,
         requests=requests, finished=stats["finished"], cohorts=len(cohorts),
         prompt_lens=json.dumps([int(n) for n in lens]),
         padded_lens=json.dumps([int(t.shape[1]) for t, _ in cohorts]),
@@ -1109,27 +1246,40 @@ def phase_serve(torch, np, card, arch, kernels, per_prefill, lens, tag,
     cons = dict(cohort=json.dumps(list(tokens.shape)))
     cons.update(kernel_vs_plain_prefill(torch, model, tokens, max_seq,
                                         "bfloat16", launches))
-    wide = Model(dataclasses.replace(cfg, dtype=torch.float32), device=card)
+    wcfg = cfg if f32_layers is None else first_layers(cfg, f32_layers)
+    wide = Model(dataclasses.replace(wcfg, dtype=torch.float32), device=card)
+    own = dict(model.named_parameters())
     with torch.no_grad():
-        for a, b in zip(wide.parameters(), model.parameters()):
-            a.copy_(b)
+        for name, a in wide.named_parameters():
+            a.copy_(own[name])
     cons.update(kernel_vs_plain_prefill(torch, wide, tokens, max_seq,
                                         "float32", launches))
-    del wide
+    cons["float32_layers"] = wcfg.num_layers
+    del wide, own
 
     # prefill(x[:-1]) + decode(x[-1]) against the full forward (bf16), as
     # tests/test_archs_smoke.py holds the JAX models; the plain path beside
     x = tokens[:, :check_len] if check_len else tokens
+    full_capacity = ({"capacity_factor": cfg.num_experts / cfg.experts_per_tok}
+                     if cfg.num_experts else {})
     for path in ("kernel", "plain"):
-        model.cfg = dataclasses.replace(cfg, use_kernels=path == "kernel")
+        model.cfg = dataclasses.replace(cfg, use_kernels=path == "kernel",
+                                        **full_capacity)
         try:
-            full = model(x)[:, -1]
-            _, cache = model.prefill(x[:, :-1], x.shape[1])
-            dec, _ = model.decode_step(x[:, -1:], cache)
+            # an MoE's prefill and decode take the forward's routing
+            with PinnedRouting(torch) as pin:
+                full = model(x)[:, -1]
+                pin.replay(lambda idx: idx[:, :-1])
+                _, cache = model.prefill(x[:, :-1], x.shape[1])
+                pin.replay(lambda idx: idx[:, -1:])
+                dec, _ = model.decode_step(x[:, -1:], cache)
         finally:
             model.cfg = cfg
         cons[f"decode_vs_forward_{path}_max_abs_err"] = float(
             (dec.float() - full.float()).abs().max())
+        if cfg.num_experts:
+            cons[f"decode_vs_forward_{path}_moe_tokens_routed_otherwise"] = (
+                pin.differ)
         if path == "kernel":
             close = torch.allclose(dec.float(), full.float(), rtol=0.1,
                                    atol=0.15)
@@ -1629,15 +1779,102 @@ def phase_control_1000(torch, np, K, card, rf, fleet, pods, gaps,
     return nums
 
 
-def main() -> int:
-    import torch
+# (tag, arch, shortest and longest prompt, layers served (None: all), layers
+# of the float32 kernel-vs-plain copy (None: all)).  gemma3's prompts pass
+# its 1,024-token window, so the window binds in prefill and in decode;
+# the MoE models keep the depth whose bf16 weights fit one card beside
+# their caches (8 of qwen3's 94 layers, 6 of dbrx's 40: ~42 GB each)
+SERVE_FAMILIES = [
+    ("gemma3", "gemma3-4b", 1025, 2048, None, None),
+    ("internlm2", "internlm2-20b", 256, 1024, None, 2),
+    ("deepseek33b", "deepseek-coder-33b", 256, 1024, None, 2),
+    ("qwen3moe", "qwen3-moe-235b-a22b", 256, 1024, 8, 2),
+    ("dbrx", "dbrx-132b", 256, 1024, 6, 2),
+]
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
-        return 1
-    root = os.path.dirname(os.path.abspath(__file__))
-    sys.path[:0] = [os.path.join(root, "src"),
-                    os.path.join(root, "benchmarks")]
+
+def _load_file(rel):
+    """A module of the checkout by path (an example or a bench)."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), rel)
+    spec = importlib.util.spec_from_file_location(
+        "_cs_" + os.path.basename(rel)[:-3], path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_metric_pipeline(torch, K, card):
+    """``benchmarks/bench_torch_metric_pipeline.py`` on the card, at 1,000
+    and (``--full``) 4,000 nodes x 14 series x 256 samples: its rows (CUDA
+    events), every sample binned once, the histograms equal to the plain
+    version's on the same samples, ``runqlat_hist`` launches counted."""
+    bench = _load_file("benchmarks/bench_torch_metric_pipeline.py")
+    out = {}
+    for full in (False, True):
+        K.launches = 0
+        res = bench.run(device=card, full=full)
+        torch.cuda.synchronize()
+        tag = "full" if full else "fast"
+        plain = K.runqlat_hist_plain(res["input"].reshape(-1, 256))
+        if not torch.equal(res["hist"].reshape(-1, 200), plain):
+            raise AssertionError(f"metric pipeline {tag}: kernel != plain")
+        if res["binned"] != res["samples"] or K.launches == 0:
+            raise AssertionError(f"metric pipeline {tag}: {res['binned']} "
+                                 f"binned of {res['samples']}, "
+                                 f"{K.launches} launches")
+        if not bool(torch.isfinite(res["intf"]).all()):
+            raise AssertionError(f"metric pipeline {tag}: non-finite Eq. 1")
+        out[f"{tag}_nodes"] = res["nodes"]
+        out[f"{tag}_runqlat_hist_launches"] = K.launches
+        for name, us, derived in res["rows"]:
+            out[f"{tag}_{name.split('.')[-1]}_us"] = us
+            out[f"{tag}_{name.split('.')[-1]}_derived"] = derived
+    return out
+
+
+def phase_colocation(torch, K, FA, card):
+    """``examples/torch_colocation_sim.py`` on the card: ``--selftest`` (one
+    traced admission), then the demo (the predictor trained, 14 pods placed
+    by ICO with every admission traced, the smollm-135m smoke model served,
+    Eq. 1 of its runqlat histogram).  The smoke model has hd 16, so its
+    prefills launch the SIMT flash kernel, one launch a layer a cohort."""
+    from repro_torch.configs import get_smoke_config
+
+    demo = _load_file("examples/torch_colocation_sim.py")
+    if demo.selftest(device=card) != 1:
+        raise AssertionError("colocation selftest traced no admission")
+    K.launches, FA.launches = 0, 0
+    t0 = time.perf_counter()
+    res = demo.main(device=card)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    placed = sum(node >= 0 for _, node in res["placements"])
+    stats = res["serve"]
+    cohorts = -(-stats["finished"] // 4)
+    layers = get_smoke_config("smollm-135m").num_layers
+    if len(res["placements"]) != 14 or placed == 0 or not res["admissions"]:
+        raise AssertionError(f"colocation placements {res['placements']}")
+    if stats["finished"] != 8 or not math.isfinite(res["intf"]):
+        raise AssertionError(f"colocation serve {stats} intf {res['intf']}")
+    if FA.launches != cohorts * layers or K.launches == 0:
+        raise AssertionError(f"colocation launches: flash {FA.launches} "
+                             f"for {cohorts} cohorts, runqlat_hist "
+                             f"{K.launches}")
+    return dict(main_wall_s=wall, pods=len(res["placements"]), placed=placed,
+                admissions_traced=res["admissions"],
+                served=stats["finished"],
+                serve_avg_latency_s=stats["avg_latency"],
+                serve_runqlat_avg=stats["runqlat_avg"], eq1_intf=res["intf"],
+                flash_attention_launches=FA.launches,
+                runqlat_hist_launches=K.launches)
+
+
+def cluster_paths(torch, build, card, timers, done) -> dict:
+    """Phases 2-16: the cluster, replay and control-plane paths.  Returns
+    the numbers the kernels line needs; everything they held on the card
+    is released when this returns."""
     import numpy as np
 
     from repro_torch.cluster import state as cstate
@@ -1653,52 +1890,11 @@ def main() -> int:
     from repro_torch.cluster.fleet import make_fleet
     from repro_torch.cluster.simulator import Cluster
     from repro_torch.cluster.workloads import Pod
-    from repro_torch.configs import get_config
     from repro_torch.core import ICOScheduler, InterferenceQuantifier
-    from repro_torch.kernels import build
-    from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import rollout_tick as RT
     from repro_torch.kernels import runqlat_hist as K
-    from repro_torch.kernels import rwkv_wkv as WKV
-    from repro_torch.kernels import ssd as SSD
-    from repro_torch.models import rwkv as R
-    from repro_torch.obs import PhaseTimers
 
-    card, cpu = torch.device("cuda"), torch.device("cpu")
-    timers = PhaseTimers()
-
-    def done(name, **kv):
-        say(name, wall_s=timers.totals[name], **kv)
-
-    # 1. build ------------------------------------------------------------
-    with timers.phase("build"):
-        # the earlier kernels (timed beside their replacements) build
-        # alongside, all nvcc processes at once
-        earlier = threading.Thread(target=build.build,
-                                   args=(["runqlat_hist", "wkv"], EARLIER))
-        earlier.start()
-        try:
-            libs = build.build(["runqlat_hist", "rollout_tick",
-                                "flash_attention", "flash_attention_sm90",
-                                "ssd", "ssd_sm90", "wkv"])
-        finally:
-            earlier.join()
-        build.load("runqlat_hist", EARLIER)   # raises if that build failed
-        build.load("wkv", EARLIER)
-    done("build", ptxas=json.dumps({
-        k: v.strip().splitlines()[-2:] for k, v in build.build_logs.items()}))
-    for name in ("runqlat_hist", "rollout_tick", "flash_attention_sm90",
-                 "ssd_sm90", "wkv"):
-        say("build", kernel=name, ptxas=json.dumps(
-            ptxas_summary(build.build_logs.get(name, ""))))
-    hgmma = sass_count(libs["flash_attention_sm90"], "HGMMA")
-    hmma = sass_count(libs["ssd_sm90"], "HMMA")
-    say("build", flash_attention_sm90_hgmma_instructions=hgmma,
-        ssd_sm90_hmma_instructions=hmma)
-    if hgmma == 0:
-        raise AssertionError("no HGMMA in flash_attention_sm90's SASS")
-    if hmma == 0:
-        raise AssertionError("no HMMA in ssd_sm90's SASS")
+    cpu = torch.device("cpu")
 
     # 2. kernel against its plain version ---------------------------------
     with timers.phase("kernel"):
@@ -1905,6 +2101,71 @@ def main() -> int:
              "control_1000_ticks_per_s": c1000["ticks_per_s"]})
     done("unified_1000", **u1000)
 
+    return dict(knums=knums, launches=launches, fnums=fnums,
+                fused_launches=fused_launches)
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 1
+    root = os.path.dirname(os.path.abspath(__file__))
+    sys.path[:0] = [os.path.join(root, "src"),
+                    os.path.join(root, "benchmarks")]
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import build
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import runqlat_hist as K
+    from repro_torch.kernels import rwkv_wkv as WKV
+    from repro_torch.kernels import ssd as SSD
+    from repro_torch.models import rwkv as R
+    from repro_torch.obs import PhaseTimers
+
+    card = torch.device("cuda")
+    timers = PhaseTimers()
+
+    def done(name, **kv):
+        say(name, wall_s=timers.totals[name], **kv)
+
+    # 1. build ------------------------------------------------------------
+    with timers.phase("build"):
+        # the earlier kernels (timed beside their replacements) build
+        # alongside, all nvcc processes at once
+        earlier = threading.Thread(target=build.build,
+                                   args=(["runqlat_hist", "wkv"], EARLIER))
+        earlier.start()
+        try:
+            libs = build.build(["runqlat_hist", "rollout_tick",
+                                "flash_attention", "flash_attention_sm90",
+                                "ssd", "ssd_sm90", "wkv"])
+        finally:
+            earlier.join()
+        build.load("runqlat_hist", EARLIER)   # raises if that build failed
+        build.load("wkv", EARLIER)
+    done("build", ptxas=json.dumps({
+        k: v.strip().splitlines()[-2:] for k, v in build.build_logs.items()}))
+    for name in ("runqlat_hist", "rollout_tick", "flash_attention_sm90",
+                 "ssd_sm90", "wkv"):
+        say("build", kernel=name, ptxas=json.dumps(
+            ptxas_summary(build.build_logs.get(name, ""))))
+    hgmma = sass_count(libs["flash_attention_sm90"], "HGMMA")
+    hmma = sass_count(libs["ssd_sm90"], "HMMA")
+    say("build", flash_attention_sm90_hgmma_instructions=hgmma,
+        ssd_sm90_hmma_instructions=hmma)
+    if hgmma == 0:
+        raise AssertionError("no HGMMA in flash_attention_sm90's SASS")
+    if hmma == 0:
+        raise AssertionError("no HMMA in ssd_sm90's SASS")
+
+    # 2-16. the cluster, replay and control-plane paths
+    paths = cluster_paths(torch, build, card, timers, done)
+    knums, launches = paths["knums"], paths["launches"]
+    fnums, fused_launches = paths["fnums"], paths["fused_launches"]
+
     # 17-19. the serving path: both kernels, then zamba2-1.2b at full width
     # (float32 products in full float32 for every plain version)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1945,6 +2206,45 @@ def main() -> int:
             check_len=64)
     done("serve_rwkv6")
 
+    # 22. the SIMT flash kernel at every width the wgmma kernel does not
+    # take, gemma3-4b's prefill among them
+    with timers.phase("flash_widths"):
+        widths = phase_flash_widths(torch, FA, build, card)
+    for name, nums in widths.items():
+        say("flash_widths", case=name, **nums)
+    done("flash_widths")
+
+    # 23-27. the remaining model families at full width: gemma3-4b,
+    # internlm2-20b and deepseek-coder-33b at full depth, the MoE models at
+    # the depth one card holds; the float32 kernel-vs-plain copy of the
+    # large ones is their first two layers (a full float32 copy would not
+    # fit beside the bf16 model)
+    flash_paths = {"zamba2": serve["flash_attention_launches"]}
+    for tag, arch, lo, hi, layers, f32_layers in SERVE_FAMILIES:
+        gc.collect()
+        torch.cuda.empty_cache()
+        held = torch.cuda.memory_allocated()
+        if held >= 2e9:
+            raise AssertionError(f"{held} bytes held before serve_{tag}")
+        cfg = get_config(arch)
+        n = layers or cfg.num_layers
+        with timers.phase(f"serve_{tag}"):
+            nums = phase_serve(
+                torch, np, card, arch, {"flash_attention": FA},
+                {"flash_attention": n},
+                lambda rng, k, lo=lo, hi=hi: rng.integers(lo, hi + 1, k),
+                tag, layers=layers, f32_layers=f32_layers)
+        done(f"serve_{tag}")
+        flash_paths[tag] = nums["flash_attention_launches"]
+
+    # 28-29. the metric-pipeline bench and the colocation demo on the card
+    with timers.phase("metric_pipeline"):
+        mp = phase_metric_pipeline(torch, K, card)
+    done("metric_pipeline", **mp)
+    with timers.phase("colocation"):
+        co = phase_colocation(torch, K, FA, card)
+    done("colocation", **co)
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True,
@@ -1968,8 +2268,11 @@ def main() -> int:
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_sm90.cu",
         "replaces": "src/repro/kernels/flash_attention.py:81",
-        "launches": serve["flash_attention_launches"],
-        "max_abs_err": max(c["max_abs_err"] for c in flash.values()),
+        "launches": sum(flash_paths.values()),
+        "launches_by_path": flash_paths,
+        "max_abs_err": max(c["max_abs_err"]
+                           for c in (*flash.values(), *widths.values())),
+        "width_max_abs_err": {k: c["max_abs_err"] for k, c in widths.items()},
         "ms": flash["main"]["ms"], "plain_ms": flash["main"]["plain_ms"],
         "bound_ms": flash["main"]["bound_ms"],
         "bound_by": flash["main"]["bound_by"],

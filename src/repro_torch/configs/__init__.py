@@ -2,23 +2,19 @@
 
 Each module exports ``CONFIG`` (full size) and ``smoke_config()`` (a
 reduced config of the same family for CPU tests).  The port carries the
-three architectures its serving path runs; the other names of the JAX
+eight architectures its serving path runs; the other names of the JAX
 package raise ``NotImplementedError`` naming the slice that brings them.
 """
 from __future__ import annotations
 
 import importlib
 
-ARCHS = ["rwkv6_7b", "smollm_135m", "zamba2_1p2b"]
+ARCHS = ["rwkv6_7b", "qwen3_moe_235b_a22b", "dbrx_132b", "gemma3_4b",
+         "deepseek_coder_33b", "internlm2_20b", "smollm_135m", "zamba2_1p2b"]
 
 # architectures of the JAX package that later slices bring
 LATER = {
-    "qwen3_moe_235b_a22b": "the MoE slice",
-    "dbrx_132b": "the MoE slice",
     "qwen2_vl_72b": "the vlm slice (M-RoPE, embedding inputs)",
-    "gemma3_4b": "the sliding-window model slice",
-    "deepseek_coder_33b": "the remaining dense models",
-    "internlm2_20b": "the remaining dense models",
     "hubert_xlarge": "the encoder slice",
 }
 

@@ -16,31 +16,46 @@
 // float32 CUDA cores (67 TFLOP/s), about 0.26 ms at best: a later kernel
 // reaches the bound with wgmma on bf16 tiles fed by TMA.
 //
-// Design: a block takes one (b, h) and a tile of 64 query rows, four
-// threads per row.  Each thread keeps a quarter of its row's q and of the
-// float32 accumulator in registers, in float4 chunks interleaved across
-// the four lanes (lane t holds chunks t, t + 4, ...), so a row's four
-// lanes read one key's 16-byte chunks side by side from shared memory and
-// the eight rows of a warp read the same addresses (a broadcast).  K and V
-// stream through shared memory in tiles of KT keys, converted to float32
-// on load; a score is the four lanes' partial dots summed by two xor
-// shuffles.  Per tile each lane holds the KT scores, takes the tile max,
-// rescales l and its accumulator once, and adds p V.  The KV loop stops at
-// the block's causal frontier (the TPU kernel's loop bound) and starts at
-// the first tile the sliding window reaches: a tile that is masked for
-// every row of the block would only add terms that the first unmasked
-// score multiplies by exp(-1e30 - m) = 0, so skipping it changes nothing.
-// Keys past S are masked and read as zeros, and rows past S are computed
-// but not written, so any S works (the TPU kernel asserts S % 128 == 0).
+// Design: a block takes one (b, h) and a tile of 64 query rows, L threads
+// per row (L = min(4, hd / 4): four from hd 16 up, two at hd 8).  Each
+// thread keeps 1/L of its row's q and of the float32 accumulator in
+// registers, in float4 chunks interleaved across the L lanes (lane t holds
+// chunks t, t + L, ...), so a row's lanes read one key's 16-byte chunks
+// side by side from shared memory and the rows of a warp read the same
+// addresses (a broadcast).  K and V stream through shared memory in tiles
+// of KT keys, converted to float32 on load; a score is the L lanes'
+// partial dots summed by xor shuffles.  Per tile each lane holds the KT
+// scores, takes the tile max, rescales l and its accumulator once, and
+// adds p V.  The KV loop stops at the block's causal frontier (the TPU
+// kernel's loop bound) and starts at the first tile the sliding window
+// reaches: a tile that is masked for every row of the block would only add
+// terms that the first unmasked score multiplies by exp(-1e30 - m) = 0, so
+// skipping it changes nothing.  Keys past S are masked and read as zeros,
+// and rows past S are computed but not written, so any S works (the TPU
+// kernel asserts S % 128 == 0).
+//
+// Head widths: every width a JAX config uses, 8, 16, 64, 80, 128 and 256
+// (a multiple of 4 and of L float4 chunks; the wrapper refuses others).
+// KT shrinks as hd grows so that ks and vs stay in the 48 KB of static
+// shared memory: 64 keys up to hd 64, 32 at hd 80 and 128, 16 at hd 256
+// (2 x 16 x 256 x 4 bytes = 32 KB).  At hd 256 a thread holds 16 float4
+// of q and 16 of the accumulator (128 registers) beside its 16 scores:
+// one block of 256 threads an SM (ptxas: 231 registers in bf16, 238 in
+// float32, no spills), a first kernel that is right and slow: 5.94 ms at
+// gemma3-4b's prefill (B 4, S 2048, H 8 over 4, causal, bf16) on an H100
+// SXM at 700 W, against a 69 us bound and 0.14 ms for PyTorch's SDPA (the
+// wgmma kernel takes only hd 64 and 128).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kRows = 64;                  // query rows per block
-constexpr int kLanes = 4;                  // threads per query row
-constexpr int kThreads = kRows * kLanes;   // 256
 constexpr float kNegInf = -1e30f;
+
+// threads per query row: four float4 chunks side by side, fewer when the
+// row has fewer chunks (hd 8: two)
+constexpr int lanes_for(int hd) { return hd / 4 < 4 ? hd / 4 : 4; }
 
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
@@ -63,19 +78,22 @@ __device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
   p2[1] = __floats2bfloat162_rn(v.z, v.w);
 }
 
-template <typename T, int HD, int KT>
-__global__ void __launch_bounds__(kThreads)
+template <typename T, int HD, int KT, int L>
+__global__ void __launch_bounds__(kRows * L)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
              const T* __restrict__ v, T* __restrict__ o, int S, int H,
              int KV, int causal, int window, float scale) {
+  constexpr int kThreads = kRows * L;
   constexpr int C4 = HD / 4;          // float4 chunks per row
-  constexpr int D4 = C4 / kLanes;     // chunks per thread
+  constexpr int D4 = C4 / L;          // chunks per thread
+  static_assert(HD % 4 == 0 && C4 % L == 0 && D4 > 0, "unsupported hd");
+  static_assert(2 * KT * C4 * 16 <= 48 * 1024, "K/V tiles past 48 KB");
   __shared__ float4 ks[KT][C4];
   __shared__ float4 vs[KT][C4];
 
   const int b = blockIdx.z, h = blockIdx.y;
   const int q0 = blockIdx.x * kRows;
-  const int row = threadIdx.x / kLanes, lane = threadIdx.x % kLanes;
+  const int row = threadIdx.x / L, lane = threadIdx.x % L;
   const int qi = q0 + row;
   const int kvh = h / (H / KV);
 
@@ -83,7 +101,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* qp = q + ((static_cast<long long>(b) * S + min(qi, S - 1)) * H + h) * HD;
 #pragma unroll
   for (int i = 0; i < D4; ++i) {
-    qr[i] = load4(qp + 4 * (lane + kLanes * i));
+    qr[i] = load4(qp + 4 * (lane + L * i));
     acc[i] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
   float m = kNegInf, l = 0.f;
@@ -117,12 +135,13 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float part = 0.f;
 #pragma unroll
       for (int i = 0; i < D4; ++i) {
-        const float4 kk = ks[j][lane + kLanes * i];
+        const float4 kk = ks[j][lane + L * i];
         part += qr[i].x * kk.x + qr[i].y * kk.y + qr[i].z * kk.z +
                 qr[i].w * kk.w;
       }
-      part += __shfl_xor_sync(0xffffffffu, part, 1);
-      part += __shfl_xor_sync(0xffffffffu, part, 2);
+#pragma unroll
+      for (int off = 1; off < L; off *= 2)
+        part += __shfl_xor_sync(0xffffffffu, part, off);
       const int key = kt + j;
       const bool keep = key < S && (!causal || key <= qi) &&
                         (window <= 0 || key > qi - window - 1);
@@ -150,7 +169,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float p = s[j];
 #pragma unroll
       for (int i = 0; i < D4; ++i) {
-        const float4 vv = vs[j][lane + kLanes * i];
+        const float4 vv = vs[j][lane + L * i];
         acc[i].x += p * vv.x;
         acc[i].y += p * vv.y;
         acc[i].z += p * vv.z;
@@ -165,7 +184,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     T* op = o + ((static_cast<long long>(b) * S + qi) * H + h) * HD;
 #pragma unroll
     for (int i = 0; i < D4; ++i) {
-      store4(op + 4 * (lane + kLanes * i),
+      store4(op + 4 * (lane + L * i),
              make_float4(acc[i].x / den, acc[i].y / den, acc[i].z / den,
                          acc[i].w / den));
     }
@@ -175,20 +194,36 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int HD, int KT>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
            int H, int KV, int causal, int window, cudaStream_t stream) {
+  constexpr int L = lanes_for(HD);
   const dim3 grid((S + kRows - 1) / kRows, H, B);
-  flash_kernel<T, HD, KT><<<grid, kThreads, 0, stream>>>(
+  flash_kernel<T, HD, KT, L><<<grid, kRows * L, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), S, H, KV, causal, window,
       1.0f / sqrtf(static_cast<float>(HD)));
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
+int launch_hd(const void* q, const void* k, const void* v, void* o, int B,
+              int S, int H, int KV, int hd, int causal, int window,
+              cudaStream_t st) {
+  switch (hd) {
+    case 8: return launch<T, 8, 64>(q, k, v, o, B, S, H, KV, causal, window, st);
+    case 16: return launch<T, 16, 64>(q, k, v, o, B, S, H, KV, causal, window, st);
+    case 64: return launch<T, 64, 64>(q, k, v, o, B, S, H, KV, causal, window, st);
+    case 80: return launch<T, 80, 32>(q, k, v, o, B, S, H, KV, causal, window, st);
+    case 128: return launch<T, 128, 32>(q, k, v, o, B, S, H, KV, causal, window, st);
+    case 256: return launch<T, 256, 16>(q, k, v, o, B, S, H, KV, causal, window, st);
+    default: return -1;
+  }
+}
+
 }  // namespace
 
 // q, o: (B, S, H, hd); k, v: (B, S, KV, hd); contiguous, 16-byte aligned,
-// all float32 (dtype 0) or all bfloat16 (dtype 1); hd 64 or 128.  Launches
-// on `stream` and returns cudaGetLastError() (0 on success; -1 for an
-// unsupported hd or dtype, which the wrapper rules out first).
+// all float32 (dtype 0) or all bfloat16 (dtype 1); hd 8, 16, 64, 80, 128 or
+// 256.  Launches on `stream` and returns cudaGetLastError() (0 on success;
+// -1 for an unsupported hd or dtype, which the wrapper rules out first).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int B, int S,
                                       int H, int KV, int hd, int causal,
@@ -197,15 +232,10 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && hd == 64)
-    return launch<float, 64, 64>(q, k, v, o, B, S, H, KV, causal, window, st);
-  if (dtype == 0 && hd == 128)
-    return launch<float, 128, 32>(q, k, v, o, B, S, H, KV, causal, window, st);
-  if (dtype == 1 && hd == 64)
-    return launch<__nv_bfloat16, 64, 64>(q, k, v, o, B, S, H, KV, causal,
-                                         window, st);
-  if (dtype == 1 && hd == 128)
-    return launch<__nv_bfloat16, 128, 32>(q, k, v, o, B, S, H, KV, causal,
-                                          window, st);
+  if (dtype == 0)
+    return launch_hd<float>(q, k, v, o, B, S, H, KV, hd, causal, window, st);
+  if (dtype == 1)
+    return launch_hd<__nv_bfloat16>(q, k, v, o, B, S, H, KV, hd, causal,
+                                    window, st);
   return -1;
 }

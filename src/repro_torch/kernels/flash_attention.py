@@ -6,18 +6,26 @@ flash_attention_pallas`` (body ``_flash_kernel``): forward attention over
 ``1 / sqrt(hd)``, causal and sliding-window masks (``-1e30`` for masked
 scores), the KV loop stopped at the causal frontier, and the output in
 q's type.  Two CUDA C++ kernels compute it (design and bound are noted in
-each): bfloat16 inputs go to ``csrc/flash_attention_sm90.cu`` (wgmma on
-the tensor cores, fed by TMA; P is rounded to bf16 for O += P V), float32
-inputs to ``csrc/flash_attention.cu`` (products on the float32 CUDA
-cores, which keep the TPU kernel's float32 arithmetic).  Each reads KV
-head ``h // (H // KV)`` for query head ``h``, which is the same function as
-JAX's ``_repeat_kv`` followed by the TPU kernel, and masks a ragged tail
-itself, so any S works.
+each), on a fixed route by (dtype, hd):
+
+* bfloat16 at hd 64 or 128 goes to ``csrc/flash_attention_sm90.cu``
+  (wgmma on the tensor cores, fed by TMA; P is rounded to bf16 for
+  O += P V);
+* bfloat16 at the other widths JAX's configs use (8, 16, 80, 256), and
+  float32 at all of them (8, 16, 64, 80, 128, 256), go to
+  ``csrc/flash_attention.cu`` (products on the float32 CUDA cores, which
+  keep the TPU kernel's float32 arithmetic);
+* any other width raises.
+
+The route is chosen from the shape alone: no kernel is tried after
+another fails.  Each kernel reads KV head ``h // (H // KV)`` for query
+head ``h``, which is the same function as JAX's ``_repeat_kv`` followed by
+the TPU kernel, and masks a ragged tail itself, so any S works.
 
 For tensors on the CPU the wrapper takes ``flash_attention_plain``, exact
 masked-softmax attention in float32 (``ref.flash_attention_ref`` with GQA
-and the TPU kernel's masks).  For CUDA tensors it launches the kernel or
-raises: there is no fallback, and no kernel is tried after another.
+and the TPU kernel's masks).  For CUDA tensors it launches the routed
+kernel or raises: there is no fallback.
 ``launches`` counts kernel launches of either kernel and nothing else.
 """
 from __future__ import annotations
@@ -30,7 +38,8 @@ import torch
 from repro_torch.kernels import build
 
 NEG_INF = -1e30
-HEAD_DIMS = (64, 128)
+SM90_HEAD_DIMS = (64, 128)                  # the wgmma kernel, bf16 only
+SIMT_HEAD_DIMS = (8, 16, 64, 80, 128, 256)  # the SIMT kernel, both dtypes
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches = 0
@@ -76,18 +85,27 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"sliding_window must be >= 0, got {sliding_window}")
 
 
-# bf16 takes the wgmma/TMA kernel, float32 the SIMT one (its products in
-# full float32, which TF32 tensor cores would not keep)
-_ENTRIES = {torch.bfloat16: ("flash_attention_sm90",
-                             "flash_attention_sm90_launch"),
-            torch.float32: ("flash_attention", "flash_attention_launch")}
+# (library, symbol, int arguments): the SIMT entry takes the dtype code too
+SM90 = ("flash_attention_sm90", "flash_attention_sm90_launch", 8)
+SIMT = ("flash_attention", "flash_attention_launch", 9)
 
 
-def _entry(dtype):
-    lib, name = _ENTRIES[dtype]
+def route(dtype, hd: int):
+    """The kernel that takes (dtype, hd): bf16 at hd 64 or 128 the wgmma
+    kernel, every other supported pair the SIMT kernel (float32 products,
+    which TF32 tensor cores would not keep); raises for another width."""
+    if dtype == torch.bfloat16 and hd in SM90_HEAD_DIMS:
+        return SM90
+    if hd in SIMT_HEAD_DIMS:
+        return SIMT
+    raise ValueError(f"flash_attention kernel takes hd in {SIMT_HEAD_DIMS}, "
+                     f"got {hd}")
+
+
+def _entry(kernel):
+    lib, name, ints = kernel
     fn = getattr(build.load(lib), name)
     if fn.argtypes is None:  # pointers and the stream as c_void_p, not int
-        ints = 8 if dtype == torch.bfloat16 else 9  # + dtype for the SIMT one
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * ints + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -97,9 +115,7 @@ def _entry(dtype):
 def _launch(q, k, v, causal: bool, sliding_window: int) -> torch.Tensor:
     global launches
     B, S, H, hd = q.shape
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"flash_attention kernel takes hd in {HEAD_DIMS}, "
-                         f"got {hd}")
+    kernel = route(q.dtype, hd)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
             raise ValueError(f"flash_attention: {name} must be contiguous")
@@ -108,14 +124,14 @@ def _launch(q, k, v, causal: bool, sliding_window: int) -> torch.Tensor:
                              "aligned")
     if max(q.numel(), k.numel()) >= 2**31:
         raise ValueError("flash_attention: too large for 32-bit indexing")
-    fn = _entry(q.dtype)
+    fn = _entry(kernel)
     out = torch.empty_like(q)
     if q.numel() == 0:
         return out
     dev, stream = build.device_and_stream(q)
     head = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, H,
             k.shape[2], hd, int(causal), sliding_window]
-    if q.dtype == torch.float32:
+    if kernel is SIMT:
         head.append(_DTYPES[q.dtype])
     err = fn(*head, dev, stream)
     if err != 0:

@@ -1,8 +1,8 @@
 """Layer kinds of the slice as ``nn.Module``s, and their caches.
 
-Port of ``repro.models.blocks`` for the dense, mamba, mamba_shared_attn
-and rwkv kinds.  Every layer is called as ``layer(cfg, x, mode, cache,
-start)`` and returns ``(x, cache)``:
+Port of ``repro.models.blocks`` for the dense, moe, mamba,
+mamba_shared_attn and rwkv kinds.  Every layer is called as ``layer(cfg,
+x, mode, cache, start)`` and returns ``(x, cache)``:
 
 * ``TRAIN``: full sequence, no cache (``cache`` is None);
 * ``PREFILL``: full sequence from position 0, filling ``cache``;
@@ -26,13 +26,14 @@ from repro_torch.models.common import (
     DENSE,
     MAMBA,
     MAMBA_SHARED_ATTN,
+    MOE,
     RWKV,
     LayerSpec,
     ModelConfig,
     init_dense,
     rms_norm,
 )
-from repro_torch.models.ffn import swiglu
+from repro_torch.models.ffn import moe_ffn, swiglu
 
 TRAIN, PREFILL, DECODE = "train", "prefill", "decode"
 
@@ -59,16 +60,27 @@ class DenseLayer(nn.Module):
         self.wv = new_param((D, KV * hd), dt, device)
         self.wo = new_param((H * hd, D), dt, device)
         self.ln2 = new_param((D,), f32, device)
+        self._ffn_params(cfg, device)
+
+    def _ffn_params(self, cfg, device) -> None:
+        D, dt = cfg.d_model, cfg.dtype
         self.w_gate = new_param((D, cfg.d_ff), dt, device)
         self.w_up = new_param((D, cfg.d_ff), dt, device)
         self.w_down = new_param((cfg.d_ff, D), dt, device)
 
+    def _weights(self):
+        """The fan-in-initialised weights, in JAX's init order."""
+        return (self.wq, self.wk, self.wv, self.wo, self.w_gate, self.w_up,
+                self.w_down)
+
     def init_params(self, g: torch.Generator) -> None:
         self.ln1.zero_()
         self.ln2.zero_()
-        for w in (self.wq, self.wk, self.wv, self.wo, self.w_gate,
-                  self.w_up, self.w_down):
+        for w in self._weights():
             init_dense(w, g)
+
+    def _ffn(self, cfg, h):
+        return swiglu(h, self.w_gate, self.w_up, self.w_down)
 
     def _attn(self, cfg, x, mode, cache, start):
         B, T, D = x.shape
@@ -96,7 +108,30 @@ class DenseLayer(nn.Module):
     def forward(self, cfg, x, mode, cache, start, shared=None):
         x = self._attn(cfg, x, mode, cache, start)
         h = rms_norm(x, self.ln2, cfg.norm_eps)
-        return x + swiglu(h, self.w_gate, self.w_up, self.w_down), cache
+        return x + self._ffn(cfg, h), cache
+
+
+class MoeLayer(DenseLayer):
+    """GQA attention + the capacity-based MoE (JAX ``init_moe_layer`` /
+    ``apply_moe_layer`` on one device): router float32 (D, E), ``w_gate``
+    and ``w_up`` (E, D, F), ``w_down`` (E, F, D) with fan-in F."""
+
+    def _ffn_params(self, cfg, device) -> None:
+        D, Fd, E, dt = cfg.d_model, cfg.d_ff, cfg.num_experts, cfg.dtype
+        self.router = new_param((D, E), torch.float32, device)
+        self.w_gate = new_param((E, D, Fd), dt, device)
+        self.w_up = new_param((E, D, Fd), dt, device)
+        self.w_down = new_param((E, Fd, D), dt, device)
+
+    def _weights(self):
+        return (self.wq, self.wk, self.wv, self.wo, self.router, self.w_gate,
+                self.w_up, self.w_down)
+
+    def _ffn(self, cfg, h):
+        return moe_ffn(h, self.router, self.w_gate, self.w_up, self.w_down,
+                       experts_per_tok=cfg.experts_per_tok,
+                       capacity_factor=cfg.capacity_factor,
+                       block_dispatch=cfg.moe_impl != "naive")
 
 
 def _attn_cache(cfg, B, S_, device) -> dict:
@@ -272,11 +307,11 @@ def _rwkv_cache(cfg, B, device) -> dict:
 
 # --------------------------------------------------------------- registry --
 
-LAYERS = {DENSE: DenseLayer, MAMBA: MambaLayer,
+LAYERS = {DENSE: DenseLayer, MOE: MoeLayer, MAMBA: MambaLayer,
           MAMBA_SHARED_ATTN: MambaSharedLayer, RWKV: RwkvLayer}
 
 # kinds of the JAX package that later slices bring
-LATER = {"moe": "the MoE slice", "enc": "the encoder slice"}
+LATER = {"enc": "the encoder slice"}
 
 
 def layer_class(kind: str):
@@ -291,7 +326,7 @@ def cache_spec(cfg: ModelConfig, spec: LayerSpec, B: int, S_: int,
                device) -> dict:
     """Zero-initialised cache of one layer of the given kind."""
     layer_class(spec.kind)
-    if spec.kind == DENSE:
+    if spec.kind in (DENSE, MOE):
         return _attn_cache(cfg, B, S_, device)
     if spec.kind == MAMBA:
         return _mamba_cache(cfg, B, device)

@@ -3,9 +3,9 @@
 Port of ``repro.models.common``.  A model is a repeating ``pattern`` of
 layer specs applied ``repeats`` times plus a ``tail``; the port keeps the
 layers in one list in the JAX scan's order (layer ``r * len(pattern) + i``,
-then the tail).  Only the fields this slice's code reads are ported; MoE,
-M-RoPE, embedding inputs and the JAX lowering knobs arrive with the code
-that reads them.
+then the tail).  Only the fields the port's code reads are ported; M-RoPE,
+embedding inputs, the encoder flag and the JAX lowering knobs arrive with
+the code that reads them.
 """
 from __future__ import annotations
 
@@ -15,6 +15,7 @@ import math
 import torch
 
 DENSE = "dense"                          # GQA attention + gated MLP
+MOE = "moe"                              # GQA attention + mixture of experts
 MAMBA = "mamba"                          # Mamba-2 SSD block
 MAMBA_SHARED_ATTN = "mamba_shared_attn"  # mamba block + the shared block
 RWKV = "rwkv"                            # RWKV-6 time mix + channel mix
@@ -40,13 +41,21 @@ class ModelConfig:
     pattern: tuple = ()          # tuple[LayerSpec, ...]
     repeats: int = 0
     tail: tuple = ()             # tuple[LayerSpec, ...]
+    # MoE
+    num_experts: int = 0
+    experts_per_tok: int = 0
+    capacity_factor: float = 1.25
+    # "a2a" (JAX: shard_map expert parallelism, which takes the block path
+    # on one device) and "block" dispatch per token block; "naive" is one
+    # block
+    moe_impl: str = "a2a"
     # SSM
     ssm_state: int = 0
     ssm_expand: int = 2
     ssm_head_dim: int = 64
     ssm_conv: int = 4
     shared_attn: bool = False    # zamba2: one attention+MLP block, reused
-    tie_embeddings: bool = False  # lm_head = embed.T (smollm)
+    tie_embeddings: bool = False  # lm_head = embed.T (smollm, gemma3)
     norm_eps: float = 1e-6
     dtype: torch.dtype = torch.bfloat16
     # On CUDA tensors, True launches the flash-attention, SSD and WKV

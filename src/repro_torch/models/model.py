@@ -9,6 +9,7 @@ Port of ``repro.models.model`` for serving:
   model.prefill(tokens, max_seq)    -> (last logits (B, V), Cache)
   model.decode_step(token, cache)   -> (logits (B, V), cache)
   num_params(cfg)                   parameter count, nothing allocated
+  active_params(cfg)                parameters a token touches (MoE: k of E)
 
 JAX scans the stacked ``groups`` and then applies the ``tail``; the port
 keeps one list in that order (layer ``r * len(pattern) + i``, then the
@@ -117,5 +118,17 @@ class Model(nn.Module):
 
 
 def num_params(cfg: ModelConfig) -> int:
-    """Parameter count (the shared block once), allocating nothing."""
+    """Parameter count (the shared block once, every expert), allocating
+    nothing."""
     return sum(p.numel() for p in Model(cfg, device="meta").parameters())
+
+
+def active_params(cfg: ModelConfig) -> int:
+    """Parameters touched per token: an MoE layer's ``E - k`` idle experts
+    (gate, up and down each) left out, as JAX counts them."""
+    total = num_params(cfg)
+    if not cfg.num_experts:
+        return total
+    n_moe = sum(s.kind == "moe" for s in cfg.layer_specs())
+    idle = cfg.num_experts - cfg.experts_per_tok
+    return total - n_moe * idle * 3 * cfg.d_model * cfg.d_ff

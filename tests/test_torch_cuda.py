@@ -391,6 +391,27 @@ def test_flash_sm90_kernel_equals_plain(card, exact_f32, hd, S, causal,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0),
+                                           (True, 100)])
+@pytest.mark.parametrize("S", [1, 77, 300])
+@pytest.mark.parametrize("hd", [8, 16, 80, 256])
+def test_flash_simt_kernel_at_every_width_equals_plain(card, exact_f32, hd, S,
+                                                      causal, window, dtype):
+    """The SIMT kernel at the widths only it takes (the smoke configs' 8
+    and 16, hubert's 80, gemma3's 256), both dtypes, GQA 4 over 2."""
+    q, k, v = _qkv(2, S, 4, 2, hd, dtype, card, seed=S + hd)
+    before = FA.launches
+    got = FA.flash_attention(q, k, v, causal=causal, sliding_window=window)
+    torch.cuda.synchronize()
+    assert FA.launches == before + 1
+    want = FA.flash_attention_plain(q, k, v, causal=causal,
+                                    sliding_window=window)
+    assert got.dtype == dtype and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL[dtype])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("bad", ["hd", "contiguous", "dtype", "device"])
 def test_flash_wrapper_raises_on_bad_inputs(card, bad):
     q, k, v = _qkv(1, 64, 2, 2, 64, torch.float32, card)
@@ -508,14 +529,10 @@ def test_ssd_wrapper_raises_on_bad_inputs(card, bad):
 
 @pytest.mark.cuda
 def test_small_serve_run_goes_through_both_kernels(card):
-    """The zamba2 smoke model has hd 16, which the flash kernel does not
-    take, so the served model widens its heads to 64 (and the SSM's P to
-    64); one cohort's prefill launches each kernel once per layer that
-    runs it, and decode launches none."""
-    import dataclasses
-
-    cfg = dataclasses.replace(get_smoke_config("zamba2-1.2b"), head_dim=64,
-                              ssm_head_dim=64)
+    """The zamba2 smoke model as configured (hd 16, the SIMT flash kernel;
+    P 16, N 16, the tensor-core SSD kernel): one cohort's prefill launches
+    each kernel once per layer that runs it, and decode launches none."""
+    cfg = get_smoke_config("zamba2-1.2b")
     model = Model(cfg, device=card).init_params(
         torch.Generator(device=card).manual_seed(0))
     eng = ServeEngine(model, max_batch=4)
@@ -529,6 +546,29 @@ def test_small_serve_run_goes_through_both_kernels(card):
     assert all(len(r.tokens) == 4 for r in eng.finished)
     assert FA.launches - fa == 2           # shared-attention applications
     assert SSD.launches - ssd == 5         # mamba layers
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["smollm-135m", "deepseek-coder-33b",
+                                  "internlm2-20b", "gemma3-4b",
+                                  "qwen3-moe-235b-a22b", "dbrx-132b"])
+def test_small_serve_run_of_every_attention_model(card, arch):
+    """Each attention model's smoke config (hd 8 or 16) served on the card:
+    one flash launch per layer per cohort, none at decode; prompts up to 89
+    tokens, so gemma3's window of 32 binds."""
+    cfg = get_smoke_config(arch)
+    model = Model(cfg, device=card).init_params(
+        torch.Generator(device=card).manual_seed(0))
+    eng = ServeEngine(model, max_batch=4)
+    rng = np.random.default_rng(1)
+    for _ in range(6):
+        eng.submit(rng.integers(0, cfg.vocab_size, int(rng.integers(5, 90))),
+                   max_new_tokens=4)
+    before = FA.launches
+    stats = eng.run()
+    assert stats["finished"] == 6
+    assert all(len(r.tokens) == 4 for r in eng.finished)
+    assert FA.launches - before == 2 * cfg.num_layers   # two cohorts
 
 
 # the default init's decay, exp(-exp(0.18)): the clamps bind from step 57

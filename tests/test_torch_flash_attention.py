@@ -99,6 +99,22 @@ def test_model_non_causal_window_routes_as_jax(S, window):
         torch.testing.assert_close(got, causal, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("window", [0, 24])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd", [8, 16, 80, 256])
+def test_plain_matches_ref_at_every_head_width(hd, dtype, window):
+    """The head widths JAX's configs use beyond 64 and 128: 8 and 16 (the
+    smoke configs), 80 (hubert-xlarge), 256 (gemma3-4b), GQA 4 over 2 on
+    pre-repeated heads for the reference."""
+    (jq, jk, jv), (q, k, v) = _qkv(2, 96, 4, 2, hd, hd + window, dtype)
+    jk, jv = (jnp.repeat(a, 2, axis=2) for a in (jk, jv))
+    want = ref.flash_attention_ref(jq, jk, jv, causal=True,
+                                   sliding_window=window)
+    got = FA.flash_attention(q, k, v, causal=True, sliding_window=window)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    np.testing.assert_allclose(_f32(got), _f32(want), **TOL[dtype])
+
+
 @pytest.mark.parametrize("S,window", [(100, 0), (77, 20), (1, 0)])
 def test_plain_ragged_s_matches_ref(S, window):
     """Any S (the TPU kernel asserts S % 128 == 0): GQA 9 over 3 against
@@ -167,13 +183,21 @@ def test_wrapper_rejects_bad_inputs(bad):
                            else 0)
 
 
-@pytest.mark.parametrize("dtype,lib,symbol,ints", [
-    ("bfloat16", "flash_attention_sm90", "flash_attention_sm90_launch", 8),
-    ("float32", "flash_attention", "flash_attention_launch", 9),
+@pytest.mark.parametrize("dtype,hd,lib,symbol,ints", [
+    ("bfloat16", 64, "flash_attention_sm90", "flash_attention_sm90_launch", 8),
+    ("bfloat16", 128, "flash_attention_sm90", "flash_attention_sm90_launch",
+     8),
+    ("float32", 64, "flash_attention", "flash_attention_launch", 9),
+    ("float32", 256, "flash_attention", "flash_attention_launch", 9),
+    ("bfloat16", 256, "flash_attention", "flash_attention_launch", 9),
+    ("bfloat16", 80, "flash_attention", "flash_attention_launch", 9),
+    ("bfloat16", 16, "flash_attention", "flash_attention_launch", 9),
+    ("float32", 8, "flash_attention", "flash_attention_launch", 9),
 ])
-def test_launch_routes_by_dtype(monkeypatch, dtype, lib, symbol, ints):
-    """bf16 goes to the wgmma/TMA kernel, float32 to the SIMT one; one
-    launch, counted once, and nothing else is tried."""
+def test_launch_routes_by_dtype(monkeypatch, dtype, hd, lib, symbol, ints):
+    """A fixed route by (dtype, hd): bf16 at hd 64 and 128 goes to the
+    wgmma/TMA kernel, every other pair to the SIMT one (with its dtype
+    code); one launch, counted once, and nothing else is tried."""
     calls = []
 
     class Fn:
@@ -198,7 +222,7 @@ def test_launch_routes_by_dtype(monkeypatch, dtype, lib, symbol, ints):
     fns = {}
     monkeypatch.setattr(FA.build, "load", Lib)
     monkeypatch.setattr(FA.build, "device_and_stream", lambda t: (0, 7))
-    _, (q, k, v) = _qkv(2, 40, 4, 2, 64, 5, dtype)
+    _, (q, k, v) = _qkv(2, 40, 4, 2, hd, 5, dtype)
     before = FA.launches
     out = FA._launch(q, k, v, True, 16)
     assert FA.launches == before + 1
@@ -206,8 +230,23 @@ def test_launch_routes_by_dtype(monkeypatch, dtype, lib, symbol, ints):
     assert len(calls) == 1 and calls[0][0] == lib
     args = calls[0][1]
     assert len(fns[symbol].argtypes) == 4 + ints + 1
-    assert args[4:11] == (2, 40, 4, 2, 64, 1, 16) and args[-2:] == (0, 7)
+    assert args[4:11] == (2, 40, 4, 2, hd, 1, 16) and args[-2:] == (0, 7)
     assert len(args) == 4 + ints + 1
+    if ints == 9:
+        assert args[11] == FA._DTYPES[TORCH[dtype]]
+
+
+@pytest.mark.parametrize("hd", [4, 32, 96, 512])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_launch_refuses_other_head_widths(monkeypatch, hd, dtype):
+    """A width no kernel takes raises before anything is loaded or
+    launched."""
+    monkeypatch.setattr(FA.build, "load", lambda name: pytest.fail(name))
+    _, (q, k, v) = _qkv(1, 16, 2, 2, hd, 8, dtype)
+    before = FA.launches
+    with pytest.raises(ValueError, match="hd"):
+        FA._launch(q, k, v, True, 0)
+    assert FA.launches == before
 
 
 def test_launch_raises_on_a_failed_launch(monkeypatch):

@@ -1,10 +1,12 @@
 """The port's models (``repro_torch.models``) against ``repro.models`` on
 the same weights: ``model_params_from_numpy`` carries JAX's
 ``init_params`` tree into the port, then prefill logits, every cache leaf
-and the decode step's logits are compared on the zamba2, smollm and rwkv6
-smoke configs, in float32 (the algorithm; tight) and bfloat16 (the
-working type; loose), plus the port's own prefill-then-decode against its
-full forward."""
+and the decode step's logits are compared on the smoke configs of every
+ported architecture (zamba2, smollm, rwkv6, the dense deepseek-coder and
+internlm2, gemma3 with its window of 32 binding at T 128, the MoE qwen3
+and dbrx), in float32 (the algorithm; tight) and bfloat16 (the working
+type; loose), plus the port's own prefill-then-decode against its full
+forward."""
 import dataclasses
 
 import jax
@@ -20,7 +22,8 @@ from repro_torch import configs as tconfigs
 from repro_torch.convert import model_params_from_numpy
 from repro_torch.models import model as TM
 
-ARCHS = ["zamba2-1.2b", "smollm-135m", "rwkv6-7b"]
+ARCHS = ["zamba2-1.2b", "smollm-135m", "rwkv6-7b", "deepseek-coder-33b",
+         "internlm2-20b", "gemma3-4b", "qwen3-moe-235b-a22b", "dbrx-132b"]
 # float32: the same arithmetic in another order (XLA's fused scans against
 # torch's ops), a few ulps per layer.  bfloat16: the port rounds to bf16
 # wherever JAX's code casts, but XLA on the CPU keeps elementwise chains
@@ -200,6 +203,11 @@ def test_prefill_then_decode_matches_forward(arch, T_):
     """decode(prefill(x[:-1]), x[-1]) equals forward(x) at the last
     position (float32; a ragged length too, which JAX cannot prefill)."""
     _, tcfg = _configs(arch, "float32")
+    if tcfg.num_experts:
+        # capacity drops depend on the tokens in a call; full capacity makes
+        # the routing per token, as tests/test_archs_smoke.py does for JAX
+        tcfg = dataclasses.replace(
+            tcfg, capacity_factor=tcfg.num_experts / tcfg.experts_per_tok)
     model = TM.Model(tcfg, device="cpu").init_params(
         torch.Generator().manual_seed(3))
     toks = torch.from_numpy(_tokens(tcfg, 3, T_)).long()
@@ -216,6 +224,12 @@ def test_prefill_then_decode_matches_forward(arch, T_):
 def test_num_params_matches_jax(arch):
     assert TM.num_params(tconfigs.get_config(arch)) == \
         M.num_params(jget_config(arch))
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_active_params_matches_jax(arch):
+    assert TM.active_params(tconfigs.get_config(arch)) == \
+        M.active_params(jget_config(arch))
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -272,8 +286,7 @@ def test_smollm_ties_its_embeddings():
     assert m.lm_head is None
 
 
-@pytest.mark.parametrize("name", ["dbrx-132b", "qwen3-moe-235b-a22b",
-                                  "hubert-xlarge", "gemma3-4b"])
+@pytest.mark.parametrize("name", ["hubert-xlarge", "qwen2-vl-72b"])
 def test_later_architectures_raise(name):
     with pytest.raises(NotImplementedError):
         tconfigs.get_config(name)
@@ -286,3 +299,26 @@ def test_converter_rejects_a_mismatched_tree():
     del params["groups"][0]["wq"]
     with pytest.raises(ValueError):
         model_params_from_numpy(tcfg, params, device="cpu")
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_lm_head_tied_as_jax(arch):
+    """``lm_head`` exists exactly where JAX's tree has one (gemma3 and
+    smollm tie it to the embedding; deepseek-coder and internlm2 do not)."""
+    jtree = jax.eval_shape(lambda: M.init_params(jget_smoke(arch),
+                                                 jax.random.PRNGKey(0)))
+    m = TM.Model(tconfigs.get_smoke_config(arch), device="meta")
+    assert (m.lm_head is not None) == ("lm_head" in jtree)
+    full = TM.Model(tconfigs.get_config(arch), device="meta")
+    assert (full.lm_head is None) == tconfigs.get_config(arch).tie_embeddings
+
+
+@pytest.mark.parametrize("arch", ["gemma3-4b", "deepseek-coder-33b"])
+def test_each_layer_keeps_its_rope_theta_and_window(arch):
+    cfg = tconfigs.get_config(arch)
+    jcfg = jget_config(arch)
+    m = TM.Model(cfg, device="meta")
+    jspecs = list(jcfg.pattern) * jcfg.repeats + list(jcfg.tail)
+    assert [(layer.spec.rope_theta, layer.spec.sliding_window)
+            for layer in m.layers] == [(s.rope_theta, s.sliding_window)
+                                       for s in jspecs]
