@@ -10,8 +10,9 @@ Phases, each printed with its numbers and wall time:
    ``wkv`` kernels kept in ``tools/earlier/`` to be timed beside their
    replacements (one ``nvcc`` per source, all at once), print the
    registers, shared memory and spills of ``runqlat_hist``,
-   ``rollout_tick``, ``flash_attention_sm90``, ``ssd_sm90`` and ``wkv``,
-   the ``HGMMA`` instructions in ``flash_attention_sm90``'s SASS and the
+   ``rollout_tick``, ``ssd_sm90`` and ``wkv``, and of each head width of
+   ``flash_attention_sm90`` (64, 80, 128, 256; a missing one is a
+   failure), the ``HGMMA`` instructions in ``flash_attention_sm90``'s SASS and the
    ``HMMA`` ones in ``ssd_sm90``'s (none is a failure);
 2. hold ``runqlat_hist`` against its plain version on the card: a tick's
    two sets through the one-launch entry with broadcast masks exactly,
@@ -106,7 +107,8 @@ Phases, each printed with its numbers and wall time:
     cohort's prefill with ``use_kernels=False`` against the kernel path,
     in bf16 and with the same weights in float32, prefill(x[:-1]) +
     decode(x[-1]) against the full forward (kernel and plain paths), and a
-    profile of one cohort's prefill and of eight decode steps;
+    profile of one cohort's prefill and of eight decode steps (device
+    time, busy share, the flash kernels' share of the device time);
 20. ``wkv`` (y and final state) against its plain version at rwkv6-7b's
     prefill shapes (B 4, T 1024, H 64, P 64, float32) at the served decay
     0.302 (where the chunked form's 1e-30 floors bind) and at real decays
@@ -119,12 +121,14 @@ Phases, each printed with its numbers and wall time:
     launches per cohort, none at decode), the same checks (prefill +
     decode against the forward over a cohort's first 64 tokens) and
     profiles;
-22. ``flash_widths``: the SIMT flash kernel (``csrc/flash_attention.cu``)
-    against its plain version at every head width the wgmma kernel does
-    not take, in both dtypes (hd 8, 16, 80, 256 at B 2, S 1000, H 8 over
-    KV 4), and at gemma3-4b's prefill (B 4, S 2048, H 8 over 4, hd 256,
-    bf16) for its global layer (causal) and its local one (window 1,024),
-    each timed beside the plain version and SDPA;
+22. ``flash_widths``: ``flash_attention`` against its plain version at
+    every head width beyond 64 and 128, in both dtypes (hd 8, 16, 80, 256
+    at B 2, S 1000, H 8 over KV 4), and at gemma3-4b's prefill (B 4, S
+    2048, H 8 over 4, hd 256, bf16) for its global layer (causal) and its
+    local one (window 1,024), each timed beside the plain version and
+    SDPA; bf16 at hd 80 and 256 must route to the wgmma kernel, which is
+    timed beside the SIMT kernel on the same inputs, the rest to the SIMT
+    kernel (``csrc/flash_attention.cu``);
 23-27. the same serving path (``SERVE_FAMILIES``) for gemma3-4b (full
     depth, 3.88 B parameters, prompts of 1,025-2,048 tokens so that its
     window binds), internlm2-20b and deepseek-coder-33b (full depth, 19.86
@@ -141,7 +145,7 @@ Phases, each printed with its numbers and wall time:
     binned once, the histograms equal to the plain version's;
 29. ``colocation``: ``examples/torch_colocation_sim.py`` ``--selftest``
     and its demo on the card (ICO places 14 pods, the smollm smoke model
-    serves 8 requests through the SIMT flash kernel, Eq. 1 of its
+    serves 8 requests through the SIMT flash kernel (hd 16), Eq. 1 of its
     runqlat histogram).
 
 Then it prints the card's name and power limit, one JSON line of kernel
@@ -369,6 +373,21 @@ def ptxas_summary(log):
     return out
 
 
+def flash_instantiations(log):
+    """ptxas's numbers for each instantiation of ``flash_sm90_kernel``,
+    keyed by its head width (the mangled name's first template argument;
+    the second, where there is one, is the tiles' width)."""
+    import re
+
+    out = {}
+    for entry, nums in ptxas_summary(log).items():
+        m = re.search(r"flash_sm90_kernelILi(\d+)E(?:Li(\d+)E)?", entry)
+        if m:
+            out[f"hd{m.group(1)}"] = dict(
+                tile_width=int(m.group(2) or m.group(1)), **nums)
+    return out
+
+
 def sass_count(path, opcode):
     """How many instructions of ``opcode`` ``cuobjdump -sass`` finds in the
     library at ``path``."""
@@ -404,7 +423,8 @@ def loaded_cluster(Cluster, make_fleet, Pod, W, num_nodes, device, seed=0):
 def device_profile(torch, fn, per, unit):
     """Run ``fn()`` once under ``torch.profiler``: wall ms, device time and
     kernel launches per ``unit`` (``per`` units in the run), the device's
-    busy share, and the top six kernels by device time."""
+    busy share, the share of device time in the flash kernels, and the top
+    six kernels by device time."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -416,10 +436,13 @@ def device_profile(torch, fn, per, unit):
     rows = [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA]
     device_us = sum(e.self_device_time_total for e in rows)
+    flash_us = sum(e.self_device_time_total for e in rows
+                   if "flash" in e.key)
     top = sorted(rows, key=lambda e: -e.self_device_time_total)[:6]
     return {f"profiled_ms_per_{unit}": wall_s * 1e3 / per,
             "device_busy_share": device_us * 1e-6 / wall_s,
             f"device_us_per_{unit}": device_us / per,
+            "flash_device_share": flash_us / device_us if device_us else 0.0,
             f"kernels_per_{unit}": sum(e.count for e in rows) / per,
             "top": json.dumps([[e.key[:48], e.self_device_time_total / per,
                                 e.count / per] for e in top])}
@@ -762,9 +785,9 @@ def phase_flash_kernel(torch, FA, build, card):
 
 
 # gemma3-4b's prefill (B 4, S 2,048, H 8 over KV 4, hd 256), its global and
-# its local (window 1,024) layers, then each width only the SIMT kernel
-# takes (the smoke configs' 8 and 16, hubert-xlarge's 80, gemma3's 256) in
-# both dtypes at a ragged GQA shape
+# its local (window 1,024) layers, then the widths beyond 64 and 128 (the
+# smoke configs' 8 and 16, hubert-xlarge's 80, gemma3's 256) in both dtypes
+# at a ragged GQA shape
 WIDTH_CASES = [("gemma3_global", 4, 2048, 8, 4, 256, "bfloat16", 0, 50),
                ("gemma3_local", 4, 2048, 8, 4, 256, "bfloat16", 1024, 50)] + [
     (f"hd{hd}_{dt}", 2, 1000, 8, 4, hd, dt, 0, 100)
@@ -772,15 +795,20 @@ WIDTH_CASES = [("gemma3_global", 4, 2048, 8, 4, 256, "bfloat16", 0, 50),
 
 
 def phase_flash_widths(torch, FA, build, card):
-    """The SIMT kernel at every head width the wgmma kernel does not take,
-    against the plain version, timed beside it and SDPA (``_flash_case``);
-    fewer timed calls at gemma3's shape, whose plain version takes ms."""
+    """``flash_attention`` at every head width beyond 64 and 128 against
+    the plain version, timed beside it and SDPA (``_flash_case``): bf16 at
+    hd 80 and 256 (gemma3's layers among them) on the wgmma kernel, timed
+    beside the SIMT kernel on the same inputs, the rest on the SIMT
+    kernel; fewer timed calls at gemma3's shape, whose plain version takes
+    ms."""
     g = torch.Generator(device=card).manual_seed(2)
     out = {}
     for name, B, S, H, KV, hd, dt, window, iters in WIDTH_CASES:
         out[name] = _flash_case(torch, FA, build, g, card, name, B, S, H, KV,
                                 hd, getattr(torch, dt), window, iters)
-        if out[name]["kernel"] != "flash_attention":
+        want = ("flash_attention_sm90" if dt == "bfloat16" and hd in (80, 256)
+                else "flash_attention")
+        if out[name]["kernel"] != want:
             raise AssertionError(f"{name} routed to {out[name]['kernel']}")
     return out
 
@@ -2148,10 +2176,14 @@ def main() -> int:
         build.load("wkv", EARLIER)
     done("build", ptxas=json.dumps({
         k: v.strip().splitlines()[-2:] for k, v in build.build_logs.items()}))
-    for name in ("runqlat_hist", "rollout_tick", "flash_attention_sm90",
-                 "ssd_sm90", "wkv"):
+    for name in ("runqlat_hist", "rollout_tick", "ssd_sm90", "wkv"):
         say("build", kernel=name, ptxas=json.dumps(
             ptxas_summary(build.build_logs.get(name, ""))))
+    flash_log = build.build_logs.get("flash_attention_sm90", "")
+    inst = flash_instantiations(flash_log)
+    say("build", flash_attention_sm90_instantiations=json.dumps(inst))
+    if flash_log and sorted(inst) != ["hd128", "hd256", "hd64", "hd80"]:
+        raise AssertionError(f"flash_sm90_kernel instantiations: {inst}")
     hgmma = sass_count(libs["flash_attention_sm90"], "HGMMA")
     hmma = sass_count(libs["ssd_sm90"], "HMMA")
     say("build", flash_attention_sm90_hgmma_instructions=hgmma,
@@ -2206,8 +2238,9 @@ def main() -> int:
             check_len=64)
     done("serve_rwkv6")
 
-    # 22. the SIMT flash kernel at every width the wgmma kernel does not
-    # take, gemma3-4b's prefill among them
+    # 22. flash at every width beyond 64 and 128, gemma3-4b's prefill among
+    # them: bf16 at 80 and 256 on the wgmma kernel (the SIMT kernel timed
+    # beside it), the rest on the SIMT kernel
     with timers.phase("flash_widths"):
         widths = phase_flash_widths(torch, FA, build, card)
     for name, nums in widths.items():
@@ -2273,6 +2306,10 @@ def main() -> int:
         "max_abs_err": max(c["max_abs_err"]
                            for c in (*flash.values(), *widths.values())),
         "width_max_abs_err": {k: c["max_abs_err"] for k, c in widths.items()},
+        "sm90_widths": {k: {f: widths[k][f] for f in (
+            "ms", "simt_ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by")} for k in ("gemma3_global", "gemma3_local",
+                                   "hd80_bfloat16", "hd256_bfloat16")},
         "ms": flash["main"]["ms"], "plain_ms": flash["main"]["plain_ms"],
         "bound_ms": flash["main"]["bound_ms"],
         "bound_by": flash["main"]["bound_by"],

@@ -43,8 +43,11 @@
 // one block of 256 threads an SM (ptxas: 231 registers in bf16, 238 in
 // float32, no spills), a first kernel that is right and slow: 5.94 ms at
 // gemma3-4b's prefill (B 4, S 2048, H 8 over 4, causal, bf16) on an H100
-// SXM at 700 W, against a 69 us bound and 0.14 ms for PyTorch's SDPA (the
-// wgmma kernel takes only hd 64 and 128).
+// SXM at 700 W, against a 69 us bound and 0.14 ms for PyTorch's SDPA.  The
+// port routes bf16 at hd 64, 80, 128 and 256 to the wgmma kernel
+// (flash_attention_sm90.cu); this one takes float32 at every width and
+// bf16 at hd 8 and 16, and is still built at bf16 80 and 256 to be timed
+// beside the wgmma kernel.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 

@@ -1,7 +1,8 @@
 // Forward flash attention for Hopper (sm_90a), bfloat16: wgmma fed by TMA.
 //
 // Replaces repro/kernels/flash_attention.py::flash_attention_pallas (body
-// _flash_kernel) for bf16 inputs; float32 inputs keep flash_attention.cu.
+// _flash_kernel) for bf16 inputs at hd 64, 80, 128 and 256; float32 inputs,
+// and bf16 at hd 8 and 16, keep flash_attention.cu.
 // Computes, for q (B, S, H, hd) and k, v (B, S, KV, hd) with H % KV == 0,
 // query head h reading KV head h / (H / KV):
 //   o[b, i, h] = sum_j softmax_j(mask(q_i . k_j * hd^-1/2)) v_j
@@ -19,9 +20,12 @@
 //
 // Bound (zamba2-1.2b's prefill: B 4, S 1024, H 32, hd 64, causal): q, k, v
 // and o are 67 MB, 20 us at 3.35 TB/s; the causal products are 17.2 GFLOP,
-// 17 us at the 989 TFLOP/s of bf16 tensor cores.  Bytes bound it, barely,
-// so the design keeps the tensor cores fed and every tile read once a
-// work item:
+// 17 us at the 989 TFLOP/s of bf16 tensor cores.  At gemma3-4b's prefill
+// (B 4, S 2048, H 8 over KV 4, hd 256) the causal products are 68.8 GFLOP,
+// 70 us, and the 101 MB of q, k, v and o 30 us: operations bound it, and
+// a K / V tile is read from L2 by every item of its KV head (~0.56 GB in
+// all).  Either way the design keeps the tensor cores fed and every tile
+// read once a work item:
 //   * a work item is one (b, h) and 128 query rows; the kernel is
 //     persistent, one block an SM, each block walking the items numbered
 //     heaviest first (the last query tile of every (b, h), which sees the
@@ -32,19 +36,32 @@
 //     the next item while the consumers finish one; setmaxnreg moves
 //     registers from the producer (24) to the consumers (240);
 //   * Q is loaded once an item by TMA, into a buffer the consumers release
-//     after the item's last S; K and V tiles of 128 keys stream through a
-//     three-stage ring in shared memory, each stage with a full barrier for
-//     K, one for V (TMA completes their byte counts) and an empty barrier
-//     on which every consumer warp arrives when it is done with the stage;
-//   * every tile lands in the 128-byte swizzle, rows of 64 bf16, an hd of
-//     128 as two such column chunks, which is the layout wgmma reads;
-//   * S = Q K^T is wgmma m64n128k16 with both operands in shared memory
-//     (K-major), accumulating in float32 registers; the online softmax
+//     after the item's last S; K and V tiles stream through a ring in
+//     shared memory, each stage with a full barrier for K and one for V
+//     (TMA completes their byte counts) and an empty barrier for each, on
+//     which every consumer warp arrives: for K once its S has landed, for
+//     V once its P V has, so the producer refills a K slot a step early;
+//   * the ring by head width: 128 keys a tile in three stages at hd 64,
+//     80 and 128 (Q 32 KB, ring <= 192 KB); at hd 256 Q alone is 64 KB,
+//     so 64 keys a tile in two stages (ring 128 KB, 193 KB in all);
+//   * every tile lands in the 128-byte swizzle, rows of 64 bf16, a wider
+//     hd as two or four such column chunks, which is the layout wgmma
+//     reads; hd 80 takes two chunks, TMA zero-filling columns 80-127 past
+//     the tensor's edge (its rows are 160 bytes, which no 128-byte chunk
+//     divides);
+//   * S = Q K^T is wgmma m64n128k16 (m64n64k16 at hd 256) with both
+//     operands in shared memory (K-major), over the hd / 16 column steps
+//     that hold data (5 at hd 80), accumulating in float32 registers; at
+//     hd 256 O is 128 float32 registers a thread, S 32 and P 16, under the
+//     consumers' 240; the online softmax
 //     runs on that fragment (two rows a thread, row max and sum across the
 //     four threads of a row by shuffles);
-//   * O += P V is wgmma m64n64k16 with P, rounded to bf16, as the register
-//     A operand (the accumulator fragment is the A fragment's layout) and
-//     V read from shared memory as an MN-major B operand;
+//   * O += P V is wgmma m64n64k16, one per column chunk and 16 keys, with
+//     P, rounded to bf16, as the register A operand (the accumulator
+//     fragment is the A fragment's layout) and V read from shared memory
+//     as an MN-major B operand; at hd 80 the second chunk's product runs
+//     on 16 real columns and 48 zero ones, and only the 80 real columns
+//     are rescaled and stored;
 //   * the two consumer warpgroups take turns issuing their products (named
 //     barriers), so one warpgroup's softmax overlaps the other's products;
 //   * within a warpgroup the two products overlap the softmax: the next
@@ -70,22 +87,25 @@
 namespace {
 
 constexpr int kBM = 128;          // query rows per work item
-constexpr int kBN = 128;          // keys per K / V tile
-constexpr int kStages = 3;
 constexpr int kConsumers = 2;     // warpgroups of 64 query rows
 constexpr int kThreads = 128 * (kConsumers + 1);
 constexpr int kRowBytes = 128;    // a swizzled tile row: 64 bf16
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
-// Byte offsets in the block's shared memory (1024-byte aligned).  Tile
-// chunk c (hd columns 64c..64c+63) of a tile of R rows sits at
-// c * R * 128 within the tile.
-template <int HD>
-struct Layout {
-  static constexpr int kChunks = HD / 64;
-  static constexpr int kQBytes = kBM * HD * 2;
-  static constexpr int kTileBytes = kBN * HD * 2;
+// The tiles of a head width hd are TW columns wide: hd rounded up to whole
+// 64-column chunks (TMA zero-fills the columns past hd).  K / V tiles hold
+// kBN keys in a ring of kStages; at TW 256 the ring is shallower so that
+// Q (64 KB) and the ring (2 x 64 KB) fit in a block's 227 KB.  Byte
+// offsets in the block's shared memory (1024-byte aligned): chunk c
+// (columns 64c..64c+63) of a tile of R rows sits at c * R * 128.
+template <int TW>
+struct Config {
+  static constexpr int kChunks = TW / 64;
+  static constexpr int kBN = TW == 256 ? 64 : 128;
+  static constexpr int kStages = TW == 256 ? 2 : 3;
+  static constexpr int kQBytes = kBM * TW * 2;
+  static constexpr int kTileBytes = kBN * TW * 2;
   static constexpr int kQ = 0;
   static constexpr int kK = kQ + kQBytes;                  // + s * kTileBytes
   static constexpr int kV = kK + kStages * kTileBytes;
@@ -172,6 +192,19 @@ __device__ __forceinline__ void fence_regs(float* r) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
+// A consumer thread's first row in its warpgroup's 64 (the fragment's row
+// r_lo; r_lo + 8 is its other) and its first column in an 8-wide chunk,
+// computed where they are used (the masks of cut tiles, the store) rather
+// than held across the KV loop: at hd 256 the consumers' 240 registers
+// are full, and holding them spilled.
+struct Lane {
+  int row, col;
+};
+__device__ __forceinline__ Lane lane_coords() {
+  const int t = threadIdx.x % 128;
+  return {(t / 32) * 16 + (t % 32) / 4, (t % 4) * 2};
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
@@ -188,22 +221,32 @@ __device__ __forceinline__ float ex2(float x) {
 // One online-softmax step on an S fragment of kBN keys (two rows a thread:
 // row r_lo holds values 0, 1 of each 8-key chunk, row r_lo + 8 values 2,
 // 3), in place: scores to log2 units, masked to -1e30 when the tile is cut
-// by a mask (`edge`; row r keeps keys in [lo[r], hi[r]]), the new row max
-// across the row's four threads, then p = 2^(s - m).  Updates m and the
-// thread's share of l; returns in `al` the factor by which the row's
-// accumulator must shrink.
+// by a mask (`edge`; row r keeps keys in [r - window, r] when causal, in
+// [0, S) otherwise; the thread's rows and the bounds are computed here, on
+// cut tiles only, so that they hold no registers across the KV loop), the
+// new row max across the row's four threads, then p = 2^(s - m).  Updates
+// m and the thread's share of l; returns in `al` the factor by which the
+// row's accumulator must shrink.
+template <int kBN>
 __device__ __forceinline__ void softmax_step(
-    float* sc, bool edge, int kt, int cq, const int (&lo)[2],
-    const int (&hi)[2], float scale_log2, float (&m)[2], float (&l)[2],
-    float (&al)[2]) {
+    float* sc, bool edge, int kt, int row0, int S, int causal, int window,
+    float scale_log2, float (&m)[2], float (&l)[2], float (&al)[2]) {
 #pragma unroll
   for (int i = 0; i < kBN / 2; ++i) sc[i] *= scale_log2;
   if (edge) {
+    const Lane ln = lane_coords();
+    int lo[2], hi[2];  // keys row r_lo + 8 k2 keeps: [lo[k2], hi[k2]]
+#pragma unroll
+    for (int k2 = 0; k2 < 2; ++k2) {
+      const int row = row0 + ln.row + 8 * k2;
+      lo[k2] = window > 0 ? row - window : 0;
+      hi[k2] = causal ? min(row, S - 1) : S - 1;
+    }
 #pragma unroll
     for (int j = 0; j < kBN / 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int key = kt + 8 * j + cq + (e & 1);
+        const int key = kt + 8 * j + ln.col + (e & 1);
         if (key < lo[e / 2] || key > hi[e / 2]) sc[4 * j + e] = kNegInf;
       }
     }
@@ -261,6 +304,38 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float* d, uint64_t desc_a,
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
+// d[32] += A (64 x 16, shared) * B (16 x 64, shared)^T; both K-major.
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float* d, uint64_t desc_a,
+                                                   uint64_t desc_b,
+                                                   int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31},"
+      " %32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// S += Q K^T over 16 hd columns for a K tile of kBN keys.
+template <int kBN>
+__device__ __forceinline__ void wgmma_s(float* d, uint64_t desc_a,
+                                        uint64_t desc_b, int scale_d) {
+  if constexpr (kBN == 128)
+    wgmma_m64n128k16_ss(d, desc_a, desc_b, scale_d);
+  else
+    wgmma_m64n64k16_ss(d, desc_a, desc_b, scale_d);
+}
+
 // d[32] += A (64 x 16, registers: P in bf16) * B (16 x 64, shared), B
 // MN-major (the V tile as TMA stores it: keys by rows, hd contiguous).
 __device__ __forceinline__ void wgmma_m64n64k16_rs(float* d, const uint32_t* a,
@@ -290,6 +365,7 @@ struct Item {
   int b, h, q0, k_begin, n_tiles;
 };
 
+template <int kBN>
 __device__ __forceinline__ Item item_at(int w, int S, int H, int B,
                                         int n_qtiles, int causal,
                                         int window) {
@@ -304,21 +380,25 @@ __device__ __forceinline__ Item item_at(int w, int S, int H, int B,
   return it;
 }
 
-template <int HD>
+// HD: the head width; TW: the tiles' width (HD rounded up to 64 columns).
+template <int HD, int TW>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                   const __grid_constant__ CUtensorMap tk,
                   const __grid_constant__ CUtensorMap tv,
                   __nv_bfloat16* __restrict__ o, int B, int S, int H, int KV,
                   int causal, int window, float scale_log2, int n_qtiles) {
-  using L = Layout<HD>;
+  using C = Config<TW>;
+  constexpr int kBN = C::kBN, kStages = C::kStages;
+  static_assert(HD % 16 == 0 && HD <= TW && TW - HD < 64, "tile width");
   extern __shared__ uint8_t smem_raw[];
-  // Q full, Q empty; per stage: K full, V full, empty
-  __shared__ __align__(8) uint64_t bars[2 + 3 * kStages];
+  // Q full, Q empty; per stage: K full, V full, K empty, V empty
+  __shared__ __align__(8) uint64_t bars[2 + 4 * kStages];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
   const uint32_t bar_q = smem_u32(bars), bar_q_empty = bar_q + 8;
   const uint32_t bar_k = bar_q + 16, bar_v = bar_k + 8 * kStages;
-  const uint32_t bar_empty = bar_v + 8 * kStages;
+  const uint32_t bar_k_empty = bar_v + 8 * kStages;
+  const uint32_t bar_v_empty = bar_k_empty + 8 * kStages;
   const int n_items = n_qtiles * H * B;
 
   const int tid = threadIdx.x;
@@ -328,7 +408,8 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     for (int s = 0; s < kStages; ++s) {
       mbar_init(bar_k + 8 * s, 1);
       mbar_init(bar_v + 8 * s, 1);
-      mbar_init(bar_empty + 8 * s, kConsumers * 4);
+      mbar_init(bar_k_empty + 8 * s, kConsumers * 4);
+      mbar_init(bar_v_empty + 8 * s, kConsumers * 4);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -343,28 +424,30 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       int ring = 0;  // K/V tiles loaded so far, across items
       int i = 0;
       for (int w = blockIdx.x; w < n_items; w += gridDim.x, ++i) {
-        const Item it = item_at(w, S, H, B, n_qtiles, causal, window);
+        const Item it = item_at<kBN>(w, S, H, B, n_qtiles, causal, window);
         const int kvh = it.h / (H / KV);
         mbar_wait(bar_q_empty, (i & 1) ^ 1);
-        mbar_expect_tx(bar_q, L::kQBytes);
+        mbar_expect_tx(bar_q, C::kQBytes);
 #pragma unroll
-        for (int c = 0; c < L::kChunks; ++c)
-          tma_load(base + L::kQ + c * kBM * kRowBytes, &tq, bar_q, 64 * c,
+        for (int c = 0; c < C::kChunks; ++c)
+          tma_load(base + C::kQ + c * kBM * kRowBytes, &tq, bar_q, 64 * c,
                    it.h, it.q0, it.b);
         for (int n = 0; n < it.n_tiles; ++n, ++ring) {
           const int s = ring % kStages;
-          mbar_wait(bar_empty + 8 * s, ((ring / kStages) & 1) ^ 1);
+          const uint32_t parity = ((ring / kStages) & 1) ^ 1;
           const int kt = it.k_begin + n * kBN;
-          const uint32_t tile = s * L::kTileBytes;
-          mbar_expect_tx(bar_k + 8 * s, L::kTileBytes);
+          const uint32_t tile = s * C::kTileBytes;
+          mbar_wait(bar_k_empty + 8 * s, parity);
+          mbar_expect_tx(bar_k + 8 * s, C::kTileBytes);
 #pragma unroll
-          for (int c = 0; c < L::kChunks; ++c)
-            tma_load(base + L::kK + tile + c * kBN * kRowBytes, &tk,
+          for (int c = 0; c < C::kChunks; ++c)
+            tma_load(base + C::kK + tile + c * kBN * kRowBytes, &tk,
                      bar_k + 8 * s, 64 * c, kvh, kt, it.b);
-          mbar_expect_tx(bar_v + 8 * s, L::kTileBytes);
+          mbar_wait(bar_v_empty + 8 * s, parity);
+          mbar_expect_tx(bar_v + 8 * s, C::kTileBytes);
 #pragma unroll
-          for (int c = 0; c < L::kChunks; ++c)
-            tma_load(base + L::kV + tile + c * kBN * kRowBytes, &tv,
+          for (int c = 0; c < C::kChunks; ++c)
+            tma_load(base + C::kV + tile + c * kBN * kRowBytes, &tv,
                      bar_v + 8 * s, 64 * c, kvh, kt, it.b);
         }
       }
@@ -374,13 +457,14 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     // Software pipeline: while O += P_n V_n runs on the tensor cores, the
     // next tile's S = Q K_{n+1}^T is already issued ahead of it and its
     // softmax runs as soon as it lands; only the accumulator's rescale
-    // and P's conversion wait for P_n V_n to finish.
+    // and P's conversion wait for P_n V_n to finish.  K_n is released as
+    // soon as S_n has landed, V_n once P_n V_n has, so that the producer
+    // refills a K slot a step before the V slot beside it.
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
-    const int t = tid % 128, warp = t / 32, lane = t % 32;
-    const int cq = (lane % 4) * 2;              // first column of a chunk
-    const uint32_t q_base = base + L::kQ + wg * 64 * kRowBytes;
+    const bool lead = tid % 32 == 0;            // the warp's lane 0
+    const uint32_t q_base = base + C::kQ + wg * 64 * kRowBytes;
 
-    float acc[HD / 2];  // O: HD/8 chunks of 8 columns, 4 values a thread
+    float acc[TW / 2];  // O: TW/8 chunks of 8 columns, 4 values a thread
     float sc[kBN / 2];  // S, then P: kBN/8 chunks
     uint32_t pa[kBN / 4];  // P in bf16: A fragments, 4 per 16 keys
     float m[2], l[2], al[2];
@@ -403,15 +487,15 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     int ring = 0;  // K/V tiles consumed so far, across items
     int i = 0;
     for (int w = blockIdx.x; w < n_items; w += gridDim.x, ++i) {
-      const Item it = item_at(w, S, H, B, n_qtiles, causal, window);
+      const Item it = item_at<kBN>(w, S, H, B, n_qtiles, causal, window);
       const int row0 = it.q0 + wg * 64;         // the warpgroup's first row
-      const int r_lo = row0 + warp * 16 + lane / 4, r_hi = r_lo + 8;
 #pragma unroll
-      for (int j = 0; j < HD / 2; ++j) acc[j] = 0.f;
+      for (int j = 0; j < TW / 2; ++j) acc[j] = 0.f;
       m[0] = m[1] = kNegInf;
       l[0] = l[1] = 0.f;
 
-      // S = Q K_n^T into sc (issued, committed, not waited for)
+      // S = Q K_n^T into sc (issued, committed, not waited for), over the
+      // HD / 16 column steps that hold data
       auto issue_s = [&](int n) {
         const int s = (ring + n) % kStages;
         mbar_wait(bar_k + 8 * s, ((ring + n) / kStages) & 1);
@@ -420,9 +504,9 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
         for (int kk = 0; kk < HD / 16; ++kk) {
           const int c = kk / 4, w4 = (kk % 4) * 32;  // chunk, bytes in a row
-          wgmma_m64n128k16_ss(
+          wgmma_s<kBN>(
               sc, sw128_desc(q_base + c * kBM * kRowBytes + w4),
-              sw128_desc(base + L::kK + s * L::kTileBytes +
+              sw128_desc(base + C::kK + s * C::kTileBytes +
                          c * kBN * kRowBytes + w4),
               kk > 0);
         }
@@ -432,42 +516,40 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       auto issue_pv = [&](int n) {
         const int s = (ring + n) % kStages;
         mbar_wait(bar_v + 8 * s, ((ring + n) / kStages) & 1);
-        fence_regs<HD / 2>(acc);
+        fence_regs<TW / 2>(acc);
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < kBN / 16; ++kk) {
 #pragma unroll
-          for (int c = 0; c < L::kChunks; ++c)
+          for (int c = 0; c < C::kChunks; ++c)
             wgmma_m64n64k16_rs(
                 acc + 32 * c, pa + 4 * kk,
-                sw128_desc(base + L::kV + s * L::kTileBytes +
+                sw128_desc(base + C::kV + s * C::kTileBytes +
                            c * kBN * kRowBytes + kk * 16 * kRowBytes));
         }
         wgmma_commit();
       };
-      auto release = [&](int n) {  // K_n and V_n read by this warp
-        if (lane == 0) mbar_arrive(bar_empty + 8 * ((ring + n) % kStages));
+      // K_n (after S_n) or V_n (after P_n V_n) read by this warp
+      auto release_k = [&](int n) {
+        if (lead) mbar_arrive(bar_k_empty + 8 * ((ring + n) % kStages));
+      };
+      auto release_v = [&](int n) {
+        if (lead) mbar_arrive(bar_v_empty + 8 * ((ring + n) % kStages));
       };
       // one softmax step on tile n; a tile is masked only where the causal
       // diagonal, the window edge or the end of S cuts it
-      // keys row r keeps: [r - window, r] causal, [0, S) otherwise
-      int lo[2], hi[2];
-#pragma unroll
-      for (int k2 = 0; k2 < 2; ++k2) {
-        const int row = r_lo + 8 * k2;
-        lo[k2] = window > 0 ? row - window : 0;
-        hi[k2] = causal ? min(row, S - 1) : S - 1;
-      }
       auto softmax = [&](int n) {
         const int kt = it.k_begin + n * kBN;
         const bool edge = kt + kBN > S || (causal && kt + kBN - 1 > row0) ||
                           (window > 0 && kt < row0 + 63 - window);
-        softmax_step(sc, edge, kt, cq, lo, hi, scale_log2, m, l, al);
+        softmax_step<kBN>(sc, edge, kt, row0, S, causal, window, scale_log2,
+                          m, l, al);
         // the softmax must be done before wait_group 0 below, or ptxas
         // moves it after the wait and P V no longer hides it
         fence_regs<kBN / 2>(sc);
       };
-      // the accumulator rescaled and P packed for O += P V
+      // the accumulator rescaled (its HD real columns: the rest stay 0)
+      // and P packed for O += P V
       auto rescale_and_pack = [&]() {
 #pragma unroll
         for (int j = 0; j < HD / 8; ++j) {
@@ -489,6 +571,7 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       turn_end();
       wgmma_wait<0>();
       fence_regs<kBN / 2>(sc);
+      release_k(0);
       softmax(0);
       rescale_and_pack();
       // steady state, written without branches on the wgmma groups so
@@ -501,20 +584,21 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap tq,
         turn_end();
         wgmma_wait<1>();
         fence_regs<kBN / 2>(sc);
+        release_k(n + 1);
         softmax(n + 1);
         wgmma_wait<0>();
-        fence_regs<HD / 2>(acc);
-        release(n);
+        fence_regs<TW / 2>(acc);
+        release_v(n);
         rescale_and_pack();
       }
       // every S of the item is done: Q may be replaced by the next item's
-      if (lane == 0) mbar_arrive(bar_q_empty);
+      if (lead) mbar_arrive(bar_q_empty);
       turn_begin();
       issue_pv(it.n_tiles - 1);
       turn_end();
       wgmma_wait<0>();
-      fence_regs<HD / 2>(acc);
-      release(it.n_tiles - 1);
+      fence_regs<TW / 2>(acc);
+      release_v(it.n_tiles - 1);
       ring += it.n_tiles;
 
       float l_lo = l[0], l_hi = l[1];
@@ -525,10 +609,12 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       }
       const float den_lo = fmaxf(l_lo, 1e-30f);
       const float den_hi = fmaxf(l_hi, 1e-30f);
+      const Lane ln = lane_coords();
+      const int r_lo = row0 + ln.row, r_hi = r_lo + 8;
       const long long stride = static_cast<long long>(H) * HD;
       __nv_bfloat16* o_lo = o + (static_cast<long long>(it.b) * S + r_lo) *
                                     stride +
-                            static_cast<long long>(it.h) * HD + cq;
+                            static_cast<long long>(it.h) * HD + ln.col;
       __nv_bfloat16* o_hi = o_lo + 8 * stride;
 #pragma unroll
       for (int j = 0; j < HD / 8; ++j) {
@@ -592,19 +678,20 @@ bool make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int HD>
+template <int HD, int TW>
 int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
            int H, int KV, int causal, int window, cudaStream_t stream) {
+  using C = Config<TW>;
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return -2;
   CUtensorMap tq, tk, tv;
   if (!make_map(encode, &tq, q, B, S, H, HD, kBM) ||
-      !make_map(encode, &tk, k, B, S, KV, HD, kBN) ||
-      !make_map(encode, &tv, v, B, S, KV, HD, kBN))
+      !make_map(encode, &tk, k, B, S, KV, HD, C::kBN) ||
+      !make_map(encode, &tv, v, B, S, KV, HD, C::kBN))
     return -3;
-  const int smem = Layout<HD>::kBytes + 1024;  // + the 1024-byte alignment
+  const int smem = C::kBytes + 1024;  // + the 1024-byte alignment
   cudaError_t err = cudaFuncSetAttribute(
-      flash_sm90_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_sm90_kernel<HD, TW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   int device = 0, sms = 0;
@@ -614,7 +701,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n_qtiles = (S + kBM - 1) / kBM;
   const int blocks = min(n_qtiles * H * B, sms);  // one resident block an SM
-  flash_sm90_kernel<HD><<<blocks, kThreads, smem, stream>>>(
+  flash_sm90_kernel<HD, TW><<<blocks, kThreads, smem, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), B, S, H, KV, causal, window,
       kLog2e / sqrtf(static_cast<float>(HD)), n_qtiles);
   return static_cast<int>(cudaGetLastError());
@@ -623,7 +710,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
 }  // namespace
 
 // q, o: (B, S, H, hd); k, v: (B, S, KV, hd); contiguous, 16-byte aligned,
-// bfloat16; hd 64 or 128.  Launches on `stream` and returns
+// bfloat16; hd 64, 80, 128 or 256.  Launches on `stream` and returns
 // cudaGetLastError() (0 on success); -1 for an unsupported hd, -2 when the
 // driver has no cuTensorMapEncodeTiled, -3 when a map cannot be encoded.
 extern "C" int flash_attention_sm90_launch(const void* q, const void* k,
@@ -634,8 +721,17 @@ extern "C" int flash_attention_sm90_launch(const void* q, const void* k,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (hd == 64) return launch<64>(q, k, v, o, B, S, H, KV, causal, window, st);
-  if (hd == 128)
-    return launch<128>(q, k, v, o, B, S, H, KV, causal, window, st);
-  return -1;
+  // the head width, then the tiles' width: hd 80 runs in 128-column tiles
+  switch (hd) {
+    case 64:
+      return launch<64, 64>(q, k, v, o, B, S, H, KV, causal, window, st);
+    case 80:
+      return launch<80, 128>(q, k, v, o, B, S, H, KV, causal, window, st);
+    case 128:
+      return launch<128, 128>(q, k, v, o, B, S, H, KV, causal, window, st);
+    case 256:
+      return launch<256, 256>(q, k, v, o, B, S, H, KV, causal, window, st);
+    default:
+      return -1;
+  }
 }

@@ -8,11 +8,12 @@ scores), the KV loop stopped at the causal frontier, and the output in
 q's type.  Two CUDA C++ kernels compute it (design and bound are noted in
 each), on a fixed route by (dtype, hd):
 
-* bfloat16 at hd 64 or 128 goes to ``csrc/flash_attention_sm90.cu``
-  (wgmma on the tensor cores, fed by TMA; P is rounded to bf16 for
-  O += P V);
-* bfloat16 at the other widths JAX's configs use (8, 16, 80, 256), and
-  float32 at all of them (8, 16, 64, 80, 128, 256), go to
+* bfloat16 at hd 64, 80, 128 or 256 goes to
+  ``csrc/flash_attention_sm90.cu`` (wgmma on the tensor cores, fed by
+  TMA; P is rounded to bf16 for O += P V; hd 80 is carried in tiles of
+  128 columns whose last 48 TMA fills with zeros);
+* bfloat16 at the smoke configs' widths (8, 16), and float32 at every
+  width JAX's configs use (8, 16, 64, 80, 128, 256), go to
   ``csrc/flash_attention.cu`` (products on the float32 CUDA cores, which
   keep the TPU kernel's float32 arithmetic);
 * any other width raises.
@@ -38,7 +39,7 @@ import torch
 from repro_torch.kernels import build
 
 NEG_INF = -1e30
-SM90_HEAD_DIMS = (64, 128)                  # the wgmma kernel, bf16 only
+SM90_HEAD_DIMS = (64, 80, 128, 256)         # the wgmma kernel, bf16 only
 SIMT_HEAD_DIMS = (8, 16, 64, 80, 128, 256)  # the SIMT kernel, both dtypes
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -91,9 +92,10 @@ SIMT = ("flash_attention", "flash_attention_launch", 9)
 
 
 def route(dtype, hd: int):
-    """The kernel that takes (dtype, hd): bf16 at hd 64 or 128 the wgmma
-    kernel, every other supported pair the SIMT kernel (float32 products,
-    which TF32 tensor cores would not keep); raises for another width."""
+    """The kernel that takes (dtype, hd): bf16 at hd 64, 80, 128 or 256
+    the wgmma kernel, every other supported pair the SIMT kernel (float32
+    products, which TF32 tensor cores would not keep); raises for another
+    width."""
     if dtype == torch.bfloat16 and hd in SM90_HEAD_DIMS:
         return SM90
     if hd in SIMT_HEAD_DIMS:

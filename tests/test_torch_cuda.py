@@ -373,12 +373,15 @@ def test_flash_kernel_equals_plain(card, exact_f32, B, S, H, KV, hd, dtype,
 @pytest.mark.parametrize("causal,window", [(True, 0), (False, 0),
                                            (True, 100)])
 @pytest.mark.parametrize("S", [1024, 1000, 77, 1])
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 80, 128, 256])
 def test_flash_sm90_kernel_equals_plain(card, exact_f32, hd, S, causal,
                                         window, H, KV, B):
     """The bf16 wgmma/TMA kernel against its plain version at the bf16
-    limits of ``chip_smoke.py`` (its P is rounded to bf16 before P V)."""
+    limits of ``chip_smoke.py`` (its P is rounded to bf16 before P V), at
+    every width it takes: 64 and 128 in tiles of 128 keys, 80 in tiles of
+    128 columns zero-filled past 80, 256 in tiles of 64 keys."""
     q, k, v = _qkv(B, S, H, KV, hd, torch.bfloat16, card, seed=S + hd + H)
+    assert FA.route(torch.bfloat16, hd) is FA.SM90
     before = FA.launches
     got = FA.flash_attention(q, k, v, causal=causal, sliding_window=window)
     torch.cuda.synchronize()
@@ -398,17 +401,52 @@ def test_flash_sm90_kernel_equals_plain(card, exact_f32, hd, S, causal,
 @pytest.mark.parametrize("hd", [8, 16, 80, 256])
 def test_flash_simt_kernel_at_every_width_equals_plain(card, exact_f32, hd, S,
                                                       causal, window, dtype):
-    """The SIMT kernel at the widths only it takes (the smoke configs' 8
-    and 16, hubert's 80, gemma3's 256), both dtypes, GQA 4 over 2."""
+    """The SIMT kernel at the widths beyond 64 and 128 (the smoke configs'
+    8 and 16, hubert's 80, gemma3's 256), both dtypes, GQA 4 over 2.  The
+    wrapper routes bf16 at 80 and 256 to the wgmma kernel, so those pairs
+    call the SIMT entry directly (as ``chip_smoke.py`` does to time it
+    beside the wgmma kernel); the rest go through the wrapper."""
     q, k, v = _qkv(2, S, 4, 2, hd, dtype, card, seed=S + hd)
     before = FA.launches
-    got = FA.flash_attention(q, k, v, causal=causal, sliding_window=window)
-    torch.cuda.synchronize()
-    assert FA.launches == before + 1
+    if FA.route(dtype, hd) is FA.SIMT:
+        got = FA.flash_attention(q, k, v, causal=causal,
+                                 sliding_window=window)
+        torch.cuda.synchronize()
+        assert FA.launches == before + 1
+    else:
+        got = torch.empty_like(q)
+        dev, stream = build.device_and_stream(q)
+        err = FA._entry(FA.SIMT)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), got.data_ptr(), 2, S, 4,
+            2, hd, int(causal), window, FA._DTYPES[dtype], dev, stream)
+        torch.cuda.synchronize()
+        assert err == 0 and FA.launches == before
     want = FA.flash_attention_plain(q, k, v, causal=causal,
                                     sliding_window=window)
     assert got.dtype == dtype and got.shape == q.shape
     torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL[dtype])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1100, 1024])
+def test_model_attention_at_gemma3_widths_equals_plain(card, exact_f32, S):
+    """``models.attention.attention`` at gemma3-4b's widths (H 8 over KV
+    4, hd 256, bf16): its local layers' window of 1,024 binds at S 1,100
+    and not at S 1,024 (the full causal path), its global layers have
+    none; the kernel path (the wgmma kernel) against ``use_kernel=False``
+    at the bf16 limits."""
+    from repro_torch.models import attention as tattn
+
+    q, k, v = _qkv(2, S, 8, 4, 256, torch.bfloat16, card, seed=S)
+    for window in (1024, 0):
+        before = FA.launches
+        got = tattn.attention(q, k, v, causal=True, sliding_window=window)
+        torch.cuda.synchronize()
+        assert FA.launches == before + 1
+        want = tattn.attention(q, k, v, causal=True, sliding_window=window,
+                               use_kernel=False)
+        torch.testing.assert_close(got.float(), want.float(),
+                                   **FLASH_TOL[torch.bfloat16])
 
 
 @pytest.mark.cuda

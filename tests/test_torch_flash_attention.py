@@ -189,15 +189,21 @@ def test_wrapper_rejects_bad_inputs(bad):
      8),
     ("float32", 64, "flash_attention", "flash_attention_launch", 9),
     ("float32", 256, "flash_attention", "flash_attention_launch", 9),
-    ("bfloat16", 256, "flash_attention", "flash_attention_launch", 9),
-    ("bfloat16", 80, "flash_attention", "flash_attention_launch", 9),
+    ("bfloat16", 256, "flash_attention_sm90", "flash_attention_sm90_launch",
+     8),
+    ("bfloat16", 80, "flash_attention_sm90", "flash_attention_sm90_launch",
+     8),
     ("bfloat16", 16, "flash_attention", "flash_attention_launch", 9),
     ("float32", 8, "flash_attention", "flash_attention_launch", 9),
+    ("float32", 80, "flash_attention", "flash_attention_launch", 9),
+    ("bfloat16", 8, "flash_attention", "flash_attention_launch", 9),
 ])
 def test_launch_routes_by_dtype(monkeypatch, dtype, hd, lib, symbol, ints):
-    """A fixed route by (dtype, hd): bf16 at hd 64 and 128 goes to the
-    wgmma/TMA kernel, every other pair to the SIMT one (with its dtype
-    code); one launch, counted once, and nothing else is tried."""
+    """A fixed route by (dtype, hd): bf16 at hd 64, 80, 128 and 256 goes
+    to the wgmma/TMA kernel, every other pair to the SIMT one (with its
+    dtype code); one launch, counted once, and nothing else is tried.
+    Either entry is handed the real hd (80 stays 80: the wgmma kernel pads
+    its tiles itself)."""
     calls = []
 
     class Fn:
@@ -234,6 +240,22 @@ def test_launch_routes_by_dtype(monkeypatch, dtype, hd, lib, symbol, ints):
     assert len(args) == 4 + ints + 1
     if ints == 9:
         assert args[11] == FA._DTYPES[TORCH[dtype]]
+
+
+def test_route_by_dtype_and_width():
+    """The whole route table: bf16 at 64, 80, 128 and 256 the wgmma
+    kernel, bf16 at 8 and 16 and float32 at every width the SIMT kernel,
+    any other width raises in either dtype."""
+    for hd in (64, 80, 128, 256):
+        assert FA.route(torch.bfloat16, hd) is FA.SM90
+    for hd in (8, 16):
+        assert FA.route(torch.bfloat16, hd) is FA.SIMT
+    for hd in (8, 16, 64, 80, 128, 256):
+        assert FA.route(torch.float32, hd) is FA.SIMT
+    for dtype in (torch.bfloat16, torch.float32):
+        for hd in (4, 32, 96, 512):
+            with pytest.raises(ValueError, match="hd"):
+                FA.route(dtype, hd)
 
 
 @pytest.mark.parametrize("hd", [4, 32, 96, 512])
