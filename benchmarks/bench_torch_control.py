@@ -170,11 +170,13 @@ def chain_check(trace: Trace) -> dict:
 
 
 def proactive_seed(predictor, trace_seed: int, sim_seed: int, *, device,
-                   trace_path: str | None = None) -> dict:
+                   trace_path: str | None = None,
+                   trace: dict = PROACTIVE_TRACE) -> dict:
     """One seed of the proactive axis: per mode the result, the loop, the
     shared service (unified only) and the wall time; with ``trace_path``
-    the unified run is traced, saved and chain-checked."""
-    pods, gaps = bursty_trace(seed=trace_seed, **PROACTIVE_TRACE)
+    the unified run is traced, saved and chain-checked.  ``trace`` holds
+    ``bursty_trace``'s arguments."""
+    pods, gaps = bursty_trace(seed=trace_seed, **trace)
     row = {"trace_seed": trace_seed, "sim_seed": sim_seed, "runs": {}}
     for mode in MODES:
         sched_name = "ICO-F" if mode == "unified" else "ICO"

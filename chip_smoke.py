@@ -11,9 +11,10 @@ Phases, each printed with its numbers and wall time:
    replacements (one ``nvcc`` per source, all at once), print the
    registers, shared memory and spills of ``runqlat_hist``,
    ``rollout_tick``, ``ssd_sm90`` and ``wkv``, and of each head width of
-   ``flash_attention_sm90`` (64, 80, 128, 256; a missing one is a
-   failure), the ``HGMMA`` instructions in ``flash_attention_sm90``'s SASS and the
-   ``HMMA`` ones in ``ssd_sm90``'s (none is a failure);
+   ``flash_attention_sm90`` and ``flash_attention_f32_sm90`` (8, 16, 64,
+   80, 128, 256; a missing one is a failure), the ``HGMMA`` instructions
+   in ``flash_attention_sm90``'s SASS and the ``HMMA`` ones in
+   ``flash_attention_f32_sm90``'s and ``ssd_sm90``'s (none is a failure);
 2. hold ``runqlat_hist`` against its plain version on the card: a tick's
    two sets through the one-launch entry with broadcast masks exactly,
    float weights at n 16 exactly against the CPU's sequential plain
@@ -27,7 +28,7 @@ Phases, each printed with its numbers and wall time:
    profile 100 ticks and 20 admissions on the 1,000-node cluster of phase
    3 (host ms and ``runqlat_hist`` launches per tick, which must be one,
    the device's busy share, its top kernels); then ICO ``run_experiment``
-   on a 1,000-node fleet with a 600-pod trace, recording its plan, with
+   on a 1,000-node fleet with a 300-pod trace, recording its plan, with
    ``runqlat_hist``'s launch count set to 0 before and read after the run
    (one launch a tick);
 5. the paper-scale ``compare_schedulers`` table (12 nodes, 40 pods);
@@ -37,11 +38,10 @@ Phases, each printed with its numbers and wall time:
    the fused tick against the default tick on the same draws, and on the
    card against the CPU;
 8. the replay path at full width: ``replay_plan_batched`` of the
-   1,000-node ICO plan under 20 seeds with the fused tick (20,480 batched
-   ticks of 20,000 node rows, of which the first 11,390 are the plan's
-   real span and the rest bucket padding), both kernels' counts set to 0
-   before and read after; rates are printed over all ticks and over the
-   real ones;
+   1,000-node ICO plan under 20 seeds with the fused tick (batched ticks
+   of 20,000 node rows, the plan's real span first and then bucket
+   padding), both kernels' counts set to 0 before and read after; rates
+   are printed over all ticks and over the real ones;
 9. ``rollout_tick`` (``fused_tick_unpacked``, the entry the replay calls,
    reading the tick's tensors where they lie) against its plain version on
    the inputs of the replay's 5,000th batched tick (R = 20,000), kept with
@@ -53,26 +53,28 @@ Phases, each printed with its numbers and wall time:
 10. a profile of the batched tick at 20 x 1,000 rows, fused and default;
 11. ``paper_models`` (through ``benchmarks/bench_torch_paper.py``): the
     resource model's per-type lines (Figs. 6-7, float64) on the card
-    against the CPU; Table II at ``bench_predictors``' full size (700
-    placements), the five regressors fitted and timed on the card (fit s,
+    against the CPU; Table II at the bench's default size (250
+    placements, the SVR and the MLP trained 1,500 steps; ``--full`` takes
+    700), the five regressors fitted and timed on the card (fit s,
     predict µs, MAE / MSE / MAPE / R²), the linear model and the two
     forests against their CPU fits to rtol 1e-4;
 12. ``motivation`` (through ``bench_torch_paper``): Table I on the card,
     2,400 single-node ticks, one ``runqlat_hist`` launch each;
 13. ``control_12`` (through ``benchmarks/bench_torch_control.py``): the
-    profile grid at (trace seed, sim seed) (0, 7), (0, 11) and (1, 12) (12
-    nodes, ``bursty_trace(num_online=14)``), each scheduler without and
+    profile grid at (trace seed, sim seed) (0, 7) (12 nodes,
+    ``bursty_trace(num_online=14)``), each scheduler without and
     with its ``scheduler_loop_config`` loop, p99 off and on, actions, ms
     per control step, one ``runqlat_hist`` launch a tick; the controlled
-    ICO run on the card against the CPU with one noise stream at (0, 7)
-    (same actions, RT to rtol 1e-4); then per seed ICO's plans without and
+    ICO run on the card against the CPU with one noise stream (same
+    actions, RT to rtol 1e-4); then ICO's plans without and
     with control replayed under 20 seeds with the fused tick (p99 per
     seed, wins, ``rollout_tick`` launches equal to the batched ticks), the
     entry at the run's own sim seed held to its run at 1e-3;
 14. ``proactive_12`` (through ``bench_torch_control``): ICO off / reactive
     / proactive and the unified stack (ICO-F and the proactive loop
-    sharing one ``ForecastService``) on the 3-day ``PROACTIVE_TRACE`` at
-    trace seed 0, sim seed 11, one ``runqlat_hist`` launch a tick; the
+    sharing one ``ForecastService``) on ``PROACTIVE_TRACE`` cut from 3
+    days to ``PROACTIVE_DAYS`` at trace seed 0, sim seed 11, one
+    ``runqlat_hist`` launch a tick; the
     unified run traced to a temporary file (every action's chain resolved,
     at least one ``TrustGateTransition``); the unified stack with the
     leverage gate widened on a one-day trace on the card against the CPU on
@@ -90,10 +92,11 @@ Phases, each printed with its numbers and wall time:
 17. ``flash_attention`` against its plain version: the bf16 wgmma/TMA
     kernel at zamba2-1.2b's prefill shapes (B 4, S 1024, H 32, hd 64,
     causal), at hd 128 and at a ragged GQA shape (S 1000, 9 heads over 3 KV
-    heads, window 100); the float32 SIMT kernel at that ragged shape with
-    and without the window; each timed beside the plain version and
-    PyTorch's ``scaled_dot_product_attention``, the bf16 ones also beside
-    the earlier SIMT kernel on the same inputs;
+    heads, window 100); the float32 3xTF32 kernel at that ragged shape
+    with and without the window; each timed beside the plain version,
+    PyTorch's ``scaled_dot_product_attention`` and the earlier SIMT kernel
+    on the same inputs, its bound the largest of bytes, products and
+    exponentials;
 18. ``ssd`` against its plain version (y and final state): the bf16
     tensor-core kernel at the same prefill's shapes (B 4, T 1024, H 64, P
     64, N 64), at a ragged T of 1000 and at the served smoke model's width
@@ -102,10 +105,12 @@ Phases, each printed with its numbers and wall time:
     device time from CUDA graphs);
 19. the serving path at full width: zamba2-1.2b (1.17 B parameters, random
     bf16 weights from a generator seeded 0) behind ``ServeEngine(max_batch
-    =4)``, 16 requests with prompts of 256-1,024 tokens and 32 new tokens
-    each, both kernels' counts set to 0 before and read after; then one
+    =4)``, 8 requests (two cohorts) with prompts of 256-1,024 tokens and
+    16 new tokens each, both kernels' counts set to 0 before and read
+    after; then one
     cohort's prefill with ``use_kernels=False`` against the kernel path,
-    in bf16 and with the same weights in float32, prefill(x[:-1]) +
+    in bf16 and with the same weights in float32 (the 3xTF32 flash
+    kernel's count set to 0 before and read after), prefill(x[:-1]) +
     decode(x[-1]) against the full forward (kernel and plain paths), and a
     profile of one cohort's prefill and of eight decode steps (device
     time, busy share, the flash kernels' share of the device time);
@@ -123,18 +128,19 @@ Phases, each printed with its numbers and wall time:
     profiles;
 22. ``flash_widths``: ``flash_attention`` against its plain version at
     every head width beyond 64 and 128, in both dtypes (hd 8, 16, 80, 256
-    at B 2, S 1000, H 8 over KV 4), and at gemma3-4b's prefill (B 4, S
-    2048, H 8 over 4, hd 256, bf16) for its global layer (causal) and its
-    local one (window 1,024), each timed beside the plain version and
-    SDPA; bf16 at hd 80 and 256 must route to the wgmma kernel, which is
-    timed beside the SIMT kernel on the same inputs, the rest to the SIMT
-    kernel (``csrc/flash_attention.cu``);
+    at B 2, S 1000, H 8 over KV 4; float32 at 64 and 128 too), and at
+    gemma3-4b's prefill (B 4, S 2048, H 8 over 4, hd 256, bf16) for its
+    global layer (causal) and its local one (window 1,024), each timed
+    beside the plain version, SDPA and the SIMT kernel
+    (``csrc/flash_attention.cu``) on the same inputs; bf16 must route to
+    the wgmma kernel, float32 to the 3xTF32 one;
 23-27. the same serving path (``SERVE_FAMILIES``) for gemma3-4b (full
     depth, 3.88 B parameters, prompts of 1,025-2,048 tokens so that its
     window binds), internlm2-20b and deepseek-coder-33b (full depth, 19.86
     B and 33.34 B, ~40 GB and ~67 GB of bf16 weights), qwen3-moe-235b-a22b
     (full width, 8 of 94 layers) and dbrx-132b (6 of 40), one flash launch
-    per layer per cohort and none at decode; before each, what earlier
+    per layer per cohort and none at decode, one 3xTF32 flash launch per
+    layer of the float32 copy's kernel prefill; before each, what earlier
     phases hold on the card must be under 2 GB (phases 2-16 run inside
     ``cluster_paths`` and release theirs when it returns).  The float32
     kernel-vs-plain copy is the first two layers for the three large
@@ -145,7 +151,7 @@ Phases, each printed with its numbers and wall time:
     binned once, the histograms equal to the plain version's;
 29. ``colocation``: ``examples/torch_colocation_sim.py`` ``--selftest``
     and its demo on the card (ICO places 14 pods, the smollm smoke model
-    serves 8 requests through the SIMT flash kernel (hd 16), Eq. 1 of its
+    serves 8 requests through the wgmma flash kernel (hd 16), Eq. 1 of its
     runqlat histogram).
 
 Then it prints the card's name and power limit, one JSON line of kernel
@@ -154,6 +160,7 @@ and exits non-zero; without a card it exits 1 before doing anything.
 """
 import copy
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -166,6 +173,11 @@ import time
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12           # float32 outside the tensor cores
 BF16_OPS_PER_S = 989e12          # bf16 dense tensor cores
+TF32_OPS_PER_S = 495e12          # TF32 dense tensor cores
+# float32-accurate products on the tensor cores: 3xTF32 spends three TF32
+# products on each
+F32_3XTF32_OPS_PER_S = TF32_OPS_PER_S / 3
+EX2_PER_CLOCK_SM = 16            # MUFU exponentials, compute capability 9.0
 MIX = {"std32": 6, "hi96": 1, "lo16": 3}
 
 
@@ -373,18 +385,22 @@ def ptxas_summary(log):
     return out
 
 
-def flash_instantiations(log):
-    """ptxas's numbers for each instantiation of ``flash_sm90_kernel``,
-    keyed by its head width (the mangled name's first template argument;
-    the second, where there is one, is the tiles' width)."""
+FLASH_WIDTHS = ["hd128", "hd16", "hd256", "hd64", "hd8", "hd80"]
+
+
+def flash_instantiations(log, kernel="flash_sm90_kernel"):
+    """ptxas's numbers for each instantiation of ``kernel`` (the wgmma
+    kernel, or ``flash_f32_kernel``), keyed by its head width (the mangled
+    name's first template argument; the second, where there is one, is
+    the tiles' width)."""
     import re
 
     out = {}
     for entry, nums in ptxas_summary(log).items():
-        m = re.search(r"flash_sm90_kernelILi(\d+)E(?:Li(\d+)E)?", entry)
+        m = re.search(kernel + r"ILi(\d+)E(?:Li(\d+)E)?", entry)
         if m:
-            out[f"hd{m.group(1)}"] = dict(
-                tile_width=int(m.group(2) or m.group(1)), **nums)
+            tile = {"tile_width": int(m.group(2))} if m.group(2) else {}
+            out[f"hd{m.group(1)}"] = dict(**tile, **nums)
     return out
 
 
@@ -686,20 +702,33 @@ def _timed(fns):
 KERNEL_TOL = {"bfloat16": (1e-2, 1e-2), "float32": (2e-5, 2e-5)}
 
 
+@functools.cache
+def ex2_per_s(torch):
+    """Exponentials a second on the card's special-function units: 16 a
+    clock an SM at the max SM clock ``nvidia-smi`` reports (read once)."""
+    mhz = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits", "-i", "0"],
+        capture_output=True, text=True, check=True,
+        timeout=60).stdout.split()[0]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return EX2_PER_CLOCK_SM * sms * float(mhz) * 1e6
+
+
 def _simt_flash(torch, FA, build, q, k, v, causal, window):
-    """The SIMT kernel (``csrc/flash_attention.cu``) on bf16 inputs, called
-    through the wrapper's float32 entry with the bf16 dtype code: the port
-    routes bf16 to the wgmma kernel since it replaced this one, and this
-    keeps the earlier kernel's time beside the new one in the same run."""
+    """The SIMT kernel (``csrc/flash_attention.cu``) on q's dtype, called
+    through its own entry: the port routes no pair to it since the wgmma
+    and 3xTF32 kernels replaced it, and this keeps the earlier kernel's
+    time beside the new ones in the same run."""
     fn = FA._entry(FA.SIMT)
     out = torch.empty_like(q)
     B, S, H, hd = q.shape
-    dev, stream = build.device_and_stream(q)
 
-    def run():
+    def run():   # on the current stream, which a graph capture sets
+        dev, stream = build.device_and_stream(q)
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B,
                  S, H, k.shape[2], hd, int(causal), window,
-                 FA._DTYPES[torch.bfloat16], dev, stream)
+                 FA._DTYPES[q.dtype], dev, stream)
         if err:
             raise RuntimeError(f"SIMT flash launch failed: {err}")
         return out
@@ -711,10 +740,17 @@ def _flash_case(torch, FA, build, g, card, name, B, S, H, KV, hd, dtype,
     """One shape: the wrapper's kernel against the plain version (causal,
     ``window`` 0 or a sliding window), each timed beside the plain version
     and SDPA (order plain, kernel, kernel, plain, library: ``is_causal``
-    without a window, a boolean window mask with one); a bf16 shape that
-    the wgmma kernel takes is also timed through the SIMT kernel on the
-    same inputs.  The bound counts q, k, v and o once and the products of
-    the (query, key) pairs the masks keep."""
+    without a window, a boolean window mask with one), and the SIMT kernel
+    these replaced on the same inputs.  The bound is the largest of three
+    times: q, k, v and o once over the memory rate; the products of the
+    (query, key) pairs the masks keep over the bf16 tensor cores' rate, or
+    in float32 the TF32 rate spread over 3xTF32's three products; one
+    exponential a kept pair over the special-function units' rate.
+    ``bound_by`` says bytes or operations, ``bound_term`` which term; a
+    float32 shape also gives the earlier bound with its products on the
+    float32 CUDA cores (``cuda_core_bound_ms``).  The kernel, the SIMT
+    kernel and SDPA are also timed from CUDA graphs (``*_device_ms``: no
+    host time, which sets the events' time of a call of tens of µs)."""
     import torch.nn.functional as F
 
     q, k, v = (torch.randn((B, S, h, hd), generator=g, device=card,
@@ -742,72 +778,84 @@ def _flash_case(torch, FA, build, g, card, name, B, S, H, KV, hd, dtype,
             q, k, v, sliding_window=window)),
         ("library", lambda: F.scaled_dot_product_attention(
             qt, kt, vt, enable_gqa=KV != H, **sdpa))]
-    extra = {}
     kernel = FA.route(dtype, hd)
-    if kernel is FA.SM90:
-        simt = _simt_flash(torch, FA, build, q, k, v, True, window)
-        extra["simt_max_abs_err"] = _close(torch, simt(), want, rtol, atol,
-                                           f"SIMT flash {name}")
-        fns.append(("simt", simt))
+    simt = _simt_flash(torch, FA, build, q, k, v, True, window)
+    simt_err = _close(torch, simt(), want, rtol, atol, f"SIMT flash {name}")
+    fns.append(("simt", simt))
     del got, want
     ms = {n: cuda_ms(fn, iters=iters, warmup=max(2, iters // 10))
           for n, fn in fns}
-    if kernel is FA.SM90:
-        extra["simt_ms"] = ms["simt"]
+    device = {f"{n}_device_ms": graph_ms(torch, fn, calls=max(2, iters // 10))
+              for n, fn in fns if n in ("kernel", "simt", "library")}
     nbytes = q.element_size() * 2 * (q.numel() + k.numel())  # q,k,v; o
     pairs = int(keep.sum())                    # attended (query, key)
     nops = 4 * hd * B * H * pairs              # QK^T and PV
-    peak = BF16_OPS_PER_S if dtype == torch.bfloat16 else FP32_OPS_PER_S
-    byte_ms, op_ms = nbytes / HBM_BYTES_PER_S * 1e3, nops / peak * 1e3
+    f32 = dtype == torch.float32
+    terms = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "products": nops / (F32_3XTF32_OPS_PER_S if f32
+                                 else BF16_OPS_PER_S) * 1e3,
+             "exponentials": B * H * pairs / ex2_per_s(torch) * 1e3}
+    term = max(terms, key=terms.get)
+    extra = {"cuda_core_bound_ms": max(terms["bytes"], terms["exponentials"],
+                                       nops / FP32_OPS_PER_S * 1e3)} if f32 \
+        else {}
     return dict(
         shape=f"B{B} S{S} H{H}/{KV} hd{hd} {dtype} window{window}",
         kernel=kernel[0], max_abs_err=err, bytes=nbytes, flops=nops,
-        bound_ms=max(byte_ms, op_ms),
-        bound_by="bytes" if byte_ms >= op_ms else "operations",
+        bound_ms=terms[term],
+        bound_by="bytes" if term == "bytes" else "operations",
+        bound_term=term, bound_terms_ms=json.dumps(terms), **extra,
         ms=min(ms["kernel"], ms["kernel2"]),
         plain_ms=min(ms["plain"], ms["plain2"]),
-        library_ms=ms["library"], **extra, runs=json.dumps(ms))
+        library_ms=ms["library"], simt_ms=ms["simt"],
+        simt_max_abs_err=simt_err, **device, runs=json.dumps(ms))
+
+
+# zamba2-1.2b's prefill, hd 128 at the same size, a ragged GQA shape
+FLASH_CASES = [("main", 4, 1024, 32, 32, 64, "bfloat16", 0),
+               ("main_hd128", 4, 1024, 16, 16, 128, "bfloat16", 0),
+               ("ragged_bf16", 1, 1000, 9, 3, 64, "bfloat16", 100),
+               ("ragged", 1, 1000, 9, 3, 64, "float32", 0),
+               ("ragged_window", 1, 1000, 9, 3, 64, "float32", 100)]
 
 
 def phase_flash_kernel(torch, FA, build, card):
     """``flash_attention`` against its plain version: bf16 (the wgmma/TMA
     kernel) at the serve phase's prefill shapes, at hd 128 and at a ragged
-    GQA shape with a window; float32 (the SIMT kernel) at the ragged shape
-    with and without the window; the bf16 ones also timed through the
+    GQA shape with a window; float32 (the 3xTF32 kernel) at the ragged
+    shape with and without the window; each also timed through the
     earlier SIMT kernel on the same inputs."""
     g = torch.Generator(device=card).manual_seed(1)
-    cases = [("main", 4, 1024, 32, 32, 64, torch.bfloat16, 0),
-             ("main_hd128", 4, 1024, 16, 16, 128, torch.bfloat16, 0),
-             ("ragged_bf16", 1, 1000, 9, 3, 64, torch.bfloat16, 100),
-             ("ragged", 1, 1000, 9, 3, 64, torch.float32, 0),
-             ("ragged_window", 1, 1000, 9, 3, 64, torch.float32, 100)]
-    return {c[0]: _flash_case(torch, FA, build, g, card, *c) for c in cases}
+    return {c[0]: _flash_case(torch, FA, build, g, card, *c[:6],
+                              getattr(torch, c[6]), c[7])
+            for c in FLASH_CASES}
 
 
 # gemma3-4b's prefill (B 4, S 2,048, H 8 over KV 4, hd 256), its global and
 # its local (window 1,024) layers, then the widths beyond 64 and 128 (the
 # smoke configs' 8 and 16, hubert-xlarge's 80, gemma3's 256) in both dtypes
-# at a ragged GQA shape
+# and float32 at 64 and 128, at a ragged GQA shape
 WIDTH_CASES = [("gemma3_global", 4, 2048, 8, 4, 256, "bfloat16", 0, 50),
                ("gemma3_local", 4, 2048, 8, 4, 256, "bfloat16", 1024, 50)] + [
     (f"hd{hd}_{dt}", 2, 1000, 8, 4, hd, dt, 0, 100)
-    for hd in (8, 16, 80, 256) for dt in ("bfloat16", "float32")]
+    for hd in (8, 16, 80, 256) for dt in ("bfloat16", "float32")] + [
+    (f"hd{hd}_float32", 2, 1000, 8, 4, hd, "float32", 0, 100)
+    for hd in (64, 128)]
 
 
 def phase_flash_widths(torch, FA, build, card):
-    """``flash_attention`` at every head width beyond 64 and 128 against
-    the plain version, timed beside it and SDPA (``_flash_case``): bf16 at
-    hd 80 and 256 (gemma3's layers among them) on the wgmma kernel, timed
-    beside the SIMT kernel on the same inputs, the rest on the SIMT
-    kernel; fewer timed calls at gemma3's shape, whose plain version takes
-    ms."""
+    """``flash_attention`` at every head width beyond 64 and 128, and in
+    float32 at 64 and 128 too, against the plain version, timed beside it,
+    SDPA and the SIMT kernel (``_flash_case``): bf16 must route to the
+    wgmma kernel (gemma3's layers among them), float32 to the 3xTF32 one;
+    fewer timed calls at gemma3's shape, whose plain version takes ms."""
     g = torch.Generator(device=card).manual_seed(2)
     out = {}
     for name, B, S, H, KV, hd, dt, window, iters in WIDTH_CASES:
         out[name] = _flash_case(torch, FA, build, g, card, name, B, S, H, KV,
                                 hd, getattr(torch, dt), window, iters)
-        want = ("flash_attention_sm90" if dt == "bfloat16" and hd in (80, 256)
-                else "flash_attention")
+        want = ("flash_attention_sm90" if dt == "bfloat16"
+                else "flash_attention_f32_sm90")
         if out[name]["kernel"] != want:
             raise AssertionError(f"{name} routed to {out[name]['kernel']}")
     return out
@@ -1160,7 +1208,7 @@ def first_layers(cfg, n):
 
 
 def phase_serve(torch, np, card, arch, kernels, per_prefill, lens, tag,
-                check_len=None, requests=16, max_batch=4, new_tokens=32,
+                check_len=None, requests=8, max_batch=4, new_tokens=16,
                 layers=None, f32_layers=None):
     """Serve ``arch`` at full width (its first ``layers`` layers, or all);
     then the kernel path against the plain path on one cohort's prefill,
@@ -1280,9 +1328,23 @@ def phase_serve(torch, np, card, arch, kernels, per_prefill, lens, tag,
     with torch.no_grad():
         for name, a in wide.named_parameters():
             a.copy_(own[name])
+    # the float32 path: the 3xTF32 flash kernel's count set to 0 just
+    # before the float32 copy's prefills and read just after (its plain
+    # prefill launches nothing)
+    FA = kernels.get("flash_attention")
+    if FA is not None:
+        FA.kernel_launches[FA.F32[0]] = 0
     cons.update(kernel_vs_plain_prefill(torch, wide, tokens, max_seq,
                                         "float32", launches))
     cons["float32_layers"] = wcfg.num_layers
+    if FA is not None:
+        n = nums["float32_flash_launches"] = FA.kernel_launches[FA.F32[0]]
+        cons["float32_flash_launches"] = n
+        want = (per_prefill["flash_attention"] if f32_layers is None
+                else f32_layers)
+        if n != want:
+            raise AssertionError(f"{n} float32 flash launches in the "
+                                 f"float32 prefill, {want} expected")
     del wide, own
 
     # prefill(x[:-1]) + decode(x[-1]) against the full forward (bf16), as
@@ -1356,8 +1418,9 @@ def _wall(torch, fn, calls=1):
 def phase_paper_models(torch, np, card):
     """Figs. 6-7 and Table II on the card, through ``bench_torch_paper``.
     The resource model's per-type lines (float64) against the same fit on
-    the CPU; then the five regressors at ``bench_predictors``' full size,
-    each fitted and timed on the card, the deterministic ones (linear,
+    the CPU; then the five regressors at the bench's default size (its
+    ``--full`` size would keep the script past its time limit), each
+    fitted and timed on the card, the deterministic ones (linear,
     forest, boosting) also fitted on the CPU: their predictions must agree
     to rtol 1e-4."""
     from bench_torch_paper import resource_fits, table2_model, table2_split
@@ -1382,13 +1445,13 @@ def phase_paper_models(torch, np, card):
             raise AssertionError(f"{w}: QPS -> CPU/MEM not linear {row}")
         out["resource"][w] = row
 
-    data_s, split = table2_split(card, fast=False)
+    data_s, split = table2_split(card)
     Xtr, Xte, ytr, yte = split
     say("paper_models", table="II", rows=len(ytr) + len(yte),
         train=len(ytr), test=len(yte), dataset_s=data_s)
     for name, cls in ALL_MODELS.items():
         fit_s, pred_s, _, pred, e = table2_model(name, split, card,
-                                                 fast=False, calls=20)
+                                                 calls=20)
         if pred.device.type != card.type:
             raise AssertionError(f"{name} predicted on {pred.device}")
         row = {"fit_s": fit_s, "predict_us": pred_s * 1e6, **e}
@@ -1482,13 +1545,15 @@ def controlled_card_vs_cpu(torch, np, card, rf, pods, gaps, ticks):
             "predicted_reduction_cpu": b["predicted_reduction"]}
 
 
-CONTROL_SEEDS = [(0, 7), (0, 11), (1, 12)]   # (trace seed, sim seed)
+# (trace seed, sim seed): the bench's grid runs (0, 11) and (1, 12) too;
+# one seed keeps the whole script inside its time limit
+CONTROL_SEEDS = [(0, 7)]
 
 
 def phase_control_12(torch, np, K, RT, card, rf):
-    """``bench_torch_control``'s profile grid at (trace seed, sim seed) (0,
-    7) and the bench's (0, 11) and (1, 12): every scheduler without and with
-    its ``scheduler_loop_config`` loop (12 nodes, ``bursty_trace(
+    """``bench_torch_control``'s profile grid at each of ``CONTROL_SEEDS``
+    (trace seed, sim seed): every scheduler without and with its
+    ``scheduler_loop_config`` loop (12 nodes, ``bursty_trace(
     num_online=14)``), one ``runqlat_hist`` launch a tick; the controlled
     ICO run on the card against the CPU at (0, 7); then, per seed, ICO's
     plans without and with control replayed under 20 seeds with the fused
@@ -1580,6 +1645,11 @@ def phase_control_12(torch, np, K, RT, card, rf):
 
 
 PROACTIVE_SEED = (0, 11)
+# the bench's trace is 3 days; 2 keep more than a day past the ~0.9 of a
+# period the leverage gate needs, and the script inside its time limit
+PROACTIVE_DAYS = 2.0
+# the 1,000-node fleet's arrival trace (its length is the run's depth)
+ICO_1000_PODS = 300
 
 
 def _unified_card_vs_cpu(torch, np, card):
@@ -1648,8 +1718,9 @@ def _unified_card_vs_cpu(torch, np, card):
 
 def phase_proactive_12(torch, np, K, card, rf):
     """``bench_torch_control``'s proactive axis at trace seed 0, sim seed
-    11: ICO off / reactive / proactive and the unified stack on the 3-day
-    ``PROACTIVE_TRACE`` (loop every 40 ticks), one ``runqlat_hist`` launch
+    11: ICO off / reactive / proactive and the unified stack on
+    ``PROACTIVE_TRACE`` at ``PROACTIVE_DAYS`` (loop every 40 ticks), one
+    ``runqlat_hist`` launch
     a tick; the unified run traced (saved to a temporary JSONL file) and
     its action chains checked from the trace; then the unified stack on
     the card against the CPU on one noise stream."""
@@ -1659,12 +1730,14 @@ def phase_proactive_12(torch, np, K, card, rf):
 
     from repro_torch.cluster.experiment import bursty_trace
 
-    _, gaps = bursty_trace(seed=PROACTIVE_SEED[0], **PROACTIVE_TRACE)
+    trace = dict(PROACTIVE_TRACE, days=PROACTIVE_DAYS)
+    _, gaps = bursty_trace(seed=PROACTIVE_SEED[0], **trace)
     ticks = _run_ticks(gaps)
     K.launches = 0
     with tempfile.TemporaryDirectory() as tmp:
         row = proactive_seed(rf, *PROACTIVE_SEED, device=card,
-                             trace_path=os.path.join(tmp, "unified.jsonl"))
+                             trace_path=os.path.join(tmp, "unified.jsonl"),
+                             trace=trace)
     if K.launches != len(MODES) * ticks:
         raise AssertionError(f"{K.launches} runqlat_hist launches for "
                              f"{len(MODES)} x {ticks} ticks")
@@ -1867,7 +1940,8 @@ def phase_colocation(torch, K, FA, card):
     traced admission), then the demo (the predictor trained, 14 pods placed
     by ICO with every admission traced, the smollm-135m smoke model served,
     Eq. 1 of its runqlat histogram).  The smoke model has hd 16, so its
-    prefills launch the SIMT flash kernel, one launch a layer a cohort."""
+    prefills launch the bf16 wgmma flash kernel, one launch a layer a
+    cohort."""
     from repro_torch.configs import get_smoke_config
 
     demo = _load_file("examples/torch_colocation_sim.py")
@@ -1969,7 +2043,7 @@ def cluster_paths(torch, build, card, timers, done) -> dict:
          trees=int(rf.forest["feature"].shape[0]))
 
     fleet = make_fleet(1000, MIX, seed=0)
-    pods, gaps = _arrival_trace(600, seed=7)
+    pods, gaps = _arrival_trace(ICO_1000_PODS, seed=7)
     ticks = 30 + sum(-(-g // cstate.CHUNK) * cstate.CHUNK for g in gaps) + 40
     sched = ICOScheduler(InterferenceQuantifier(rf.predict))
     with timers.phase("profile"):
@@ -2169,7 +2243,8 @@ def main() -> int:
         try:
             libs = build.build(["runqlat_hist", "rollout_tick",
                                 "flash_attention", "flash_attention_sm90",
-                                "ssd", "ssd_sm90", "wkv"])
+                                "flash_attention_f32_sm90", "ssd", "ssd_sm90",
+                                "wkv"])
         finally:
             earlier.join()
         build.load("runqlat_hist", EARLIER)   # raises if that build failed
@@ -2179,17 +2254,23 @@ def main() -> int:
     for name in ("runqlat_hist", "rollout_tick", "ssd_sm90", "wkv"):
         say("build", kernel=name, ptxas=json.dumps(
             ptxas_summary(build.build_logs.get(name, ""))))
-    flash_log = build.build_logs.get("flash_attention_sm90", "")
-    inst = flash_instantiations(flash_log)
-    say("build", flash_attention_sm90_instantiations=json.dumps(inst))
-    if flash_log and sorted(inst) != ["hd128", "hd256", "hd64", "hd80"]:
-        raise AssertionError(f"flash_sm90_kernel instantiations: {inst}")
+    for lib, fn in (("flash_attention_sm90", "flash_sm90_kernel"),
+                    ("flash_attention_f32_sm90", "flash_f32_kernel")):
+        flash_log = build.build_logs.get(lib, "")
+        inst = flash_instantiations(flash_log, fn)
+        say("build", **{f"{lib}_instantiations": json.dumps(inst)})
+        if flash_log and sorted(inst) != FLASH_WIDTHS:
+            raise AssertionError(f"{fn} instantiations: {inst}")
     hgmma = sass_count(libs["flash_attention_sm90"], "HGMMA")
+    f32_hmma = sass_count(libs["flash_attention_f32_sm90"], "HMMA")
     hmma = sass_count(libs["ssd_sm90"], "HMMA")
     say("build", flash_attention_sm90_hgmma_instructions=hgmma,
+        flash_attention_f32_sm90_hmma_instructions=f32_hmma,
         ssd_sm90_hmma_instructions=hmma)
     if hgmma == 0:
         raise AssertionError("no HGMMA in flash_attention_sm90's SASS")
+    if f32_hmma == 0:
+        raise AssertionError("no HMMA in flash_attention_f32_sm90's SASS")
     if hmma == 0:
         raise AssertionError("no HMMA in ssd_sm90's SASS")
 
@@ -2239,8 +2320,8 @@ def main() -> int:
     done("serve_rwkv6")
 
     # 22. flash at every width beyond 64 and 128, gemma3-4b's prefill among
-    # them: bf16 at 80 and 256 on the wgmma kernel (the SIMT kernel timed
-    # beside it), the rest on the SIMT kernel
+    # them: bf16 on the wgmma kernel, float32 on the 3xTF32 one, the SIMT
+    # kernel timed beside each
     with timers.phase("flash_widths"):
         widths = phase_flash_widths(torch, FA, build, card)
     for name, nums in widths.items():
@@ -2253,6 +2334,7 @@ def main() -> int:
     # large ones is their first two layers (a full float32 copy would not
     # fit beside the bf16 model)
     flash_paths = {"zamba2": serve["flash_attention_launches"]}
+    f32_paths = {"zamba2": serve["float32_flash_launches"]}
     for tag, arch, lo, hi, layers, f32_layers in SERVE_FAMILIES:
         gc.collect()
         torch.cuda.empty_cache()
@@ -2269,6 +2351,7 @@ def main() -> int:
                 tag, layers=layers, f32_layers=f32_layers)
         done(f"serve_{tag}")
         flash_paths[tag] = nums["flash_attention_launches"]
+        f32_paths[tag] = nums["float32_flash_launches"]
 
     # 28-29. the metric-pipeline bench and the colocation demo on the card
     with timers.phase("metric_pipeline"):
@@ -2308,12 +2391,30 @@ def main() -> int:
         "width_max_abs_err": {k: c["max_abs_err"] for k, c in widths.items()},
         "sm90_widths": {k: {f: widths[k][f] for f in (
             "ms", "simt_ms", "plain_ms", "library_ms", "bound_ms",
-            "bound_by")} for k in ("gemma3_global", "gemma3_local",
-                                   "hd80_bfloat16", "hd256_bfloat16")},
+            "bound_by", "bound_term")} for k in (
+                "gemma3_global", "gemma3_local", "hd8_bfloat16",
+                "hd16_bfloat16", "hd80_bfloat16", "hd256_bfloat16")},
         "ms": flash["main"]["ms"], "plain_ms": flash["main"]["plain_ms"],
         "bound_ms": flash["main"]["bound_ms"],
         "bound_by": flash["main"]["bound_by"],
         "library_ms": flash["main"]["library_ms"]}, {
+        "name": "flash_attention_f32", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_f32_sm90.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:81",
+        "launches": sum(f32_paths.values()),
+        "launches_by_path": f32_paths,
+        "max_abs_err": max(c["max_abs_err"] for c in (
+            *flash.values(), *widths.values())
+            if c["kernel"] == "flash_attention_f32_sm90"),
+        "widths": {k: {f: c[f] for f in (
+            "ms", "simt_ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by", "bound_term", "cuda_core_bound_ms")}
+            for k, c in widths.items() if k.endswith("_float32")},
+        "ms": widths["hd256_float32"]["ms"],
+        "plain_ms": widths["hd256_float32"]["plain_ms"],
+        "bound_ms": widths["hd256_float32"]["bound_ms"],
+        "bound_by": widths["hd256_float32"]["bound_by"],
+        "library_ms": widths["hd256_float32"]["library_ms"]}, {
         "name": "ssd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_sm90.cu",
         "replaces": "src/repro/kernels/ssd.py:66",

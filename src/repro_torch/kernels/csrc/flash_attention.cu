@@ -1,7 +1,11 @@
-// Forward flash attention for Hopper (sm_90a).
-//
-// Replaces repro/kernels/flash_attention.py::flash_attention_pallas (body
-// _flash_kernel).  Computes, for q (B, S, H, hd) and k, v (B, S, KV, hd)
+// Forward flash attention for Hopper (sm_90a), the first, SIMT kernel: on
+// no route of the port.  It was the port of
+// repro/kernels/flash_attention.py::flash_attention_pallas (body
+// _flash_kernel) until flash_attention_sm90.cu (bf16, wgmma + TMA) and
+// flash_attention_f32_sm90.cu (float32, 3xTF32 on the tensor cores)
+// replaced it at every width; it is still built, and called through its
+// entry directly, so that chip_smoke.py and tools/flash_widths.py time it
+// beside both replacements on the same inputs.  Computes, for q (B, S, H, hd) and k, v (B, S, KV, hd)
 // with H % KV == 0, query head h reading KV head h / (H / KV):
 //   o[b, i, h] = sum_j softmax_j(mask(q_i . k_j * hd^-1/2)) v_j
 // with the TPU kernel's arithmetic: scores in float32, masked scores set
@@ -43,11 +47,11 @@
 // one block of 256 threads an SM (ptxas: 231 registers in bf16, 238 in
 // float32, no spills), a first kernel that is right and slow: 5.94 ms at
 // gemma3-4b's prefill (B 4, S 2048, H 8 over 4, causal, bf16) on an H100
-// SXM at 700 W, against a 69 us bound and 0.14 ms for PyTorch's SDPA.  The
-// port routes bf16 at hd 64, 80, 128 and 256 to the wgmma kernel
-// (flash_attention_sm90.cu); this one takes float32 at every width and
-// bf16 at hd 8 and 16, and is still built at bf16 80 and 256 to be timed
-// beside the wgmma kernel.
+// SXM at 700 W, against a 69 us bound and 0.14 ms for PyTorch's SDPA.  At
+// B 2, S 1,000, H 8 over 4, causal: bf16 hd 8 / 16 0.080 / 0.141 ms
+// (SDPA 0.027 / 0.037), float32 hd 256 1.10 ms (SDPA 0.68), where the
+// float32 CUDA cores (67 TFLOP/s) bound its products; the tensor-core
+// kernels that replaced it take every one of these pairs.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 

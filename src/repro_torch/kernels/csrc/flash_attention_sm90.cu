@@ -1,8 +1,10 @@
 // Forward flash attention for Hopper (sm_90a), bfloat16: wgmma fed by TMA.
 //
 // Replaces repro/kernels/flash_attention.py::flash_attention_pallas (body
-// _flash_kernel) for bf16 inputs at hd 64, 80, 128 and 256; float32 inputs,
-// and bf16 at hd 8 and 16, keep flash_attention.cu.
+// _flash_kernel) for bf16 inputs at every width JAX's configs use: hd 8,
+// 16, 64, 80, 128 and 256.  float32 inputs go to flash_attention_f32_sm90.cu
+// (3xTF32); flash_attention.cu, the SIMT kernel these replaced, is on no
+// route.
 // Computes, for q (B, S, H, hd) and k, v (B, S, KV, hd) with H % KV == 0,
 // query head h reading KV head h / (H / KV):
 //   o[b, i, h] = sum_j softmax_j(mask(q_i . k_j * hd^-1/2)) v_j
@@ -41,17 +43,20 @@
 //     (TMA completes their byte counts) and an empty barrier for each, on
 //     which every consumer warp arrives: for K once its S has landed, for
 //     V once its P V has, so the producer refills a K slot a step early;
-//   * the ring by head width: 128 keys a tile in three stages at hd 64,
-//     80 and 128 (Q 32 KB, ring <= 192 KB); at hd 256 Q alone is 64 KB,
-//     so 64 keys a tile in two stages (ring 128 KB, 193 KB in all);
+//   * the ring by head width: 128 keys a tile in three stages at hd 8,
+//     16, 64, 80 and 128 (Q 16-32 KB, ring <= 192 KB); at hd 256 Q alone
+//     is 64 KB, so 64 keys a tile in two stages (ring 128 KB, 193 KB in
+//     all);
 //   * every tile lands in the 128-byte swizzle, rows of 64 bf16, a wider
 //     hd as two or four such column chunks, which is the layout wgmma
 //     reads; hd 80 takes two chunks, TMA zero-filling columns 80-127 past
 //     the tensor's edge (its rows are 160 bytes, which no 128-byte chunk
-//     divides);
+//     divides); hd 8 and 16 take one chunk, TMA zero-filling columns 8-63
+//     or 16-63 (their rows are 16 or 32 bytes, a stride TMA takes);
 //   * S = Q K^T is wgmma m64n128k16 (m64n64k16 at hd 256) with both
-//     operands in shared memory (K-major), over the hd / 16 column steps
-//     that hold data (5 at hd 80), accumulating in float32 registers; at
+//     operands in shared memory (K-major), over the ceil(hd / 16) column
+//     steps that hold data (5 at hd 80, one at hd 8 and 16: at hd 8 its
+//     upper 8 columns are TMA's zeros), accumulating in float32 registers; at
 //     hd 256 O is 128 float32 registers a thread, S 32 and P 16, under the
 //     consumers' 240; the online softmax
 //     runs on that fragment (two rows a thread, row max and sum across the
@@ -60,8 +65,13 @@
 //     P, rounded to bf16, as the register A operand (the accumulator
 //     fragment is the A fragment's layout) and V read from shared memory
 //     as an MN-major B operand; at hd 80 the second chunk's product runs
-//     on 16 real columns and 48 zero ones, and only the 80 real columns
-//     are rescaled and stored;
+//     on 16 real columns and 48 zero ones, at hd 8 and 16 the one chunk's
+//     on 8 or 16 real columns, and only the hd real columns are rescaled
+//     and stored.  At hd 8 and 16 the padded P V does 8 or 4 times the
+//     real products, which the tensor cores have to spare: there the
+//     bound is the softmax's exponentials (16 a clock an SM on the
+//     special-function unit; B 2, S 1,000, H 8, causal: 8.0 M of them,
+//     ~1.9 us, beside ~0.5 us of products and bytes);
 //   * the two consumer warpgroups take turns issuing their products (named
 //     barriers), so one warpgroup's softmax overlaps the other's products;
 //   * within a warpgroup the two products overlap the softmax: the next
@@ -380,7 +390,8 @@ __device__ __forceinline__ Item item_at(int w, int S, int H, int B,
   return it;
 }
 
-// HD: the head width; TW: the tiles' width (HD rounded up to 64 columns).
+// HD: the head width (a multiple of 8); TW: the tiles' width (HD rounded up
+// to 64 columns).
 template <int HD, int TW>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_sm90_kernel(const __grid_constant__ CUtensorMap tq,
@@ -390,7 +401,7 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                   int causal, int window, float scale_log2, int n_qtiles) {
   using C = Config<TW>;
   constexpr int kBN = C::kBN, kStages = C::kStages;
-  static_assert(HD % 16 == 0 && HD <= TW && TW - HD < 64, "tile width");
+  static_assert(HD % 8 == 0 && HD <= TW && TW - HD < 64, "tile width");
   extern __shared__ uint8_t smem_raw[];
   // Q full, Q empty; per stage: K full, V full, K empty, V empty
   __shared__ __align__(8) uint64_t bars[2 + 4 * kStages];
@@ -495,14 +506,14 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       l[0] = l[1] = 0.f;
 
       // S = Q K_n^T into sc (issued, committed, not waited for), over the
-      // HD / 16 column steps that hold data
+      // ceil(HD / 16) column steps that hold data
       auto issue_s = [&](int n) {
         const int s = (ring + n) % kStages;
         mbar_wait(bar_k + 8 * s, ((ring + n) / kStages) & 1);
         fence_regs<kBN / 2>(sc);
         wgmma_fence();
 #pragma unroll
-        for (int kk = 0; kk < HD / 16; ++kk) {
+        for (int kk = 0; kk < (HD + 15) / 16; ++kk) {
           const int c = kk / 4, w4 = (kk % 4) * 32;  // chunk, bytes in a row
           wgmma_s<kBN>(
               sc, sw128_desc(q_base + c * kBM * kRowBytes + w4),
@@ -710,7 +721,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
 }  // namespace
 
 // q, o: (B, S, H, hd); k, v: (B, S, KV, hd); contiguous, 16-byte aligned,
-// bfloat16; hd 64, 80, 128 or 256.  Launches on `stream` and returns
+// bfloat16; hd 8, 16, 64, 80, 128 or 256.  Launches on `stream` and returns
 // cudaGetLastError() (0 on success); -1 for an unsupported hd, -2 when the
 // driver has no cuTensorMapEncodeTiled, -3 when a map cannot be encoded.
 extern "C" int flash_attention_sm90_launch(const void* q, const void* k,
@@ -721,8 +732,13 @@ extern "C" int flash_attention_sm90_launch(const void* q, const void* k,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  // the head width, then the tiles' width: hd 80 runs in 128-column tiles
+  // the head width, then the tiles' width: hd 8 and 16 run in 64-column
+  // tiles, hd 80 in 128-column ones
   switch (hd) {
+    case 8:
+      return launch<8, 64>(q, k, v, o, B, S, H, KV, causal, window, st);
+    case 16:
+      return launch<16, 64>(q, k, v, o, B, S, H, KV, causal, window, st);
     case 64:
       return launch<64, 64>(q, k, v, o, B, S, H, KV, causal, window, st);
     case 80:

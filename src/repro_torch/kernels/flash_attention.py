@@ -6,19 +6,23 @@ flash_attention_pallas`` (body ``_flash_kernel``): forward attention over
 ``1 / sqrt(hd)``, causal and sliding-window masks (``-1e30`` for masked
 scores), the KV loop stopped at the causal frontier, and the output in
 q's type.  Two CUDA C++ kernels compute it (design and bound are noted in
-each), on a fixed route by (dtype, hd):
+each), on a fixed route by dtype, at every width JAX's configs use (8, 16,
+64, 80, 128, 256):
 
-* bfloat16 at hd 64, 80, 128 or 256 goes to
-  ``csrc/flash_attention_sm90.cu`` (wgmma on the tensor cores, fed by
-  TMA; P is rounded to bf16 for O += P V; hd 80 is carried in tiles of
-  128 columns whose last 48 TMA fills with zeros);
-* bfloat16 at the smoke configs' widths (8, 16), and float32 at every
-  width JAX's configs use (8, 16, 64, 80, 128, 256), go to
-  ``csrc/flash_attention.cu`` (products on the float32 CUDA cores, which
-  keep the TPU kernel's float32 arithmetic);
+* bfloat16 goes to ``csrc/flash_attention_sm90.cu`` (wgmma on the tensor
+  cores, fed by TMA; P is rounded to bf16 for O += P V; a width that is
+  not a multiple of 64 is carried in tiles of 64 or 128 columns that TMA
+  fills with zeros past hd);
+* float32 goes to ``csrc/flash_attention_f32_sm90.cu`` (mma.sync on the
+  TF32 tensor cores in 3xTF32: each operand split into two TF32 parts and
+  three products summed, which keeps float32 accuracy; P stays float32);
 * any other width raises.
 
-The route is chosen from the shape alone: no kernel is tried after
+``csrc/flash_attention.cu`` (``SIMT``), the first kernel, with its
+products on the float32 CUDA cores, is on no route: it is built and called
+only to time it beside its replacements on the same inputs.
+
+The route is chosen from the dtype and width alone: no kernel is tried after
 another fails.  Each kernel reads KV head ``h // (H // KV)`` for query
 head ``h``, which is the same function as JAX's ``_repeat_kv`` followed by
 the TPU kernel, and masks a ragged tail itself, so any S works.
@@ -27,7 +31,8 @@ For tensors on the CPU the wrapper takes ``flash_attention_plain``, exact
 masked-softmax attention in float32 (``ref.flash_attention_ref`` with GQA
 and the TPU kernel's masks).  For CUDA tensors it launches the routed
 kernel or raises: there is no fallback.
-``launches`` counts kernel launches of either kernel and nothing else.
+``launches`` counts kernel launches of either kernel and nothing else,
+``kernel_launches`` the same launches by kernel.
 """
 from __future__ import annotations
 
@@ -39,9 +44,8 @@ import torch
 from repro_torch.kernels import build
 
 NEG_INF = -1e30
-SM90_HEAD_DIMS = (64, 80, 128, 256)         # the wgmma kernel, bf16 only
-SIMT_HEAD_DIMS = (8, 16, 64, 80, 128, 256)  # the SIMT kernel, both dtypes
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (8, 16, 64, 80, 128, 256)   # every width, either kernel
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}   # the SIMT entry's codes
 
 launches = 0
 
@@ -88,20 +92,25 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 # (library, symbol, int arguments): the SIMT entry takes the dtype code too
 SM90 = ("flash_attention_sm90", "flash_attention_sm90_launch", 8)
+F32 = ("flash_attention_f32_sm90", "flash_attention_f32_sm90_launch", 8)
 SIMT = ("flash_attention", "flash_attention_launch", 9)
+_ROUTE = {torch.bfloat16: SM90, torch.float32: F32}
+
+# launches by kernel (library name), beside their sum ``launches``
+kernel_launches = {SM90[0]: 0, F32[0]: 0}
 
 
 def route(dtype, hd: int):
-    """The kernel that takes (dtype, hd): bf16 at hd 64, 80, 128 or 256
-    the wgmma kernel, every other supported pair the SIMT kernel (float32
-    products, which TF32 tensor cores would not keep); raises for another
-    width."""
-    if dtype == torch.bfloat16 and hd in SM90_HEAD_DIMS:
-        return SM90
-    if hd in SIMT_HEAD_DIMS:
-        return SIMT
-    raise ValueError(f"flash_attention kernel takes hd in {SIMT_HEAD_DIMS}, "
-                     f"got {hd}")
+    """The kernel that takes (dtype, hd): bf16 the wgmma kernel, float32
+    the 3xTF32 one, at every width of ``HEAD_DIMS``; raises for another
+    width or dtype."""
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"flash_attention kernel takes hd in {HEAD_DIMS}, "
+                         f"got {hd}")
+    if dtype not in _ROUTE:
+        raise ValueError(f"flash_attention kernel takes float32 or bfloat16, "
+                         f"got {dtype}")
+    return _ROUTE[dtype]
 
 
 def _entry(kernel):
@@ -131,14 +140,12 @@ def _launch(q, k, v, causal: bool, sliding_window: int) -> torch.Tensor:
     if q.numel() == 0:
         return out
     dev, stream = build.device_and_stream(q)
-    head = [q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, H,
-            k.shape[2], hd, int(causal), sliding_window]
-    if kernel is SIMT:
-        head.append(_DTYPES[q.dtype])
-    err = fn(*head, dev, stream)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S,
+             H, k.shape[2], hd, int(causal), sliding_window, dev, stream)
     if err != 0:
         raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
     launches += 1
+    kernel_launches[kernel[0]] += 1
     return out
 
 

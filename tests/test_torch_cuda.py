@@ -373,13 +373,14 @@ def test_flash_kernel_equals_plain(card, exact_f32, B, S, H, KV, hd, dtype,
 @pytest.mark.parametrize("causal,window", [(True, 0), (False, 0),
                                            (True, 100)])
 @pytest.mark.parametrize("S", [1024, 1000, 77, 1])
-@pytest.mark.parametrize("hd", [64, 80, 128, 256])
+@pytest.mark.parametrize("hd", [8, 16, 64, 80, 128, 256])
 def test_flash_sm90_kernel_equals_plain(card, exact_f32, hd, S, causal,
                                         window, H, KV, B):
     """The bf16 wgmma/TMA kernel against its plain version at the bf16
     limits of ``chip_smoke.py`` (its P is rounded to bf16 before P V), at
-    every width it takes: 64 and 128 in tiles of 128 keys, 80 in tiles of
-    128 columns zero-filled past 80, 256 in tiles of 64 keys."""
+    every width it takes: 64 and 128 in tiles of 128 keys, 8, 16 and 80 in
+    tiles of 64 or 128 columns zero-filled past hd, 256 in tiles of 64
+    keys."""
     q, k, v = _qkv(B, S, H, KV, hd, torch.bfloat16, card, seed=S + hd + H)
     assert FA.route(torch.bfloat16, hd) is FA.SM90
     before = FA.launches
@@ -394,6 +395,30 @@ def test_flash_sm90_kernel_equals_plain(card, exact_f32, hd, S, causal,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("H,KV,B", [(4, 2, 2), (9, 3, 1)])
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0),
+                                           (True, 100)])
+@pytest.mark.parametrize("S", [1000, 300, 77, 1])
+@pytest.mark.parametrize("hd", [8, 16, 64, 80, 128, 256])
+def test_flash_f32_kernel_equals_plain(card, exact_f32, hd, S, causal,
+                                       window, H, KV, B):
+    """The float32 3xTF32 kernel against its plain version (float32
+    products, TF32 off) at the float32 limits, at every width: 64 query
+    rows a block in 64-key tiles, 128 rows in 32-key tiles at hd 256;
+    ragged S, GQA, causal, non-causal and windowed."""
+    q, k, v = _qkv(B, S, H, KV, hd, torch.float32, card, seed=S + hd + H)
+    assert FA.route(torch.float32, hd) is FA.F32
+    before = FA.launches
+    got = FA.flash_attention(q, k, v, causal=causal, sliding_window=window)
+    torch.cuda.synchronize()
+    assert FA.launches == before + 1
+    want = FA.flash_attention_plain(q, k, v, causal=causal,
+                                    sliding_window=window)
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    torch.testing.assert_close(got, want, **FLASH_TOL[torch.float32])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal,window", [(True, 0), (False, 0),
                                            (True, 100)])
@@ -403,24 +428,19 @@ def test_flash_simt_kernel_at_every_width_equals_plain(card, exact_f32, hd, S,
                                                       causal, window, dtype):
     """The SIMT kernel at the widths beyond 64 and 128 (the smoke configs'
     8 and 16, hubert's 80, gemma3's 256), both dtypes, GQA 4 over 2.  The
-    wrapper routes bf16 at 80 and 256 to the wgmma kernel, so those pairs
-    call the SIMT entry directly (as ``chip_smoke.py`` does to time it
-    beside the wgmma kernel); the rest go through the wrapper."""
+    wrapper routes no pair to it any more, so every pair calls its entry
+    directly (as ``chip_smoke.py`` does to time it beside the kernels that
+    replaced it), which counts no launch."""
     q, k, v = _qkv(2, S, 4, 2, hd, dtype, card, seed=S + hd)
+    assert FA.route(dtype, hd) is not FA.SIMT
     before = FA.launches
-    if FA.route(dtype, hd) is FA.SIMT:
-        got = FA.flash_attention(q, k, v, causal=causal,
-                                 sliding_window=window)
-        torch.cuda.synchronize()
-        assert FA.launches == before + 1
-    else:
-        got = torch.empty_like(q)
-        dev, stream = build.device_and_stream(q)
-        err = FA._entry(FA.SIMT)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), got.data_ptr(), 2, S, 4,
-            2, hd, int(causal), window, FA._DTYPES[dtype], dev, stream)
-        torch.cuda.synchronize()
-        assert err == 0 and FA.launches == before
+    got = torch.empty_like(q)
+    dev, stream = build.device_and_stream(q)
+    err = FA._entry(FA.SIMT)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), got.data_ptr(), 2, S, 4,
+        2, hd, int(causal), window, FA._DTYPES[dtype], dev, stream)
+    torch.cuda.synchronize()
+    assert err == 0 and FA.launches == before
     want = FA.flash_attention_plain(q, k, v, causal=causal,
                                     sliding_window=window)
     assert got.dtype == dtype and got.shape == q.shape
@@ -567,7 +587,7 @@ def test_ssd_wrapper_raises_on_bad_inputs(card, bad):
 
 @pytest.mark.cuda
 def test_small_serve_run_goes_through_both_kernels(card):
-    """The zamba2 smoke model as configured (hd 16, the SIMT flash kernel;
+    """The zamba2 smoke model as configured (hd 16, the wgmma flash kernel;
     P 16, N 16, the tensor-core SSD kernel): one cohort's prefill launches
     each kernel once per layer that runs it, and decode launches none."""
     cfg = get_smoke_config("zamba2-1.2b")

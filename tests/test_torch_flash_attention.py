@@ -7,6 +7,8 @@ Tolerances: float32 2e-5 and bfloat16 2e-2, as ``tests/test_kernels.py``
 holds the Pallas kernel to the same reference.  (The Pallas kernel itself
 cannot run on the installed JAX, so it is not an oracle here.)
 """
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -40,7 +42,8 @@ def _f32(a):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("B,S,H,hd", [(1, 128, 2, 32), (2, 256, 4, 64)])
+@pytest.mark.parametrize("B,S,H,hd", [(1, 128, 2, 32), (2, 256, 4, 64),
+                                      (1, 96, 2, 8), (2, 64, 4, 16)])
 def test_plain_matches_ref(B, S, H, hd, causal, dtype):
     (jq, jk, jv), (q, k, v) = _qkv(B, S, H, H, hd, S + H, dtype)
     want = ref.flash_attention_ref(jq, jk, jv, causal=causal)
@@ -183,27 +186,31 @@ def test_wrapper_rejects_bad_inputs(bad):
                            else 0)
 
 
+_SM90 = ("flash_attention_sm90", "flash_attention_sm90_launch", 8)
+_F32 = ("flash_attention_f32_sm90", "flash_attention_f32_sm90_launch", 8)
+
+
 @pytest.mark.parametrize("dtype,hd,lib,symbol,ints", [
-    ("bfloat16", 64, "flash_attention_sm90", "flash_attention_sm90_launch", 8),
-    ("bfloat16", 128, "flash_attention_sm90", "flash_attention_sm90_launch",
-     8),
-    ("float32", 64, "flash_attention", "flash_attention_launch", 9),
-    ("float32", 256, "flash_attention", "flash_attention_launch", 9),
-    ("bfloat16", 256, "flash_attention_sm90", "flash_attention_sm90_launch",
-     8),
-    ("bfloat16", 80, "flash_attention_sm90", "flash_attention_sm90_launch",
-     8),
-    ("bfloat16", 16, "flash_attention", "flash_attention_launch", 9),
-    ("float32", 8, "flash_attention", "flash_attention_launch", 9),
-    ("float32", 80, "flash_attention", "flash_attention_launch", 9),
-    ("bfloat16", 8, "flash_attention", "flash_attention_launch", 9),
+    ("bfloat16", 64, *_SM90),
+    ("bfloat16", 128, *_SM90),
+    ("float32", 64, *_F32),
+    ("float32", 256, *_F32),
+    ("bfloat16", 256, *_SM90),
+    ("bfloat16", 80, *_SM90),
+    ("bfloat16", 16, *_SM90),
+    ("float32", 8, *_F32),
+    ("float32", 80, *_F32),
+    ("bfloat16", 8, *_SM90),
+    ("float32", 16, *_F32),
+    ("float32", 128, *_F32),
 ])
 def test_launch_routes_by_dtype(monkeypatch, dtype, hd, lib, symbol, ints):
-    """A fixed route by (dtype, hd): bf16 at hd 64, 80, 128 and 256 goes
-    to the wgmma/TMA kernel, every other pair to the SIMT one (with its
-    dtype code); one launch, counted once, and nothing else is tried.
-    Either entry is handed the real hd (80 stays 80: the wgmma kernel pads
-    its tiles itself)."""
+    """A fixed route by dtype at every width: bf16 goes to the wgmma/TMA
+    kernel, float32 to the 3xTF32 one, each with 8 ints (no dtype code);
+    one launch, counted once in ``launches`` and in its kernel's
+    ``kernel_launches``, and nothing else is tried.  Either entry is
+    handed the real hd (8 and 80 stay 8 and 80: the wgmma kernel pads its
+    tiles itself)."""
     calls = []
 
     class Fn:
@@ -230,32 +237,87 @@ def test_launch_routes_by_dtype(monkeypatch, dtype, hd, lib, symbol, ints):
     monkeypatch.setattr(FA.build, "device_and_stream", lambda t: (0, 7))
     _, (q, k, v) = _qkv(2, 40, 4, 2, hd, 5, dtype)
     before = FA.launches
+    by_kernel = dict(FA.kernel_launches)
     out = FA._launch(q, k, v, True, 16)
     assert FA.launches == before + 1
+    assert FA.kernel_launches == {**by_kernel, lib: by_kernel[lib] + 1}
     assert out.shape == q.shape and out.dtype == q.dtype
     assert len(calls) == 1 and calls[0][0] == lib
     args = calls[0][1]
     assert len(fns[symbol].argtypes) == 4 + ints + 1
     assert args[4:11] == (2, 40, 4, 2, hd, 1, 16) and args[-2:] == (0, 7)
     assert len(args) == 4 + ints + 1
-    if ints == 9:
-        assert args[11] == FA._DTYPES[TORCH[dtype]]
 
 
 def test_route_by_dtype_and_width():
-    """The whole route table: bf16 at 64, 80, 128 and 256 the wgmma
-    kernel, bf16 at 8 and 16 and float32 at every width the SIMT kernel,
-    any other width raises in either dtype."""
+    """The whole route table: bf16 at 8, 16, 64, 80, 128 and 256 the
+    wgmma kernel, float32 at the same widths the 3xTF32 kernel, the SIMT
+    kernel at none; any other width raises in either dtype, and so does
+    another dtype."""
     for hd in (64, 80, 128, 256):
         assert FA.route(torch.bfloat16, hd) is FA.SM90
     for hd in (8, 16):
-        assert FA.route(torch.bfloat16, hd) is FA.SIMT
+        assert FA.route(torch.bfloat16, hd) is FA.SM90
     for hd in (8, 16, 64, 80, 128, 256):
-        assert FA.route(torch.float32, hd) is FA.SIMT
+        assert FA.route(torch.float32, hd) is FA.F32
+        assert FA.SIMT not in (FA.route(torch.float32, hd),
+                               FA.route(torch.bfloat16, hd))
     for dtype in (torch.bfloat16, torch.float32):
         for hd in (4, 32, 96, 512):
             with pytest.raises(ValueError, match="hd"):
                 FA.route(dtype, hd)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        FA.route(torch.float16, 64)
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """float32 rounded to TF32 (10 mantissa bits), to nearest with ties
+    away from zero, as ``cvt.rna.tf32.f32``: half of the 13 dropped bits'
+    range added to the magnitude, then the 13 bits cleared."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _mm_tf32(a, b, terms):
+    """a @ b in float32 from TF32 parts: 3xTF32 (``terms`` 3) as the
+    float32 kernel takes it, al bh + ah bl + ah bh with hi = tf32(x) and
+    lo = tf32(x - hi); or one TF32 product (``terms`` 1)."""
+    ah, bh = _tf32(a), _tf32(b)
+    if terms == 1:
+        return ah @ bh
+    al, bl = _tf32(a - ah), _tf32(b - bh)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _attention(q, k, v, mm):
+    """Causal attention of one head, (S, hd), with the TPU kernel's
+    masks; products through ``mm`` (S = q k^T and O = P V, P unnormalised
+    as the kernel keeps it, divided by l after)."""
+    S, hd = q.shape
+    s = mm(q, k.T) * (1.0 / math.sqrt(hd))
+    i = torch.arange(S)
+    s = torch.where(i[:, None] >= i[None, :], s, FA.NEG_INF)
+    p = torch.exp(s - s.max(-1, keepdim=True).values)
+    return mm(p, v) / p.sum(-1, keepdim=True)
+
+
+@pytest.mark.parametrize("hd", [8, 64, 256])
+def test_3xtf32_split_keeps_float32_tolerance(hd):
+    """The float32 kernel's arithmetic emulated on the CPU: both products
+    of the attention in 3xTF32 (TF32 by bit masking, float32 sums) hold
+    against float64 attention at the float32 kernels' tolerance (rtol =
+    atol = 2e-5, ``tests/test_torch_cuda.py::FLASH_TOL``), so the card's
+    kernel-vs-plain check is not passed by a tolerance picked after the
+    fact; one TF32 product misses it by far."""
+    rng = np.random.default_rng(hd)
+    q, k, v = (torch.from_numpy(rng.standard_normal((300, hd))
+                                .astype(np.float32)) for _ in range(3))
+    want = _attention(q.double(), k.double(), v.double(), torch.matmul)
+    three = _attention(q, k, v, lambda a, b: _mm_tf32(a, b, 3))
+    np.testing.assert_allclose(three.double().numpy(), want.numpy(),
+                               **TOL["float32"])
+    one = _attention(q, k, v, lambda a, b: _mm_tf32(a, b, 1))
+    assert float((one.double() - want).abs().max()) > 10 * 2e-5
 
 
 @pytest.mark.parametrize("hd", [4, 32, 96, 512])

@@ -1,22 +1,28 @@
-"""Build both flash kernels and hold them against the plain version at
-every shape ``chip_smoke.py`` times them at, on the card, in ~1-2 min.
+"""Build the three flash kernels and hold them against the plain version
+at every shape ``chip_smoke.py`` times them at, on the card, in ~1-2 min.
 
 Prints ptxas's registers, shared memory and spills for each head width of
-``flash_sm90_kernel``, its HGMMA count, then ``chip_smoke.py``'s
-``flash_kernel`` and ``flash_widths`` phases (kernel, plain version, SDPA
-and, for a bf16 shape the wgmma kernel takes, the SIMT kernel on the same
-inputs; CUDA events), and the card's name and power limit.
+``flash_sm90_kernel`` (bf16, wgmma + TMA) and ``flash_f32_kernel``
+(float32, 3xTF32 on mma.sync), their HGMMA and HMMA counts, then
+``chip_smoke.py``'s ``flash_kernel`` and ``flash_widths`` phases (kernel,
+plain version, SDPA and the SIMT kernel ``flash_attention.cu`` on the
+same inputs; CUDA events; the bound's three terms), and the card's name
+and power limit.
 
-Two ways to time another build of ``flash_attention_sm90.cu`` beside this
-one, on the same inputs at every bf16 shape of those phases it takes, in
-the order other, this, this, other (``[flash_ab]`` lines, each build held
-to the plain version first):
+Two ways to time other builds beside this tree's routed kernels, on the
+same inputs at every shape of those phases, in the order other, this,
+this, other (``[flash_ab]`` lines, each build held to the plain version
+first):
 
-* ``--parent DIR``: the source of an earlier tree (an unpacked ``git
-  archive`` under the ignored ``_checkout/``);
-* ``--variants a,b``: copies of this source with one of ``VARIANTS``'
-  patches (each keeps the results right), built under the ignored build
-  directory, with their ptxas numbers.
+* ``--parent DIR``: the sources of an earlier tree (an unpacked ``git
+  archive`` under the ignored ``_checkout/``), each shape on the kernel
+  that tree routes it to: bf16 on its wgmma kernel where that takes the
+  width, else on its SIMT kernel; float32 on its 3xTF32 kernel where it
+  has one, else on its SIMT kernel;
+* ``--variants a,b``: copies of this tree's ``flash_attention_sm90.cu``
+  with one of ``VARIANTS``' patches (each keeps the results right), built
+  under the ignored build directory, with their ptxas numbers; bf16
+  shapes only.
 
     python3 tools/flash_widths.py [--parent _checkout/parent]
         [--variants no_pipeline]
@@ -33,6 +39,7 @@ import sys
 from pathlib import Path
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
 # the consumers' KV loop as the source has it: the next tile's S issued
 # before this tile's P V (from the item's first S to its last P V)
 PIPELINE_BEGIN = "      turn_begin();\n      issue_s(0);\n"
@@ -67,6 +74,23 @@ def _no_pipeline(src: str) -> str:
 VARIANTS = {"no_pipeline": _no_pipeline}
 
 
+LIBS = ("flash_attention_sm90", "flash_attention_f32_sm90",
+        "flash_attention")
+KERNELS = {"flash_attention_sm90": "flash_sm90_kernel",
+           "flash_attention_f32_sm90": "flash_f32_kernel"}
+
+
+def instantiations(CS, build, tag=None):
+    """ptxas's numbers per head width of each tensor-core flash kernel of
+    this tree (``tag`` None) or of another source directory's build."""
+    out = {}
+    for lib, fn in KERNELS.items():
+        log = build.build_logs.get(lib if tag is None else f"{tag}/{lib}")
+        if log:
+            out[lib] = CS.flash_instantiations(log, fn)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", help="write every result to this JSON file")
@@ -84,11 +108,11 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as FA
 
-    libs = build.build(["flash_attention", "flash_attention_sm90"])
-    inst = CS.flash_instantiations(
-        build.build_logs.get("flash_attention_sm90", ""))
-    CS.say("build", flash_attention_sm90_instantiations=json.dumps(inst),
-           hgmma=CS.sass_count(libs["flash_attention_sm90"], "HGMMA"))
+    libs = build.build(list(LIBS))
+    inst = instantiations(CS, build)
+    CS.say("build", instantiations=json.dumps(inst),
+           hgmma=CS.sass_count(libs["flash_attention_sm90"], "HGMMA"),
+           f32_hmma=CS.sass_count(libs["flash_attention_f32_sm90"], "HMMA"))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = torch.device("cuda")
@@ -109,13 +133,12 @@ def main() -> int:
         (d / "flash_attention_sm90.cu").write_text(VARIANTS[name](src))
         others[name] = d
     for tag, csrc in others.items():
-        lib = build.build(["flash_attention_sm90"], csrc)[
-            "flash_attention_sm90"]
-        inst = CS.flash_instantiations(
-            build.build_logs.get(f"{csrc.name}/flash_attention_sm90", ""))
+        names = [n for n in LIBS if (csrc / f"{n}.cu").exists()]
+        paths = build.build(names, csrc)
         CS.say("build", other=tag,
-               flash_attention_sm90_instantiations=json.dumps(inst))
-        out[f"flash_ab_{tag}"] = other_ab(torch, CS, build, FA, card, lib)
+               instantiations=json.dumps(instantiations(CS, build,
+                                                        csrc.name)))
+        out[f"flash_ab_{tag}"] = other_ab(torch, CS, build, FA, card, paths)
         for name, nums in out[f"flash_ab_{tag}"].items():
             CS.say("flash_ab", other=tag, case=name, **nums)
     smi = subprocess.run(
@@ -131,55 +154,75 @@ def main() -> int:
     return 0
 
 
-def other_ab(torch, CS, build, FA, card, path):
-    """Another build of ``flash_attention_sm90`` (the library at ``path``)
-    against this one, bf16, causal, at each shape of ``flash_kernel`` and
-    ``flash_widths`` whose width the other build takes (its entry returns
-    -1 for another)."""
-    before = ctypes.CDLL(str(path)).flash_attention_sm90_launch
-    before.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
+def _entry(path, ints):
+    fn = getattr(ctypes.CDLL(str(path)), f"{Path(path).name.split('-')[0]}"
+                 "_launch")
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * ints + [
         ctypes.c_void_p]
-    before.restype = ctypes.c_int
-    this = FA._entry(FA.SM90)
-    cases = [("main", 4, 1024, 32, 32, 64, 0),
-             ("main_hd128", 4, 1024, 16, 16, 128, 0),
-             ("ragged_bf16", 1, 1000, 9, 3, 64, 100)] + [
-        (c[0], *c[1:6], c[7]) for c in CS.WIDTH_CASES if c[6] == "bfloat16"]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def other_ab(torch, CS, build, FA, card, paths):
+    """Another tree's flash kernels (``paths``: library by name) against
+    this tree's routed kernel, causal, at each shape of ``flash_kernel``
+    and ``flash_widths``: the other side is the first of its kernels that
+    takes the shape (a tensor-core entry returns -1 for a width it does
+    not take), the SIMT kernel with its dtype code last; a shape none
+    takes is skipped."""
     g = torch.Generator(device=card).manual_seed(4)
     out = {}
-    for name, B, S, H, KV, hd, window in cases:
+    for name, B, S, H, KV, hd, dt, window, *rest in (*CS.FLASH_CASES,
+                                                     *CS.WIDTH_CASES):
+        dtype = getattr(torch, dt)
+        iters = rest[0] if rest else 200
         q, k, v = (torch.randn((B, S, h, hd), generator=g, device=card)
-                   .to(torch.bfloat16) for h in (H, KV, KV))
+                   .to(dtype) for h in (H, KV, KV))
         want = FA.flash_attention_plain(q, k, v, sliding_window=window)
         dev, stream = build.device_and_stream(q)
+        head = (B, S, H, KV, hd, 1, window)
+        mine = FA._entry(FA.route(dtype, hd))
+        tried = [(lib, _entry(paths[lib], 8), ()) for lib in (
+            "flash_attention_sm90" if dt == "bfloat16"
+            else "flash_attention_f32_sm90",) if lib in paths]
+        if "flash_attention" in paths:
+            tried.append(("flash_attention", _entry(
+                paths["flash_attention"], 9), (FA._DTYPES[dtype],)))
 
-        def call(fn):
+        def call(fn, extra):
             o = torch.empty_like(q)
 
             def run():
                 return fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                          o.data_ptr(), B, S, H, KV, hd, 1, window, dev,
-                          stream)
+                          o.data_ptr(), *head, *extra, dev, stream)
             return o, run
 
         runs = {}
-        for tag, fn in (("other", before), ("this", this)):
-            o, run = call(fn)
+        for tag, lib, fn, extra in (
+                *(("other", *t) for t in tried),
+                ("this", FA.route(dtype, hd)[0], mine, ())):
+            if tag in runs:
+                continue
+            o, run = call(fn, extra)
             err = run()
             if err == -1:
-                break              # the other build does not take hd
+                continue           # that kernel does not take hd
             if err:
-                raise RuntimeError(f"{tag} flash launch failed: {err}")
+                raise RuntimeError(f"{tag} {lib} launch failed: {err}")
             torch.cuda.synchronize()
-            CS._close(torch, o, want, *CS.KERNEL_TOL["bfloat16"],
-                      f"{tag} flash {name}")
-            runs[tag] = run
+            CS._close(torch, o, want, *CS.KERNEL_TOL[dt],
+                      f"{tag} {lib} {name}")
+            runs[tag] = (lib, run)
         if len(runs) < 2:
             continue
         ms = {}
         for tag in ("other", "this", "this", "other"):
-            ms.setdefault(tag, []).append(CS.cuda_ms(runs[tag]))
-        out[name] = dict(shape=f"B{B} S{S} H{H}/{KV} hd{hd} window{window}",
+            ms.setdefault(tag, []).append(CS.cuda_ms(
+                runs[tag][1], iters=iters, warmup=max(2, iters // 10)))
+        out[name] = dict(shape=f"B{B} S{S} H{H}/{KV} hd{hd} {dt} "
+                         f"window{window}",
+                         other_kernel=runs["other"][0],
+                         this_kernel=runs["this"][0],
                          other_ms=json.dumps(ms["other"]),
                          this_ms=json.dumps(ms["this"]),
                          ratio=min(ms["this"]) / min(ms["other"]))
