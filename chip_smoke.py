@@ -31,7 +31,13 @@ Phases, each printed with its numbers and wall time:
    on a 1,000-node fleet with a 300-pod trace, recording its plan, with
    ``runqlat_hist``'s launch count set to 0 before and read after the run
    (one launch a tick);
-5. the paper-scale ``compare_schedulers`` table (12 nodes, 40 pods);
+5. ``schedulers`` (through ``benchmarks/bench_torch_schedulers.py``):
+   Figs. 13-15, ``compare_schedulers`` at 12 nodes and 40 pods with phase
+   4's forest, one ``runqlat_hist`` launch a tick; then the bench's
+   batched axis, each scheduler's headline plan replayed under 20 seeds
+   with the fused tick (p99 and avg mean +/- std, wins against HUP), one
+   ``rollout_tick`` launch per batched tick, each seed-7 entry held to its
+   headline run;
 6. one 12-node ICO run on the card and on the CPU with one noise stream:
    the same placements, response times allclose; its plan is recorded;
 7. engine parity on that 12-node plan, 3 seeds: the batched engine with
@@ -79,17 +85,36 @@ Phases, each printed with its numbers and wall time:
     at least one ``TrustGateTransition``); the unified stack with the
     leverage gate widened on a one-day trace on the card against the CPU on
     one noise stream (counts exact, RT to rtol 1e-4);
-15. ``control_1000``: phase 4's 1,000-node ICO run with the ICO control
+15. ``schedulers_forecast`` (through ``bench_torch_schedulers``): the
+    forecast axis at its first seed (0, 11) on ``FORECAST_TRACE`` cut to
+    ``PROACTIVE_DAYS``: ICO-F with a fresh ``ForecastService`` against
+    ICO (phase 14's ``off`` run, checked to be the same run), ``win``
+    printed, not asserted; the exact-fallback bar (ICO-F without a
+    service equals ICO, p99 and placed bit for bit) on half a day of the
+    same trace;
+16. ``control_1000``: phase 4's 1,000-node ICO run with the ICO control
     loop stepped every 40 ticks: ticks/s beside phase 4's, ms per control
     step by phase, actions, peak memory, one ``runqlat_hist`` launch a
     tick;
-16. ``unified_1000``: the same fleet and trace under ICO-F with the
+17. ``unified_1000``: the same fleet and trace under ICO-F with the
     proactive ICO-F loop, both on one ``ForecastService`` (the loop every
     40 ticks): ticks/s beside phases 4 and 15, host ms of the forecast
     phase per step, nodes with a trusted pod at the end, proactive flags
     and actions, one ``runqlat_hist`` launch a tick, the forecaster's
     tensors on the card;
-17. ``flash_attention`` against its plain version: the bf16 wgmma/TMA
+18. ``scheduler_latency`` (through
+    ``benchmarks/bench_torch_scheduler_latency.py``): mean and p99
+    admission latency of the five schedulers at 128 / 1,000 / 5,000
+    nodes, 40 repetitions after a warm call, JAX's CI bound asserted (ICO
+    and ICO-F at 5,000 nodes within 10x of their 128-node p99); ICO's and
+    HUP's admissions at 5,000 nodes profiled; then ``--timers``: 30
+    windows of the proactive loop on 8 nodes, its phase split, one
+    ``runqlat_hist`` launch a tick;
+19. ``rollout_scale`` (through ``benchmarks/bench_torch_rollout_scale.py``):
+    the bench's 1,000-node 0.1-day sample (2 seeds) and a 12-node row cut
+    to ``ROLLOUT_SCALE_DAYS`` (20 seeds), cold and warm, windows/s and
+    node-ticks/s, one ``rollout_tick`` launch per batched tick;
+20. ``flash_attention`` against its plain version: the bf16 wgmma/TMA
     kernel at zamba2-1.2b's prefill shapes (B 4, S 1024, H 32, hd 64,
     causal), at hd 128 and at a ragged GQA shape (S 1000, 9 heads over 3 KV
     heads, window 100); the float32 3xTF32 kernel at that ragged shape
@@ -97,13 +122,13 @@ Phases, each printed with its numbers and wall time:
     PyTorch's ``scaled_dot_product_attention`` and the earlier SIMT kernel
     on the same inputs, its bound the largest of bytes, products and
     exponentials;
-18. ``ssd`` against its plain version (y and final state): the bf16
+21. ``ssd`` against its plain version (y and final state): the bf16
     tensor-core kernel at the same prefill's shapes (B 4, T 1024, H 64, P
     64, N 64), at a ragged T of 1000 and at the served smoke model's width
     (H 2, P 64, N 16), two calls bit-equal; each timed beside the plain
     version and the earlier SIMT kernel on the same inputs (CUDA events and
     device time from CUDA graphs);
-19. the serving path at full width: zamba2-1.2b (1.17 B parameters, random
+22. the serving path at full width: zamba2-1.2b (1.17 B parameters, random
     bf16 weights from a generator seeded 0) behind ``ServeEngine(max_batch
     =4)``, 8 requests (two cohorts) with prompts of 256-1,024 tokens and
     16 new tokens each, both kernels' counts set to 0 before and read
@@ -114,19 +139,19 @@ Phases, each printed with its numbers and wall time:
     decode(x[-1]) against the full forward (kernel and plain paths), and a
     profile of one cohort's prefill and of eight decode steps (device
     time, busy share, the flash kernels' share of the device time);
-20. ``wkv`` (y and final state) against its plain version at rwkv6-7b's
+23. ``wkv`` (y and final state) against its plain version at rwkv6-7b's
     prefill shapes (B 4, T 1024, H 64, P 64, float32) at the served decay
     0.302 (where the chunked form's 1e-30 floors bind) and at real decays
     (also against the naive recurrence), at T 100 and 910 (chunks of 100
     and 65) and at P 16, timed beside the plain version and the earlier
     serial-chunk kernel;
-21. the same serving path for rwkv6-7b at full width and depth (7.53 B
+24. the same serving path for rwkv6-7b at full width and depth (7.53 B
     parameters, ~15 GB of bf16 weights), prompts of 256-1,024 tokens in
     multiples of 64, the ``wkv`` count set to 0 before and read after (32
     launches per cohort, none at decode), the same checks (prefill +
     decode against the forward over a cohort's first 64 tokens) and
     profiles;
-22. ``flash_widths``: ``flash_attention`` against its plain version at
+25. ``flash_widths``: ``flash_attention`` against its plain version at
     every head width beyond 64 and 128, in both dtypes (hd 8, 16, 80, 256
     at B 2, S 1000, H 8 over KV 4; float32 at 64 and 128 too), and at
     gemma3-4b's prefill (B 4, S 2048, H 8 over 4, hd 256, bf16) for its
@@ -134,22 +159,22 @@ Phases, each printed with its numbers and wall time:
     beside the plain version, SDPA and the SIMT kernel
     (``csrc/flash_attention.cu``) on the same inputs; bf16 must route to
     the wgmma kernel, float32 to the 3xTF32 one;
-23-27. the same serving path (``SERVE_FAMILIES``) for gemma3-4b (full
+26-30. the same serving path (``SERVE_FAMILIES``) for gemma3-4b (full
     depth, 3.88 B parameters, prompts of 1,025-2,048 tokens so that its
     window binds), internlm2-20b and deepseek-coder-33b (full depth, 19.86
     B and 33.34 B, ~40 GB and ~67 GB of bf16 weights), qwen3-moe-235b-a22b
     (full width, 8 of 94 layers) and dbrx-132b (6 of 40), one flash launch
     per layer per cohort and none at decode, one 3xTF32 flash launch per
     layer of the float32 copy's kernel prefill; before each, what earlier
-    phases hold on the card must be under 2 GB (phases 2-16 run inside
+    phases hold on the card must be under 2 GB (phases 2-19 run inside
     ``cluster_paths`` and release theirs when it returns).  The float32
     kernel-vs-plain copy is the first two layers for the three large
     models; an MoE's plain run is held to the kernel run's routing
     (``PinnedRouting``), the tokens that would route otherwise reported;
-28. ``metric_pipeline``: ``benchmarks/bench_torch_metric_pipeline.py`` at
+31. ``metric_pipeline``: ``benchmarks/bench_torch_metric_pipeline.py`` at
     1,000 and 4,000 nodes x 14 x 256 samples (CUDA events), every sample
     binned once, the histograms equal to the plain version's;
-29. ``colocation``: ``examples/torch_colocation_sim.py`` ``--selftest``
+32. ``colocation``: ``examples/torch_colocation_sim.py`` ``--selftest``
     and its demo on the card (ICO places 14 pods, the smollm smoke model
     serves 8 requests through the wgmma flash kernel (hd 16), Eq. 1 of its
     runqlat histogram).
@@ -1774,9 +1799,13 @@ def phase_proactive_12(torch, np, K, card, rf):
         raise AssertionError(f"unified trace: {tr}")
     same = _unified_card_vs_cpu(torch, np, card)
     say("proactive_12", card_vs_cpu="unified, open gate", **same)
-    return {m: {k: nums[m][k] for k in ("p99_rt", "mitigations",
-                                        "proactive_mitigations")}
-            for m in MODES}
+    r, loop, svc, _ = row["runs"]["off"]
+    return {"modes": {m: {k: nums[m][k] for k in (
+                "p99_rt", "mitigations", "proactive_mitigations")}
+                      for m in MODES},
+            "off": {"result": r, "loop": loop, "service": svc,
+                    "trace": trace, "seeds": PROACTIVE_SEED,
+                    "forest": rf}}
 
 
 def phase_unified_1000(torch, np, K, card, rf, fleet, pods, gaps, tps):
@@ -1880,6 +1909,227 @@ def phase_control_1000(torch, np, K, card, rf, fleet, pods, gaps,
     return nums
 
 
+def phase_schedulers(torch, np, K, RT, card, rf):
+    """``bench_torch_schedulers``' headline and batched axis at the bench's
+    fast size (40 pods, 12 nodes, ``BATCHED_SIM_SEEDS``), phase 4's forest
+    for both, so the axis replays the headline runs' own plans: one
+    ``runqlat_hist`` launch a headline tick, one ``rollout_tick`` launch
+    per batched tick of each replay, each seed-7 entry its headline run."""
+    from bench_torch_schedulers import (
+        TRACE_SEED,
+        batched_axis,
+        headline,
+    )
+
+    from repro_torch.cluster.experiment import _arrival_trace
+
+    n_pods = 40
+    _, gaps = _arrival_trace(n_pods, seed=TRACE_SEED)
+    ticks = _run_ticks(gaps)
+    out, doc, plans = [], {"schedulers": {}}, {}
+    K.launches = 0
+    table = headline(out, doc, n_pods, device=card, predictor=rf,
+                     plans=plans)
+    hist_launches = K.launches
+    RT.launches, K.launches = 0, 0
+    per = batched_axis(out, doc, rf, n_pods, device=card, plans=plans)
+    tick_launches, replay_hist = RT.launches, K.launches
+    for name, us, derived in out:
+        say("schedulers", row=name, us_per_call=us, derived=derived)
+    if hist_launches != len(table) * ticks:
+        raise AssertionError(f"{hist_launches} runqlat_hist launches for "
+                             f"{len(table)} x {ticks} ticks")
+    bticks = {name: d["replay"]["padded_windows"] * 40
+              for name, d in per.items()}
+    if tick_launches != sum(bticks.values()) or replay_hist != 0:
+        raise AssertionError(
+            f"replay launches: rollout_tick {tick_launches} for "
+            f"{bticks} batched ticks, runqlat_hist {replay_hist}")
+    summary = {}
+    for name, r in table.items():
+        d = per[name]
+        if r.placed + r.rejected != n_pods or not np.isfinite(
+                [r.avg_rt, r.p90_rt, r.p99_rt]).all():
+            raise AssertionError(f"{name}: {r}")
+        if not np.isfinite(d["p99"] + d["avg"]).all():
+            raise AssertionError(f"{name} replay: {d['p99']} {d['avg']}")
+        seed7 = next(e for e in d["replay"]["seeds"]
+                     if e["sim_seed"] == TRACE_SEED)
+        for f in ("avg_rt", "p90_rt", "p99_rt"):
+            if not np.isclose(seed7[f], getattr(r, f), rtol=1e-3):
+                raise AssertionError(f"{name} replay seed 7 {f} {seed7[f]} "
+                                     f"!= headline {getattr(r, f)}")
+        b = doc["batched"]["schedulers"][name]
+        summary[name] = {
+            **{f: getattr(r, f) for f in (
+                "avg_rt", "p90_rt", "p99_rt", "cpu_util_std",
+                "mem_util_std", "placed", "rejected")},
+            **{k: b[k] for k in ("p99_mean", "p99_std", "avg_mean",
+                                 "avg_std", "wins_vs_hup", "wall_s")}}
+    return {"ticks": ticks, "batched_ticks": json.dumps(bticks),
+            "runqlat_hist_launches": hist_launches,
+            "rollout_tick_launches": tick_launches,
+            "table": json.dumps(summary)}
+
+
+# the exact-fallback bar's trace: half a day of the forecast trace (the
+# bar holds with the gate shut as well as open)
+FALLBACK_DAYS = 0.5
+
+
+def phase_schedulers_forecast(torch, np, K, card, rf, off):
+    """``bench_torch_schedulers``' forecast axis at its first seed on
+    ``FORECAST_TRACE`` cut to ``PROACTIVE_DAYS``: ICO-F with a fresh
+    ``ForecastService`` against ICO, one ``runqlat_hist`` launch a tick.
+    ``off`` is ``proactive_12``'s ICO run without a loop, which is the
+    axis's ICO run when its forest, trace and seeds are these (without a
+    loop or a service ``control_window`` has no effect); otherwise ICO is
+    run here.  Then the exact-fallback bar on ``FALLBACK_DAYS``."""
+    from bench_torch_schedulers import (
+        FORECAST_SEEDS,
+        FORECAST_TRACE,
+        NUM_NODES,
+        fallback_exact,
+        forecast_seed,
+    )
+
+    from repro_torch.cluster.experiment import (
+        bursty_trace,
+        make_schedulers,
+        run_experiment,
+    )
+
+    seed = tuple(FORECAST_SEEDS[0])
+    trace = dict(FORECAST_TRACE, days=PROACTIVE_DAYS)
+    reuse = (off["forest"] is rf and off["trace"] == trace
+             and tuple(off["seeds"]) == seed and off["loop"] is None
+             and off["service"] is None
+             and off["result"].scheduler == "ICO")
+    _, gaps = bursty_trace(seed=seed[0], **trace)
+    ticks = _run_ticks(gaps)
+    short = dict(FORECAST_TRACE, days=FALLBACK_DAYS)
+    pods_s, gaps_s = bursty_trace(seed=seed[0], **short)
+    K.launches = 0
+    row = forecast_seed(rf, *seed, device=card, trace=trace, ico=not reuse)
+    ico = off["result"] if reuse else row["ico"]
+    icof, svc = row["icof"], row["service"]
+    r_ico_s = run_experiment(make_schedulers(rf, forecast=True)["ICO"],
+                             pods_s, gaps_s, num_nodes=NUM_NODES,
+                             seed=seed[1], device=card)
+    exact = fallback_exact(rf, pods_s, gaps_s, seed[1], r_ico_s,
+                           device=card)
+    launches = K.launches
+    want = (1 if reuse else 2) * ticks + 2 * _run_ticks(gaps_s)
+    f = svc.forecaster
+    t_fut = svc._last_t + svc.horizon * svc._dt
+    nums = {"trace_seed": seed[0], "sim_seed": seed[1], "days": trace["days"],
+            "ticks": ticks, "ico_reused_from_proactive_12": reuse,
+            "p99_ico": ico.p99_rt, "p99_icof": icof.p99_rt,
+            "avg_ico": ico.avg_rt, "avg_icof": icof.avg_rt,
+            "p90_ico": ico.p90_rt, "p90_icof": icof.p90_rt,
+            "placed_ico": ico.placed, "placed_icof": icof.placed,
+            "win": bool(icof.p99_rt <= ico.p99_rt),
+            "forecast_seed_wall_s": row["wall_s"],
+            "trusted_nodes_at_end": int(f.confidence(t_fut).any(-1).sum()),
+            "fallback_days": FALLBACK_DAYS, "fallback_exact": exact,
+            "fallback_p99": r_ico_s.p99_rt,
+            "runqlat_hist_launches": launches}
+    if launches != want:
+        raise AssertionError(f"{launches} runqlat_hist launches for {want} "
+                             "ticks")
+    for k in ("A", "b", "err", "count"):
+        if getattr(f, k).device.type != card.type:
+            raise AssertionError(f"forecaster {k} on {getattr(f, k).device}")
+    for r in (ico, icof, r_ico_s):
+        if r.placed + r.rejected == 0 or not np.isfinite(
+                [r.avg_rt, r.p99_rt]).all():
+            raise AssertionError(f"bad forecast-axis run {r}")
+    if not exact:
+        raise AssertionError("ICO-F without a service is not ICO")
+    return nums
+
+
+def phase_scheduler_latency(torch, np, K, card):
+    """``bench_torch_scheduler_latency``'s ``--full`` sweep (128 / 1,000 /
+    5,000 nodes, 40 repetitions) with JAX's CI bound (ICO and ICO-F
+    5,000-node p99 within 10x of their 128-node p99), ICO's and HUP's
+    admissions at 5,000 nodes profiled, then ``--timers`` (one
+    ``runqlat_hist`` launch a tick of its 8-node cluster)."""
+    from bench_torch_scheduler_latency import (
+        SIZES_FULL,
+        _fleet_view,
+        _pod,
+        _schedulers,
+        phase_timers,
+        sweep,
+    )
+
+    out: list = []
+    res = sweep(SIZES_FULL, 40, device=card, out=out)
+    for name, by_n in res.items():
+        say("scheduler_latency", scheduler=name, **{
+            f"n{n}_{k}": v[k] for n, v in by_n.items()
+            for k in ("mean_us", "p99_us", "selected")})
+    ratios = {name: res[name]["5000"]["p99_us"] / res[name]["128"]["p99_us"]
+              for name in res}
+    say("scheduler_latency", p99_ratio_5000_128=json.dumps(ratios))
+    for name in ("ICO", "ICO-F"):
+        if not ratios[name] <= 10.0:
+            raise AssertionError(f"{name}: 5,000-node p99 "
+                                 f"{ratios[name]:.2f}x the 128-node p99")
+    view, pod, scheds = _fleet_view(5000, device=card), _pod(), _schedulers()
+    for name in ("ICO", "HUP"):
+        sched = scheds[name]
+        sched.select_node(pod, view)
+        say("scheduler_latency", profile=name, nodes=5000,
+            **device_profile(torch, lambda sched=sched: [
+                sched.select_node(pod, view) for _ in range(20)],
+                20, "admission"))
+    tout: list = []
+    K.launches = 0
+    tim = phase_timers(tout, device=card)
+    launches = K.launches
+    ticks = 30 + 10 * 10 + 2 * 11 * 40 + 30 * 40
+    for name, us, derived in tout:
+        say("scheduler_latency", row=name, us_per_call=us, derived=derived)
+    if launches != ticks:
+        raise AssertionError(f"--timers: {launches} runqlat_hist launches "
+                             f"for {ticks} ticks")
+    return {"ico_p99_ratio": ratios["ICO"], "icof_p99_ratio": ratios["ICO-F"],
+            "timer_ticks": ticks, "runqlat_hist_launches": launches,
+            "rollout_ms": json.dumps(tim["rollout_ms"]),
+            "phase_mean_ms": json.dumps({p: s["mean_ms"]
+                                         for p, s in tim["phases"].items()})}
+
+
+# the 12-node row of ``rollout_scale``, cut from the bench's 3 days (the
+# full grid runs through the bench itself)
+ROLLOUT_SCALE_DAYS = 0.25
+
+
+def phase_rollout_scale(torch, np, K, RT, card):
+    """``bench_torch_rollout_scale``'s 1,000-node 0.1-day sample row (2
+    seeds) and its 12-node row at ``ROLLOUT_SCALE_DAYS`` (20 seeds), each
+    cold then warm with the fused tick: one ``rollout_tick`` launch per
+    batched tick, no ``runqlat_hist`` launch."""
+    from bench_torch_rollout_scale import WINDOW_TICKS, scenario_row
+
+    RT.launches, K.launches = 0, 0
+    want = 0
+    for days, nodes in ((0.1, 1000), (ROLLOUT_SCALE_DAYS, 12)):
+        rec, p99 = scenario_row(days, nodes, device=card)
+        want += 2 * rec["windows"] * WINDOW_TICKS
+        say("rollout_scale", **rec, p99_mean=float(np.mean(p99)),
+            p99_std=float(np.std(p99)))
+        if not np.isfinite(p99).all() or min(p99) <= 0:
+            raise AssertionError(f"{rec['scenario']}: p99 {p99}")
+    launches, hist = RT.launches, K.launches
+    if launches != want or hist != 0:
+        raise AssertionError(f"rollout_tick {launches} launches for {want} "
+                             f"batched ticks, runqlat_hist {hist}")
+    return {"batched_ticks": want, "rollout_tick_launches": launches}
+
+
 # (tag, arch, shortest and longest prompt, layers served (None: all), layers
 # of the float32 kernel-vs-plain copy (None: all)).  gemma3's prompts pass
 # its 1,024-token window, so the window binds in prefill and in decode;
@@ -1974,7 +2224,7 @@ def phase_colocation(torch, K, FA, card):
 
 
 def cluster_paths(torch, build, card, timers, done) -> dict:
-    """Phases 2-16: the cluster, replay and control-plane paths.  Returns
+    """Phases 2-19: the cluster, replay and control-plane paths.  Returns
     the numbers the kernels line needs; everything they held on the card
     is released when this returns."""
     import numpy as np
@@ -1984,7 +2234,6 @@ def cluster_paths(torch, build, card, timers, done) -> dict:
     from repro_torch.cluster import experiment as texp
     from repro_torch.cluster.experiment import (
         _arrival_trace,
-        compare_schedulers,
         replay_plan_batched,
         run_experiment,
         train_default_predictor,
@@ -2073,17 +2322,10 @@ def cluster_paths(torch, build, card, timers, done) -> dict:
             not 0 < res.avg_rt <= res.p90_rt <= res.p99_rt:
         raise AssertionError(f"bad response times {res}")
 
-    # 5. the paper-scale comparison table ---------------------------------
-    with timers.phase("compare"):
-        table = compare_schedulers(num_pods=40, num_nodes=12, seed=7,
-                                   predictor=rf)
-    for name, r in table.items():
-        say("compare", scheduler=name, avg_rt=r.avg_rt, p90_rt=r.p90_rt,
-            p99_rt=r.p99_rt, cpu_util_std=r.cpu_util_std,
-            mem_util_std=r.mem_util_std, placed=r.placed, rejected=r.rejected)
-        if r.placed + r.rejected != 40 or not np.isfinite(r.avg_rt):
-            raise AssertionError(f"{name}: {r}")
-    done("compare")
+    # 5. Figs. 13-15: the headline table and its 20-seed batched axis -----
+    with timers.phase("schedulers"):
+        sch = phase_schedulers(torch, np, K, RT, card, rf)
+    done("schedulers", **sch)
 
     # 6. a 12-node ICO run on the card and on the CPU, one noise stream ----
     with timers.phase("card_vs_cpu"):
@@ -2177,8 +2419,8 @@ def cluster_paths(torch, build, card, timers, done) -> dict:
         say("replay_profile", path=name, **nums)
     done("replay_profile")
 
-    # 11-16. the paper's remaining pieces and the control plane, reactive
-    # and proactive
+    # 11-17. the paper's remaining pieces, the control plane, reactive and
+    # proactive, and the Figs. 13-15 bench's forecast axis
     with timers.phase("paper_models"):
         phase_paper_models(torch, np, card)
     done("paper_models")
@@ -2191,7 +2433,10 @@ def cluster_paths(torch, build, card, timers, done) -> dict:
     done("control_12", seeds=json.dumps(c12))
     with timers.phase("proactive_12"):
         p12 = phase_proactive_12(torch, np, K, card, rf)
-    done("proactive_12", modes=json.dumps(p12))
+    done("proactive_12", modes=json.dumps(p12["modes"]))
+    with timers.phase("schedulers_forecast"):
+        sfc = phase_schedulers_forecast(torch, np, K, card, rf, p12["off"])
+    done("schedulers_forecast", **sfc)
     with timers.phase("control_1000"):
         c1000 = phase_control_1000(torch, np, K, card, rf, fleet, pods, gaps,
                                    ticks / wall)
@@ -2203,8 +2448,24 @@ def cluster_paths(torch, build, card, timers, done) -> dict:
              "control_1000_ticks_per_s": c1000["ticks_per_s"]})
     done("unified_1000", **u1000)
 
-    return dict(knums=knums, launches=launches, fnums=fnums,
-                fused_launches=fused_launches)
+    # 18-19. the admission-latency and replay-throughput benches
+    with timers.phase("scheduler_latency"):
+        lat = phase_scheduler_latency(torch, np, K, card)
+    done("scheduler_latency", **lat)
+    with timers.phase("rollout_scale"):
+        rsc = phase_rollout_scale(torch, np, K, RT, card)
+    done("rollout_scale", **rsc)
+
+    return dict(knums=knums, fnums=fnums,
+                hist_paths={"ico_1000": launches,
+                            "schedulers": sch["runqlat_hist_launches"],
+                            "schedulers_forecast":
+                                sfc["runqlat_hist_launches"],
+                            "scheduler_latency":
+                                lat["runqlat_hist_launches"]},
+                tick_paths={"replay_1000": fused_launches,
+                            "schedulers": sch["rollout_tick_launches"],
+                            "rollout_scale": rsc["rollout_tick_launches"]})
 
 
 def main() -> int:
@@ -2274,12 +2535,12 @@ def main() -> int:
     if hmma == 0:
         raise AssertionError("no HMMA in ssd_sm90's SASS")
 
-    # 2-16. the cluster, replay and control-plane paths
+    # 2-19. the cluster, replay, control-plane and bench paths
     paths = cluster_paths(torch, build, card, timers, done)
-    knums, launches = paths["knums"], paths["launches"]
-    fnums, fused_launches = paths["fnums"], paths["fused_launches"]
+    knums, fnums = paths["knums"], paths["fnums"]
+    hist_paths, tick_paths = paths["hist_paths"], paths["tick_paths"]
 
-    # 17-19. the serving path: both kernels, then zamba2-1.2b at full width
+    # 20-22. the serving path: both kernels, then zamba2-1.2b at full width
     # (float32 products in full float32 for every plain version)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2304,7 +2565,7 @@ def main() -> int:
             lambda rng, n: rng.integers(256, 1025, n), "zamba2")
     done("serve_zamba2")
 
-    # 20-21. the rwkv6-7b serving path: the wkv kernel, then the model at
+    # 23-24. the rwkv6-7b serving path: the wkv kernel, then the model at
     # full width and depth
     with timers.phase("wkv_kernel"):
         wkvk = phase_wkv_kernel(torch, R, build, card)
@@ -2319,7 +2580,7 @@ def main() -> int:
             check_len=64)
     done("serve_rwkv6")
 
-    # 22. flash at every width beyond 64 and 128, gemma3-4b's prefill among
+    # 25. flash at every width beyond 64 and 128, gemma3-4b's prefill among
     # them: bf16 on the wgmma kernel, float32 on the 3xTF32 one, the SIMT
     # kernel timed beside each
     with timers.phase("flash_widths"):
@@ -2328,7 +2589,7 @@ def main() -> int:
         say("flash_widths", case=name, **nums)
     done("flash_widths")
 
-    # 23-27. the remaining model families at full width: gemma3-4b,
+    # 26-30. the remaining model families at full width: gemma3-4b,
     # internlm2-20b and deepseek-coder-33b at full depth, the MoE models at
     # the depth one card holds; the float32 kernel-vs-plain copy of the
     # large ones is their first two layers (a full float32 copy would not
@@ -2353,7 +2614,7 @@ def main() -> int:
         flash_paths[tag] = nums["flash_attention_launches"]
         f32_paths[tag] = nums["float32_flash_launches"]
 
-    # 28-29. the metric-pipeline bench and the colocation demo on the card
+    # 31-32. the metric-pipeline bench and the colocation demo on the card
     with timers.phase("metric_pipeline"):
         mp = phase_metric_pipeline(torch, K, card)
     done("metric_pipeline", **mp)
@@ -2370,14 +2631,16 @@ def main() -> int:
         "name": "runqlat_hist", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/runqlat_hist.cu",
         "replaces": "src/repro/kernels/runqlat_hist.py:48",
-        "launches": launches, "max_abs_err": knums["max_abs_err"],
+        "launches": sum(hist_paths.values()),
+        "launches_by_path": hist_paths, "max_abs_err": knums["max_abs_err"],
         "ms": knums["ms"], "plain_ms": knums["plain_ms"],
         "bound_ms": knums["bound_ms"], "bound_by": "bytes",
         "library_ms": knums["library_ms"]}, {
         "name": "rollout_tick", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/rollout_tick.cu",
         "replaces": "src/repro/kernels/rollout_tick.py:85",
-        "launches": fused_launches, "max_abs_err": fnums["max_abs_err"],
+        "launches": sum(tick_paths.values()),
+        "launches_by_path": tick_paths, "max_abs_err": fnums["max_abs_err"],
         "ms": fnums["ms"], "plain_ms": fnums["plain_ms"],
         "bound_ms": fnums["bound_ms"], "bound_by": "bytes",
         "library_ms": None}, {

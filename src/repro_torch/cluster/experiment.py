@@ -527,6 +527,8 @@ def compare_schedulers(
     fleet=None,
     *,
     device=None,
+    noise=None,
+    plans_out: dict | None = None,
 ) -> dict[str, ExperimentResult]:
     """Figs. 13-15 comparison across ICO / RR / HUP / LQP (+ ICO-F).
 
@@ -540,7 +542,10 @@ def compare_schedulers(
     proactive control) that run's loop, wherever something consumes it.
     ``trace`` optionally replaces the default arrival trace with a (pods,
     gaps) pair; ``control_window`` and ``fleet`` are forwarded to
-    ``run_experiment``.
+    ``run_experiment``.  ``noise`` optionally gives each run its tick-noise
+    stream: a zero-argument factory called once per run (every scheduler
+    sees the same draws).  ``plans_out`` optionally receives each run's
+    replayable plan under its scheduler's name.
     """
     from repro_torch.control import (
         ControlLoop,
@@ -570,9 +575,13 @@ def compare_schedulers(
             loop = lambda cfg=cfg, svc=svc: ControlLoop(  # noqa: E731
                 InterferenceQuantifier(predictor.predict), cfg,
                 forecast_service=svc)
+        plan = plans_out.setdefault(name, {}) if plans_out is not None \
+            else None
         out[name] = run_experiment(sched, pods, gaps, num_nodes=num_nodes,
                                    seed=seed, fleet=fleet, control_loop=loop,
                                    forecast=svc,
                                    control_window=control_window,
-                                   device=device)
+                                   device=device,
+                                   noise=None if noise is None else noise(),
+                                   plan_out=plan)
     return out

@@ -864,3 +864,30 @@ def test_recorder_off_run_equals_no_recorder_run_on_the_card(card):
     assert run(rec) == off
     assert run(NULL_RECORDER) == off
     assert len(rec.events) > 0
+
+
+@pytest.mark.cuda
+def test_latency_sweep_on_the_card(card):
+    """``bench_torch_scheduler_latency``'s sweep at 128 and 1,000 nodes on
+    the card: a finite, positive mean and p99 for every scheduler, and each
+    view's nodes selected as on the CPU."""
+    import importlib.util
+    import pathlib
+
+    path = (pathlib.Path(__file__).resolve().parents[1] / "benchmarks"
+            / "bench_torch_scheduler_latency.py")
+    spec = importlib.util.spec_from_file_location("_bench_latency", path)
+    bench = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(bench)
+    out: list = []
+    res = bench.sweep((128, 1000), 5, device=card, out=out)
+    assert len(out) == 10
+    for name, by_n in res.items():
+        for n, v in by_n.items():
+            assert np.isfinite([v["mean_us"], v["p99_us"]]).all(), (name, n)
+            assert 0 < v["mean_us"] <= v["p99_us"] * (1 + 1e-9), (name, n)
+    cpu = bench.sweep((128, 1000), 5, device=torch.device("cpu"))
+    for name in ("ICO", "ICO-F", "HUP", "LQP"):
+        for n in ("128", "1000"):
+            assert res[name][n]["selected"] == cpu[name][n]["selected"], (
+                name, n)
