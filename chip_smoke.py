@@ -171,10 +171,32 @@ Phases, each printed with its numbers and wall time:
     kernel-vs-plain copy is the first two layers for the three large
     models; an MoE's plain run is held to the kernel run's routing
     (``PinnedRouting``), the tokens that would route otherwise reported;
-31. ``metric_pipeline``: ``benchmarks/bench_torch_metric_pipeline.py`` at
+31. ``serve_qwen2vl`` (before it and before 32, the same < 2 GB check):
+    qwen2-vl-72b at full width on its first 20 of 80 layers (18.80 B parameters, ~37.6 GB of bf16 weights; the full
+    config's parameter count checked against JAX's 71,459,676,160), driven
+    through ``prefill`` and ``decode_step`` (the engine takes token prompts
+    only): two cohorts of 4 requests of seeded embeddings at S 1,024 and
+    512, each a 448 x 448 image (a 16 x 16 grid of merged patches at t 0,
+    h = row, w = col) then text from position 16 on, so the three M-RoPE
+    streams differ; 16 decode steps fed seeded embeddings, the greedy
+    tokens reported; 20 flash launches a prefill (hd 128, 64 query heads
+    over 8 KV heads), none at decode; the kernel path against the plain
+    path in bf16 and on a float32 copy of the first 2 layers (2 3xTF32
+    launches), prefill + decode against the forward at equal-stream
+    positions, profiles of one prefill and 8 decode steps;
+32. ``encode_hubert``: hubert-xlarge's bidirectional encoder at full
+    width and depth (48 layers, 1.259 B parameters, JAX's count checked):
+    5 timed forwards of B 8 x S 1,000 seeded frame embeddings (20 s of
+    audio at 50 frames/s) to (8, 1,000, 504) logits, 48 non-causal flash
+    launches each (hd 80); the kernel path against the plain path in bf16
+    and on a float32 copy of the whole model (48 3xTF32 launches);
+    prefill's last logits against the forward's last row; a profile of one
+    forward; then the non-causal flash case at that shape (B 8, S 1,000, H
+    16, hd 80) in bf16 and float32 beside SDPA and the plain version;
+33. ``metric_pipeline``: ``benchmarks/bench_torch_metric_pipeline.py`` at
     1,000 and 4,000 nodes x 14 x 256 samples (CUDA events), every sample
     binned once, the histograms equal to the plain version's;
-32. ``colocation``: ``examples/torch_colocation_sim.py`` ``--selftest``
+34. ``colocation``: ``examples/torch_colocation_sim.py`` ``--selftest``
     and its demo on the card (ICO places 14 pods, the smollm smoke model
     serves 8 requests through the wgmma flash kernel (hd 16), Eq. 1 of its
     runqlat histogram).
@@ -761,12 +783,13 @@ def _simt_flash(torch, FA, build, q, k, v, causal, window):
 
 
 def _flash_case(torch, FA, build, g, card, name, B, S, H, KV, hd, dtype,
-                window, iters=200):
+                window, iters=200, causal=True):
     """One shape: the wrapper's kernel against the plain version (causal,
-    ``window`` 0 or a sliding window), each timed beside the plain version
-    and SDPA (order plain, kernel, kernel, plain, library: ``is_causal``
-    without a window, a boolean window mask with one), and the SIMT kernel
-    these replaced on the same inputs.  The bound is the largest of three
+    ``window`` 0 or a sliding window; or with ``causal`` False every key),
+    each timed beside the plain version and SDPA (order plain, kernel,
+    kernel, plain, library: ``is_causal`` as ``causal`` without a window, a
+    boolean window mask with one), and the SIMT kernel these replaced on
+    the same inputs.  The bound is the largest of three
     times: q, k, v and o once over the memory rate; the products of the
     (query, key) pairs the masks keep over the bf16 tensor cores' rate, or
     in float32 the TF32 rate spread over 3xTF32's three products; one
@@ -781,30 +804,27 @@ def _flash_case(torch, FA, build, g, card, name, B, S, H, KV, hd, dtype,
     q, k, v = (torch.randn((B, S, h, hd), generator=g, device=card,
                            dtype=torch.float32).to(dtype)
                for h in (H, KV, KV))
-    got = FA.flash_attention(q, k, v, causal=True, sliding_window=window)
-    want = FA.flash_attention_plain(q, k, v, causal=True,
+    got = FA.flash_attention(q, k, v, causal=causal, sliding_window=window)
+    want = FA.flash_attention_plain(q, k, v, causal=causal,
                                     sliding_window=window)
     torch.cuda.synchronize()
     rtol, atol = KERNEL_TOL[str(dtype).split(".")[-1]]
     err = _close(torch, got, want, rtol, atol, f"flash {name}")
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     i = torch.arange(S, device=card)
-    keep = (i[:, None] >= i[None, :]) & (
+    keep = ((i[:, None] >= i[None, :]) | (not causal)) & (
         i[None, :] > i[:, None] - window - 1 if window else True)
-    sdpa = dict(is_causal=True) if not window else dict(attn_mask=keep)
+    sdpa = dict(is_causal=causal) if not window else dict(attn_mask=keep)
+    kw = dict(causal=causal, sliding_window=window)
     fns = [
-        ("plain", lambda: FA.flash_attention_plain(
-            q, k, v, sliding_window=window)),
-        ("kernel", lambda: FA.flash_attention(
-            q, k, v, sliding_window=window)),
-        ("kernel2", lambda: FA.flash_attention(
-            q, k, v, sliding_window=window)),
-        ("plain2", lambda: FA.flash_attention_plain(
-            q, k, v, sliding_window=window)),
+        ("plain", lambda: FA.flash_attention_plain(q, k, v, **kw)),
+        ("kernel", lambda: FA.flash_attention(q, k, v, **kw)),
+        ("kernel2", lambda: FA.flash_attention(q, k, v, **kw)),
+        ("plain2", lambda: FA.flash_attention_plain(q, k, v, **kw)),
         ("library", lambda: F.scaled_dot_product_attention(
             qt, kt, vt, enable_gqa=KV != H, **sdpa))]
     kernel = FA.route(dtype, hd)
-    simt = _simt_flash(torch, FA, build, q, k, v, True, window)
+    simt = _simt_flash(torch, FA, build, q, k, v, causal, window)
     simt_err = _close(torch, simt(), want, rtol, atol, f"SIMT flash {name}")
     fns.append(("simt", simt))
     del got, want
@@ -825,7 +845,8 @@ def _flash_case(torch, FA, build, g, card, name, B, S, H, KV, hd, dtype,
                                        nops / FP32_OPS_PER_S * 1e3)} if f32 \
         else {}
     return dict(
-        shape=f"B{B} S{S} H{H}/{KV} hd{hd} {dtype} window{window}",
+        shape=f"B{B} S{S} H{H}/{KV} hd{hd} {dtype} window{window}"
+              + ("" if causal else " non-causal"),
         kernel=kernel[0], max_abs_err=err, bytes=nbytes, flops=nops,
         bound_ms=terms[term],
         bound_by="bytes" if term == "bytes" else "operations",
@@ -1164,10 +1185,11 @@ class PinnedRouting:
                     gate=torch.where(keep, gate, 0.0))
 
 
-def kernel_vs_plain_prefill(torch, model, tokens, max_seq, dtype_name,
+def kernel_vs_plain_prefill(torch, model, inputs, max_seq, dtype_name,
                             launches):
-    """One prefill with the kernels, one with ``use_kernels=False``: the
-    greedy tokens, and every logit and cache value within PREFILL_TOL.
+    """One prefill of ``inputs`` (the prefill's keyword inputs: tokens, or
+    embeds and positions) with the kernels, one with ``use_kernels=False``:
+    the greedy tokens, and every logit and cache value within PREFILL_TOL.
     In bfloat16 a row may pick another token only where the plain path's
     top two logits lie within the largest logit error (a near tie).  An
     MoE model's plain run takes the kernel run's routing (``PinnedRouting``);
@@ -1175,12 +1197,12 @@ def kernel_vs_plain_prefill(torch, model, tokens, max_seq, dtype_name,
     cfg = model.cfg
     pin = PinnedRouting(torch)
     with pin:
-        k_logits, k_cache = model.prefill(tokens, max_seq)
+        k_logits, k_cache = model.prefill(max_seq=max_seq, **inputs)
         pin.replay()
         model.cfg = dataclasses.replace(cfg, use_kernels=False)
         try:
             before = launches()
-            p_logits, p_cache = model.prefill(tokens, max_seq)
+            p_logits, p_cache = model.prefill(max_seq=max_seq, **inputs)
             if launches() != before:
                 raise AssertionError("use_kernels=False launched a kernel")
         finally:
@@ -1230,6 +1252,19 @@ def first_layers(cfg, n):
     return dataclasses.replace(cfg, num_layers=n,
                                pattern=tuple(cfg.layer_specs()[:n]),
                                repeats=1, tail=())
+
+
+def widened(torch, model, cfg, card):
+    """A float32 model of ``cfg`` (``model``'s config, or its first layers)
+    holding ``model``'s weights widened."""
+    from repro_torch.models.model import Model
+
+    wide = Model(dataclasses.replace(cfg, dtype=torch.float32), device=card)
+    own = dict(model.named_parameters())
+    with torch.no_grad():
+        for name, a in wide.named_parameters():
+            a.copy_(own[name])
+    return wide
 
 
 def phase_serve(torch, np, card, arch, kernels, per_prefill, lens, tag,
@@ -1345,22 +1380,18 @@ def phase_serve(torch, np, card, arch, kernels, per_prefill, lens, tag,
     # bf16 and in float32 (the same weights widened)
     tokens, max_seq = cohorts[0]
     cons = dict(cohort=json.dumps(list(tokens.shape)))
-    cons.update(kernel_vs_plain_prefill(torch, model, tokens, max_seq,
-                                        "bfloat16", launches))
+    cons.update(kernel_vs_plain_prefill(torch, model, {"tokens": tokens},
+                                        max_seq, "bfloat16", launches))
     wcfg = cfg if f32_layers is None else first_layers(cfg, f32_layers)
-    wide = Model(dataclasses.replace(wcfg, dtype=torch.float32), device=card)
-    own = dict(model.named_parameters())
-    with torch.no_grad():
-        for name, a in wide.named_parameters():
-            a.copy_(own[name])
+    wide = widened(torch, model, wcfg, card)
     # the float32 path: the 3xTF32 flash kernel's count set to 0 just
     # before the float32 copy's prefills and read just after (its plain
     # prefill launches nothing)
     FA = kernels.get("flash_attention")
     if FA is not None:
         FA.kernel_launches[FA.F32[0]] = 0
-    cons.update(kernel_vs_plain_prefill(torch, wide, tokens, max_seq,
-                                        "float32", launches))
+    cons.update(kernel_vs_plain_prefill(torch, wide, {"tokens": tokens},
+                                        max_seq, "float32", launches))
     cons["float32_layers"] = wcfg.num_layers
     if FA is not None:
         n = nums["float32_flash_launches"] = FA.kernel_launches[FA.F32[0]]
@@ -1370,7 +1401,7 @@ def phase_serve(torch, np, card, arch, kernels, per_prefill, lens, tag,
         if n != want:
             raise AssertionError(f"{n} float32 flash launches in the "
                                  f"float32 prefill, {want} expected")
-    del wide, own
+    del wide
 
     # prefill(x[:-1]) + decode(x[-1]) against the full forward (bf16), as
     # tests/test_archs_smoke.py holds the JAX models; the plain path beside
@@ -1421,6 +1452,345 @@ def phase_serve(torch, np, card, arch, kernels, per_prefill, lens, tag,
     say("serve_profile", model=arch, part="decode",
         **device_profile(torch, decode, 8, "step"))
     return nums
+
+
+# qwen2-vl-72b at full width on its first 20 of 80 layers (18.80 B of 71.46
+# B parameters, ~37.6 GB of bf16 weights; the whole model is ~143 GB): two
+# cohorts of 4 requests, each a 448 x 448 image (14-px patches merged 2 x
+# 2: a 16 x 16 grid of 256 tokens) then text, 16 decode steps each
+QWEN2VL_PARAMS = 71_459_676_160           # JAX's num_params of the config
+QWEN2VL_LAYERS = 20
+QWEN2VL_COHORTS = (1024, 512)             # S of each cohort
+QWEN2VL_GRID = 16
+QWEN2VL_BATCH, QWEN2VL_STEPS = 4, 16
+
+
+def vlm_cohort(torch, np, card, B, S, D, grid, steps, seed):
+    """One cohort's inputs from seeded numpy normals: (B, S, D) embeddings,
+    each row a ``grid`` x ``grid`` image followed by text; their (3, B, S)
+    M-RoPE positions (the image at t 0, h = row, w = col, the text from
+    ``grid`` on, equal in the three streams); and ``steps`` (B, 1, D)
+    decode embeddings."""
+    rng = np.random.default_rng(seed)
+    embeds = torch.from_numpy(rng.standard_normal(
+        (B, S, D), dtype=np.float32)).to(card)
+    n = grid * grid
+    r, c = np.divmod(np.arange(n), grid)
+    text = grid + np.arange(S - n)
+    pos = np.stack([np.concatenate([np.zeros(n, np.int64), text]),
+                    np.concatenate([r, text]), np.concatenate([c, text])])
+    positions = torch.from_numpy(pos)[:, None].expand(3, B, S).to(card)
+    dec = torch.from_numpy(rng.standard_normal(
+        (steps, B, 1, D), dtype=np.float32)).to(card)
+    return embeds, positions, dec
+
+
+def phase_serve_qwen2vl(torch, np, card, FA):
+    """qwen2-vl-72b at full width, its first ``QWEN2VL_LAYERS`` layers:
+    each cohort's prefill at image-grid M-RoPE positions (one flash launch
+    a layer: the bf16 wgmma kernel, hd 128, 64 query heads over 8 KV
+    heads), then ``QWEN2VL_STEPS`` decode steps fed seeded embeddings (no
+    launch), the greedy tokens reported, not fed back; the kernel path
+    against the plain path on the first cohort's prefill in bf16 and on a
+    float32 copy of the first 2 layers; prefill(x[:-1]) + decode(x[-1])
+    against the forward at equal-stream positions (JAX's decode position
+    is the forward's only there); profiles of one prefill and 8 decode
+    steps.  The engine takes token prompts only, so the model is driven
+    through its own entry points."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model, num_params
+
+    full_cfg = get_config("qwen2-vl-72b")
+    if num_params(full_cfg) != QWEN2VL_PARAMS:
+        raise AssertionError(f"qwen2-vl-72b: {num_params(full_cfg)} "
+                             f"parameters, JAX counts {QWEN2VL_PARAMS}")
+    cfg = first_layers(full_cfg, QWEN2VL_LAYERS)
+    held_before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    model = Model(cfg, device=card).init_params(
+        torch.Generator(device=card).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    B, steps = QWEN2VL_BATCH, QWEN2VL_STEPS
+    cohorts = [vlm_cohort(torch, np, card, B, S, cfg.d_model, QWEN2VL_GRID,
+                          steps, seed)
+               for seed, S in enumerate(QWEN2VL_COHORTS)]
+    tm = dict(prefill_s=0.0, decode_s=0.0, prefill_tokens=0)
+    prefill_launches, decode_launches, greedy = [], 0, []
+    torch.cuda.reset_peak_memory_stats()
+    FA.launches = 0
+    t0 = time.perf_counter()
+    for embeds, positions, dec in cohorts:
+        S = embeds.shape[1]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        before = FA.launches
+        logits, cache = model.prefill(max_seq=S + steps, embeds=embeds,
+                                      positions=positions)
+        torch.cuda.synchronize()
+        tm["prefill_s"] += time.perf_counter() - t
+        tm["prefill_tokens"] += B * S
+        prefill_launches.append(FA.launches - before)
+        toks = [logits.argmax(-1)]
+        before = FA.launches
+        t = time.perf_counter()
+        for i in range(steps):
+            logits, cache = model.decode_step(embeds=dec[i], cache=cache)
+            toks.append(logits.argmax(-1))
+        torch.cuda.synchronize()
+        tm["decode_s"] += time.perf_counter() - t
+        decode_launches += FA.launches - before
+        if cache.len != S + steps:
+            raise AssertionError(f"cache length {cache.len}")
+        greedy.append(torch.stack(toks, 1).tolist())
+    wall = time.perf_counter() - t0
+    launches = FA.launches
+    n_steps = steps * len(cohorts)
+    nums = dict(
+        params=sum(p.numel() for p in model.parameters()),
+        full_config_params=QWEN2VL_PARAMS, layers=cfg.num_layers,
+        init_s=init_s, cohorts=len(cohorts), batch=B,
+        cohort_lens=json.dumps(list(QWEN2VL_COHORTS)),
+        image_tokens=QWEN2VL_GRID ** 2, wall_s=wall,
+        prefill_s=tm["prefill_s"], prefill_tokens=tm["prefill_tokens"],
+        prefill_tokens_per_s=tm["prefill_tokens"] / tm["prefill_s"],
+        prefill_ms_per_cohort=tm["prefill_s"] * 1e3 / len(cohorts),
+        decode_s=tm["decode_s"], decode_steps=n_steps,
+        decode_ms_per_step=tm["decode_s"] * 1e3 / n_steps,
+        decode_tokens_per_s=B * n_steps / tm["decode_s"],
+        max_memory_allocated=torch.cuda.max_memory_allocated(),
+        held_by_earlier_phases=held_before,
+        flash_attention_launches=launches,
+        prefill_flash_launches=json.dumps(prefill_launches),
+        decode_kernel_launches=decode_launches,
+        greedy_tokens=json.dumps(greedy))
+    say("serve_qwen2vl", **nums)
+    if any(n != cfg.num_layers for n in prefill_launches):
+        raise AssertionError(f"flash launches per prefill {prefill_launches}"
+                             f", {cfg.num_layers} expected")
+    if decode_launches:
+        raise AssertionError(f"{decode_launches} kernel launches while "
+                             "decoding")
+    if not all(0 <= t < cfg.vocab_size for c in greedy for row in c
+               for t in row):
+        raise AssertionError("a token outside the vocabulary")
+
+    def launched():
+        return FA.launches
+
+    # the first cohort's prefill, kernel path against plain path, in bf16
+    # and on a float32 copy of the first 2 layers (the 3xTF32 kernel's count
+    # set to 0 before and read after)
+    embeds, positions, dec = cohorts[0]
+    S = embeds.shape[1]
+    inputs = {"embeds": embeds, "positions": positions}
+    cons = dict(cohort=json.dumps([B, S]))
+    cons.update(kernel_vs_plain_prefill(torch, model, inputs, S, "bfloat16",
+                                        launched))
+    wide = widened(torch, model, first_layers(cfg, 2), card)
+    FA.kernel_launches[FA.F32[0]] = 0
+    cons.update(kernel_vs_plain_prefill(torch, wide, inputs, S, "float32",
+                                        launched))
+    f32 = nums["float32_flash_launches"] = FA.kernel_launches[FA.F32[0]]
+    cons["float32_layers"], cons["float32_flash_launches"] = 2, f32
+    del wide
+    if f32 != 2:
+        raise AssertionError(f"{f32} float32 flash launches in the float32 "
+                             "prefill, 2 expected")
+
+    # prefill(x[:-1]) + decode(x[-1]) against the full forward at the
+    # default, equal-stream positions (bf16), kernel and plain paths
+    for path in ("kernel", "plain"):
+        model.cfg = dataclasses.replace(cfg, use_kernels=path == "kernel")
+        try:
+            full = model(embeds=embeds)[:, -1]
+            _, cache = model.prefill(max_seq=S, embeds=embeds[:, :-1])
+            out, _ = model.decode_step(embeds=embeds[:, -1:], cache=cache)
+        finally:
+            model.cfg = cfg
+        cons[f"decode_vs_forward_{path}_max_abs_err"] = float(
+            (out.float() - full.float()).abs().max())
+        if path == "kernel":
+            close = torch.allclose(out.float(), full.float(), rtol=0.1,
+                                   atol=0.15)
+        del full
+    cons["decode_vs_forward_tokens"] = S
+    say("serve_qwen2vl", **cons)
+    if not close:
+        raise AssertionError(
+            "prefill + decode vs forward: kernel path "
+            f"{cons['decode_vs_forward_kernel_max_abs_err']}, plain path "
+            f"{cons['decode_vs_forward_plain_max_abs_err']}")
+
+    # where the time goes: one prefill, then 8 decode steps
+    say("serve_profile", model="qwen2-vl-72b", part="prefill", tokens=B * S,
+        **device_profile(torch, lambda: model.prefill(
+            max_seq=S, embeds=embeds, positions=positions), 1, "prefill"))
+    _, cache = model.prefill(max_seq=S + 9, embeds=embeds,
+                             positions=positions)
+    model.decode_step(embeds=dec[0], cache=cache)        # warm the path
+
+    def decode(n=8):
+        for i in range(n):
+            model.decode_step(embeds=dec[i], cache=cache)
+
+    say("serve_profile", model="qwen2-vl-72b", part="decode",
+        **device_profile(torch, decode, 8, "step"))
+    return nums
+
+
+# hubert-xlarge at full width and depth (48 layers, 1.259 B parameters,
+# ~2.5 GB of bf16 weights): B 8 x S 1,000 frame embeddings, 20 s of audio
+# at HuBERT's 50 frames a second; forwards timed
+HUBERT_PARAMS = 1_259_060_480             # JAX's num_params of the config
+HUBERT_B, HUBERT_S, HUBERT_FORWARDS = 8, 1000, 5
+
+
+def kernel_vs_plain_forward(torch, model, inputs, dtype_name, launched):
+    """The full forward of ``inputs`` with the kernels and with
+    ``use_kernels=False`` (which must launch nothing): every logit within
+    PREFILL_TOL, and a frame's greedy unit differing only where the plain
+    path's top two logits lie within twice the largest error."""
+    cfg = model.cfg
+    k_logits = model(**inputs)
+    model.cfg = dataclasses.replace(cfg, use_kernels=False)
+    try:
+        before = launched()
+        p_logits = model(**inputs)
+        if launched() != before:
+            raise AssertionError("use_kernels=False launched a kernel")
+    finally:
+        model.cfg = cfg
+    rtol, atol, mean_tol = PREFILL_TOL[dtype_name]
+    e = (k_logits.float() - p_logits.float()).abs()
+    err, mean_err = float(e.max()), float(e.mean())
+    if bool((e > atol + rtol * p_logits.float().abs()).any()):
+        raise AssertionError(f"{dtype_name} kernel vs plain forward: max "
+                             f"abs err {err}")
+    if mean_err > mean_tol:
+        raise AssertionError(f"{dtype_name} kernel vs plain forward: mean "
+                             f"abs err {mean_err}")
+    top2 = p_logits.float().topk(2, dim=-1).values
+    margin = top2[..., 0] - top2[..., 1]
+    differ = k_logits.argmax(-1) != p_logits.argmax(-1)
+    if bool((differ & (margin > 2 * err)).any()):
+        raise AssertionError(f"{dtype_name}: a frame's unit differs past a "
+                             "near tie")
+    if not bool(torch.isfinite(k_logits).all()):
+        raise AssertionError("non-finite logits")
+    return {f"{dtype_name}_logits_max_abs_err": err,
+            f"{dtype_name}_logits_mean_abs_err": mean_err,
+            f"{dtype_name}_frames_differing": int(differ.sum()),
+            f"{dtype_name}_frames": differ.numel()}
+
+
+def phase_encode_hubert(torch, np, card, FA, build):
+    """hubert-xlarge's encoder forward at full width and depth: the
+    forwards timed (one non-causal flash launch a layer: the bf16 wgmma
+    kernel at hd 80), the kernel path against the plain path in bf16 and
+    on a float32 copy of the whole model (one 3xTF32 launch a layer),
+    prefill's last logits against the forward's last row, a profile of one
+    forward; then the non-causal flash case at its shape (B 8, S 1,000, H
+    16, hd 80) in both dtypes beside SDPA and the plain version."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model, num_params
+
+    cfg = get_config("hubert-xlarge")
+    if num_params(cfg) != HUBERT_PARAMS:
+        raise AssertionError(f"hubert-xlarge: {num_params(cfg)} parameters,"
+                             f" JAX counts {HUBERT_PARAMS}")
+    held_before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    model = Model(cfg, device=card).init_params(
+        torch.Generator(device=card).manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    frames = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (HUBERT_B, HUBERT_S, cfg.d_model), dtype=np.float32)).to(card)
+    logits = model(embeds=frames)                       # warm the path
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    FA.launches = 0
+    t0 = time.perf_counter()
+    for _ in range(HUBERT_FORWARDS):
+        logits = model(embeds=frames)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = FA.launches
+    ms = wall * 1e3 / HUBERT_FORWARDS
+    nums = dict(
+        params=sum(p.numel() for p in model.parameters()),
+        layers=cfg.num_layers, init_s=init_s,
+        shape=json.dumps([HUBERT_B, HUBERT_S, cfg.d_model]),
+        forwards=HUBERT_FORWARDS, wall_s=wall, ms_per_forward=ms,
+        frames_per_s=HUBERT_B * HUBERT_S / (ms * 1e-3),
+        max_memory_allocated=torch.cuda.max_memory_allocated(),
+        held_by_earlier_phases=held_before,
+        flash_attention_launches=launches)
+    if launches != cfg.num_layers * HUBERT_FORWARDS:
+        raise AssertionError(f"{launches} flash launches in "
+                             f"{HUBERT_FORWARDS} forwards")
+    if tuple(logits.shape) != (HUBERT_B, HUBERT_S, cfg.vocab_size) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"hubert logits {tuple(logits.shape)}")
+    # every attention call of a forward is non-causal
+    seen, real = [], FA.flash_attention
+
+    def record(*a, **kw):
+        seen.append(kw.get("causal", True))
+        return real(*a, **kw)
+
+    FA.flash_attention = record
+    try:
+        model(embeds=frames)
+    finally:
+        FA.flash_attention = real
+    nums["non_causal_calls"] = seen.count(False)
+    if seen != [False] * cfg.num_layers:
+        raise AssertionError(f"attention calls' causal flags {seen}")
+    say("encode_hubert", **nums)
+
+    inputs = {"embeds": frames}
+    cons = kernel_vs_plain_forward(torch, model, inputs, "bfloat16",
+                                   lambda: FA.launches)
+    last, _ = model.prefill(embeds=frames)
+    err = float((last.float() - logits[:, -1].float()).abs().max())
+    cons["prefill_last_vs_forward_max_abs_err"] = err
+    if not torch.allclose(last.float(), logits[:, -1].float(), rtol=1e-2,
+                          atol=1e-2):
+        raise AssertionError(f"prefill's last logits vs forward: {err}")
+    del logits, last
+    wide = widened(torch, model, cfg, card)
+    FA.kernel_launches[FA.F32[0]] = 0
+    cons.update(kernel_vs_plain_forward(torch, wide, inputs, "float32",
+                                        lambda: FA.launches))
+    f32 = nums["float32_flash_launches"] = FA.kernel_launches[FA.F32[0]]
+    cons["float32_flash_launches"] = f32
+    del wide
+    if f32 != cfg.num_layers:
+        raise AssertionError(f"{f32} float32 flash launches in the float32 "
+                             f"forward, {cfg.num_layers} expected")
+    say("encode_hubert", **cons)
+    prof = device_profile(torch, lambda: model(embeds=frames), 1, "forward")
+    nums["device_busy_share"] = prof["device_busy_share"]
+    nums["flash_device_share"] = prof["flash_device_share"]
+    say("serve_profile", model="hubert-xlarge", part="forward",
+        frames=HUBERT_B * HUBERT_S, **prof)
+    del model, frames
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the non-causal kernel at hubert's attention shape
+    g = torch.Generator(device=card).manual_seed(3)
+    cases = {}
+    for dt in ("bfloat16", "float32"):
+        name = f"hubert_noncausal_{dt}"
+        cases[name] = _flash_case(
+            torch, FA, build, g, card, name, HUBERT_B, HUBERT_S,
+            cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
+            getattr(torch, dt), 0, iters=100, causal=False)
+        say("encode_hubert", case=name, **cases[name])
+    return nums, cases
 
 
 # --------------------------------------------------------------------------
@@ -2596,12 +2966,15 @@ def main() -> int:
     # fit beside the bf16 model)
     flash_paths = {"zamba2": serve["flash_attention_launches"]}
     f32_paths = {"zamba2": serve["float32_flash_launches"]}
-    for tag, arch, lo, hi, layers, f32_layers in SERVE_FAMILIES:
+    def hold_little(tag):
         gc.collect()
         torch.cuda.empty_cache()
         held = torch.cuda.memory_allocated()
         if held >= 2e9:
-            raise AssertionError(f"{held} bytes held before serve_{tag}")
+            raise AssertionError(f"{held} bytes held before {tag}")
+
+    for tag, arch, lo, hi, layers, f32_layers in SERVE_FAMILIES:
+        hold_little(f"serve_{tag}")
         cfg = get_config(arch)
         n = layers or cfg.num_layers
         with timers.phase(f"serve_{tag}"):
@@ -2614,7 +2987,25 @@ def main() -> int:
         flash_paths[tag] = nums["flash_attention_launches"]
         f32_paths[tag] = nums["float32_flash_launches"]
 
-    # 31-32. the metric-pipeline bench and the colocation demo on the card
+    # 31-32. the embedding-input families: qwen2-vl-72b at full width (20
+    # of 80 layers) with image-grid M-RoPE positions, and hubert-xlarge's
+    # non-causal encoder at full width and depth
+    hold_little("serve_qwen2vl")
+    with timers.phase("serve_qwen2vl"):
+        vlm = phase_serve_qwen2vl(torch, np, card, FA)
+    done("serve_qwen2vl")
+    flash_paths["qwen2vl"] = vlm["flash_attention_launches"]
+    f32_paths["qwen2vl"] = vlm["float32_flash_launches"]
+    hold_little("encode_hubert")
+    with timers.phase("encode_hubert"):
+        enc, enc_cases = phase_encode_hubert(torch, np, card, FA, build)
+    done("encode_hubert")
+    flash_paths["hubert"] = enc["flash_attention_launches"]
+    f32_paths["hubert"] = enc["float32_flash_launches"]
+    widths["hubert_noncausal"] = enc_cases["hubert_noncausal_bfloat16"]
+    widths["hubert_noncausal_float32"] = enc_cases["hubert_noncausal_float32"]
+
+    # 33-34. the metric-pipeline bench and the colocation demo on the card
     with timers.phase("metric_pipeline"):
         mp = phase_metric_pipeline(torch, K, card)
     done("metric_pipeline", **mp)
@@ -2656,7 +3047,8 @@ def main() -> int:
             "ms", "simt_ms", "plain_ms", "library_ms", "bound_ms",
             "bound_by", "bound_term")} for k in (
                 "gemma3_global", "gemma3_local", "hd8_bfloat16",
-                "hd16_bfloat16", "hd80_bfloat16", "hd256_bfloat16")},
+                "hd16_bfloat16", "hd80_bfloat16", "hd256_bfloat16",
+                "hubert_noncausal")},
         "ms": flash["main"]["ms"], "plain_ms": flash["main"]["plain_ms"],
         "bound_ms": flash["main"]["bound_ms"],
         "bound_by": flash["main"]["bound_by"],

@@ -4,7 +4,9 @@ collected per admission (the counterpart of ``examples/serve_demo.py``).
 
 Run: PYTHONPATH=src python examples/torch_serve_demo.py [--arch gemma3-4b]
 [--device cpu] (default device: the CUDA card; ``--arch`` takes every
-ported architecture, served at its smoke config).
+architecture with token prompts and a decode path, served at its smoke
+config: not hubert-xlarge, an encoder, nor qwen2-vl-72b, which takes
+embeddings).
 """
 import argparse
 import time
@@ -15,6 +17,7 @@ import torch
 from repro_torch.configs import get_smoke_config
 from repro_torch.core import metric
 from repro_torch.device import resolve_device
+from repro_torch.launch.serve import refuse_unservable
 from repro_torch.models.model import Model
 from repro_torch.serve import ServeEngine
 
@@ -28,6 +31,7 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
 
     cfg = get_smoke_config(args.arch)
+    refuse_unservable(cfg)
     device = resolve_device(args.device)
     print(f"[serve_demo] arch={cfg.name} (smoke config) device={device}")
     model = Model(cfg, device=device).init_params(

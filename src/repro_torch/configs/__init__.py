@@ -1,22 +1,16 @@
 """Architecture configs of the port (port of ``repro.configs``).
 
 Each module exports ``CONFIG`` (full size) and ``smoke_config()`` (a
-reduced config of the same family for CPU tests).  The port carries the
-eight architectures its serving path runs; the other names of the JAX
-package raise ``NotImplementedError`` naming the slice that brings them.
+reduced config of the same family for CPU tests).  The port carries all
+ten architectures of the JAX package, in its order.
 """
 from __future__ import annotations
 
 import importlib
 
-ARCHS = ["rwkv6_7b", "qwen3_moe_235b_a22b", "dbrx_132b", "gemma3_4b",
-         "deepseek_coder_33b", "internlm2_20b", "smollm_135m", "zamba2_1p2b"]
-
-# architectures of the JAX package that later slices bring
-LATER = {
-    "qwen2_vl_72b": "the vlm slice (M-RoPE, embedding inputs)",
-    "hubert_xlarge": "the encoder slice",
-}
+ARCHS = ["rwkv6_7b", "qwen3_moe_235b_a22b", "dbrx_132b", "qwen2_vl_72b",
+         "gemma3_4b", "deepseek_coder_33b", "internlm2_20b", "smollm_135m",
+         "zamba2_1p2b", "hubert_xlarge"]
 
 _ALIASES = {
     "rwkv6-7b": "rwkv6_7b",
@@ -38,9 +32,6 @@ def canonical(name: str) -> str:
 
 def _module(name: str):
     arch = canonical(name)
-    if arch in LATER:
-        raise NotImplementedError(
-            f"{name} is not ported yet: it arrives with {LATER[arch]}")
     if arch not in ARCHS:
         raise ValueError(f"unknown architecture {name!r}")
     return importlib.import_module(f"repro_torch.configs.{arch}")

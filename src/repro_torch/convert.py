@@ -203,8 +203,11 @@ def model_params_from_numpy(cfg, tree, *, device) -> Model:
     ``tree["groups"][i]`` stacks pattern position i over the ``repeats``
     axis: its entry r becomes layer ``r * len(pattern) + i``, as JAX's scan
     applies it; ``tree["tail"][j]`` follows them.  ``shared``, ``embed``,
-    ``lm_head`` and ``final_norm`` map one to one.  Arrays may be JAX's or
-    numpy's; bfloat16 values pass through float32 exactly.
+    ``lm_head`` and ``final_norm`` map one to one; an ``embed_inputs``
+    model has no ``embed`` (nor has JAX's tree), and a tree that has one
+    where the model has none, or lacks one the model has, is refused.
+    Arrays may be JAX's or numpy's; bfloat16 values pass through float32
+    exactly.
     """
     model = Model(cfg, device=device)
     n = len(cfg.pattern)

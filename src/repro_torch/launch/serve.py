@@ -4,10 +4,12 @@
       --smoke --device cpu --requests 24 --qps 8
 
 Port of ``repro.launch.serve``: the same arguments, plus ``--device``
-(default: the CUDA card).  Weights are random, from a generator seeded 0.
-Every admission's queueing delay lands in the 200x5 runqlat histogram,
-the telemetry the ICO scheduler reads when it places this service as an
-online pod.
+(default: the CUDA card).  An encoder-only architecture (hubert-xlarge)
+exits as JAX's launcher does, and so does one that takes embedding inputs
+(qwen2-vl-72b), which JAX's engine cannot serve either.  Weights are
+random, from a generator seeded 0.  Every admission's queueing delay
+lands in the 200x5 runqlat histogram, the telemetry the ICO scheduler
+reads when it places this service as an online pod.
 """
 from __future__ import annotations
 
@@ -23,6 +25,16 @@ from repro_torch.models.model import Model
 from repro_torch.serve import ServeEngine
 
 
+def refuse_unservable(cfg) -> None:
+    """``SystemExit`` for what the token-prompt engine cannot serve."""
+    if not cfg.causal:
+        raise SystemExit(f"{cfg.name} is encoder-only: no decode/serving "
+                         "path")
+    if cfg.embed_inputs:
+        raise SystemExit(f"{cfg.name} takes embedding inputs: the engine "
+                         "serves token prompts only")
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
@@ -36,6 +48,7 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    refuse_unservable(cfg)
     device = resolve_device(args.device)
     print(f"[serve] arch={cfg.name} max_batch={args.max_batch} "
           f"device={device}")

@@ -1,7 +1,7 @@
-"""Attention: RoPE, full-sequence attention through the flash kernel, and
-single-token decode attention over the KV cache.
+"""Attention: RoPE and M-RoPE, full-sequence attention through the flash
+kernel, and single-token decode attention over the KV cache.
 
-Port of ``repro.models.attention`` without M-RoPE.  JAX's ``attention()``
+Port of ``repro.models.attention``.  JAX's ``attention()``
 runs its pure-jnp ``flash_mha`` (or ``_sliding_window`` past the window);
 the port routes the same call to the ``flash_attention`` wrapper, which
 computes the same function: the Hopper kernel on CUDA tensors, its plain
@@ -26,11 +26,34 @@ def rope_freqs(head_dim: int, theta: float,
     return 1.0 / (theta ** exps)
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor,
-               theta: float) -> torch.Tensor:
-    """x: (B, S, H, hd); positions: (B, S).  Rotates in float32."""
-    inv = rope_freqs(x.shape[-1], theta, x.device)
-    angles = positions.float()[..., None] * inv          # (B, S, hd/2)
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+               mrope_sections: tuple = ()) -> torch.Tensor:
+    """x: (B, S, H, hd); positions: (B, S), or (3, B, S) for M-RoPE.
+    Rotates in float32.
+
+    With ``mrope_sections`` (Qwen2-VL's M-RoPE) frequency channel c of the
+    hd/2 reads position stream ``sec[c]``, where ``sec`` repeats stream
+    index i ``mrope_sections[i]`` times (temporal, height, width); the
+    angle is that position times the channel's frequency, one float32
+    product as in JAX's ``einsum("cbs,c->bsc")``, so three equal streams
+    give plain RoPE bit for bit.
+    """
+    hd = x.shape[-1]
+    inv = rope_freqs(hd, theta, x.device)
+    if mrope_sections:
+        if positions.dim() != 3 or positions.shape[0] != len(mrope_sections):
+            raise ValueError(f"M-RoPE needs ({len(mrope_sections)}, B, S) "
+                             f"positions, got {tuple(positions.shape)}")
+        if sum(mrope_sections) != hd // 2:
+            raise ValueError(f"M-RoPE sections {mrope_sections} do not "
+                             f"cover hd/2 = {hd // 2} channels")
+        pos = positions.float()
+        per_channel = torch.cat([pos[i, ..., None].expand(*pos.shape[1:], n)
+                                 for i, n in enumerate(mrope_sections)],
+                                dim=-1)                 # (B, S, hd/2)
+        angles = per_channel * inv
+    else:
+        angles = positions.float()[..., None] * inv      # (B, S, hd/2)
     sin = torch.sin(angles)[..., None, :]
     cos = torch.cos(angles)[..., None, :]
     x1, x2 = x.float().chunk(2, dim=-1)

@@ -1,12 +1,17 @@
 """Layer kinds of the slice as ``nn.Module``s, and their caches.
 
-Port of ``repro.models.blocks`` for the dense, moe, mamba,
-mamba_shared_attn and rwkv kinds.  Every layer is called as ``layer(cfg,
-x, mode, cache, start)`` and returns ``(x, cache)``:
+Port of ``repro.models.blocks`` for every kind: dense, enc (the
+bidirectional encoder block, JAX's dense layer under ``cfg.causal``
+False), moe, mamba, mamba_shared_attn and rwkv.  Every layer is called as
+``layer(cfg, x, mode, cache, start, pos)`` and returns ``(x, cache)``:
 
 * ``TRAIN``: full sequence, no cache (``cache`` is None);
 * ``PREFILL``: full sequence from position 0, filling ``cache``;
-* ``DECODE``: one token at position ``start``, reading and updating it.
+* ``DECODE``: one token written at cache index ``start``, reading and
+  updating the cache.
+
+``pos`` is the model's (B, T) positions, or (3, B, T) under M-RoPE, which
+the attention layers rotate by; the mamba and rwkv kinds ignore it.
 
 Parameters keep the JAX package's names and its (in, out) layouts, so a
 JAX parameter tree maps onto them name for name.  The Zamba2 shared block
@@ -24,6 +29,7 @@ from repro_torch.models import rwkv as R
 from repro_torch.models import ssd as S
 from repro_torch.models.common import (
     DENSE,
+    ENC,
     MAMBA,
     MAMBA_SHARED_ATTN,
     MOE,
@@ -47,7 +53,7 @@ def new_param(shape, dtype, device) -> nn.Parameter:
 
 class DenseLayer(nn.Module):
     """GQA attention + SwiGLU MLP (JAX ``init_dense_layer`` /
-    ``apply_dense_layer``)."""
+    ``apply_dense_layer``), causal or not as ``cfg.causal`` says."""
 
     def __init__(self, cfg: ModelConfig, spec: LayerSpec, device):
         super().__init__()
@@ -82,14 +88,13 @@ class DenseLayer(nn.Module):
     def _ffn(self, cfg, h):
         return swiglu(h, self.w_gate, self.w_up, self.w_down)
 
-    def _attn(self, cfg, x, mode, cache, start):
+    def _attn(self, cfg, x, mode, cache, start, pos):
         B, T, D = x.shape
         H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-        theta = self.spec.rope_theta
-        pos = torch.arange(start, start + T, device=x.device)[None]
+        theta, sec = self.spec.rope_theta, cfg.mrope_sections
         h = rms_norm(x, self.ln1, cfg.norm_eps)
-        q = A.apply_rope((h @ self.wq).reshape(B, T, H, hd), pos, theta)
-        k = A.apply_rope((h @ self.wk).reshape(B, T, KV, hd), pos, theta)
+        q = A.apply_rope((h @ self.wq).reshape(B, T, H, hd), pos, theta, sec)
+        k = A.apply_rope((h @ self.wk).reshape(B, T, KV, hd), pos, theta, sec)
         v = (h @ self.wv).reshape(B, T, KV, hd)
         if mode == DECODE:
             cache["k"][:, start] = k[:, 0]
@@ -97,7 +102,7 @@ class DenseLayer(nn.Module):
             out = A.decode_attention(q, cache["k"], cache["v"], start + 1,
                                      sliding_window=self.spec.sliding_window)
         else:
-            out = A.attention(q, k, v, causal=True,
+            out = A.attention(q, k, v, causal=cfg.causal,
                               sliding_window=self.spec.sliding_window,
                               use_kernel=cfg.use_kernels)
             if mode == PREFILL:
@@ -105,8 +110,8 @@ class DenseLayer(nn.Module):
                 cache["v"][:, :T] = v
         return x + out.reshape(B, T, H * hd) @ self.wo
 
-    def forward(self, cfg, x, mode, cache, start, shared=None):
-        x = self._attn(cfg, x, mode, cache, start)
+    def forward(self, cfg, x, mode, cache, start, pos, shared=None):
+        x = self._attn(cfg, x, mode, cache, start, pos)
         h = rms_norm(x, self.ln2, cfg.norm_eps)
         return x + self._ffn(cfg, h), cache
 
@@ -178,7 +183,7 @@ class MambaLayer(nn.Module):
         self.gnorm.zero_()
         init_dense(self.out_proj, g)
 
-    def forward(self, cfg, x, mode, cache, start, shared=None):
+    def forward(self, cfg, x, mode, cache, start, pos, shared=None):
         B, T, D = x.shape
         d_in, H, N, conv_ch = mamba_dims(cfg)
         h = rms_norm(x, self.ln, cfg.norm_eps)
@@ -218,10 +223,10 @@ class MambaSharedLayer(MambaLayer):
     ``apply_mamba_shared``): one parameter set for every application, one
     cache per application."""
 
-    def forward(self, cfg, x, mode, cache, start, shared=None):
+    def forward(self, cfg, x, mode, cache, start, pos, shared=None):
         sub = cache or {"mamba": None, "shared_attn": None}
-        x, _ = super().forward(cfg, x, mode, sub["mamba"], start)
-        x, _ = shared(cfg, x, mode, sub["shared_attn"], start)
+        x, _ = super().forward(cfg, x, mode, sub["mamba"], start, pos)
+        x, _ = shared(cfg, x, mode, sub["shared_attn"], start, pos)
         return x, cache
 
 
@@ -267,7 +272,7 @@ class RwkvLayer(nn.Module):
         for w in (self.w_ck, self.w_cv, self.w_cr):
             init_dense(w, g)
 
-    def forward(self, cfg, x, mode, cache, start, shared=None):
+    def forward(self, cfg, x, mode, cache, start, pos, shared=None):
         H = cfg.num_heads
         # ---- time mix
         h = rms_norm(x, self.ln1, cfg.norm_eps)
@@ -307,30 +312,21 @@ def _rwkv_cache(cfg, B, device) -> dict:
 
 # --------------------------------------------------------------- registry --
 
-LAYERS = {DENSE: DenseLayer, MOE: MoeLayer, MAMBA: MambaLayer,
-          MAMBA_SHARED_ATTN: MambaSharedLayer, RWKV: RwkvLayer}
-
-# kinds of the JAX package that later slices bring
-LATER = {"enc": "the encoder slice"}
-
-
-def layer_class(kind: str):
-    if kind in LATER:
-        raise NotImplementedError(
-            f"layer kind {kind!r} is not ported yet: it arrives with "
-            f"{LATER[kind]}")
-    return LAYERS[kind]
+LAYERS = {DENSE: DenseLayer, ENC: DenseLayer, MOE: MoeLayer,
+          MAMBA: MambaLayer, MAMBA_SHARED_ATTN: MambaSharedLayer,
+          RWKV: RwkvLayer}
 
 
 def cache_spec(cfg: ModelConfig, spec: LayerSpec, B: int, S_: int,
                device) -> dict:
     """Zero-initialised cache of one layer of the given kind."""
-    layer_class(spec.kind)
-    if spec.kind in (DENSE, MOE):
+    if spec.kind in (DENSE, ENC, MOE):
         return _attn_cache(cfg, B, S_, device)
     if spec.kind == MAMBA:
         return _mamba_cache(cfg, B, device)
     if spec.kind == RWKV:
         return _rwkv_cache(cfg, B, device)
-    return {"mamba": _mamba_cache(cfg, B, device),
-            "shared_attn": _attn_cache(cfg, B, S_, device)}
+    if spec.kind == MAMBA_SHARED_ATTN:
+        return {"mamba": _mamba_cache(cfg, B, device),
+                "shared_attn": _attn_cache(cfg, B, S_, device)}
+    raise KeyError(spec.kind)

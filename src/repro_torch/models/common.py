@@ -3,9 +3,10 @@
 Port of ``repro.models.common``.  A model is a repeating ``pattern`` of
 layer specs applied ``repeats`` times plus a ``tail``; the port keeps the
 layers in one list in the JAX scan's order (layer ``r * len(pattern) + i``,
-then the tail).  Only the fields the port's code reads are ported; M-RoPE,
-embedding inputs, the encoder flag and the JAX lowering knobs arrive with
-the code that reads them.
+then the tail).  Only the fields the port's code reads are ported: JAX's
+``family`` label, its config-level ``rope_theta`` (each layer reads its
+spec's) and its lowering knobs (``q_block``, ``kv_block``,
+``causal_block_skip``, ``use_pallas``, ``attn_batch_reshard``) are not.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ MOE = "moe"                              # GQA attention + mixture of experts
 MAMBA = "mamba"                          # Mamba-2 SSD block
 MAMBA_SHARED_ATTN = "mamba_shared_attn"  # mamba block + the shared block
 RWKV = "rwkv"                            # RWKV-6 time mix + channel mix
+ENC = "enc"                              # bidirectional encoder block
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,12 +51,20 @@ class ModelConfig:
     # on one device) and "block" dispatch per token block; "naive" is one
     # block
     moe_impl: str = "a2a"
+    # M-RoPE (qwen2-vl): the hd/2 rotary frequency channels split into
+    # (temporal, height, width) sections, each rotated by its own stream
+    # of (3, B, S) positions; () is plain RoPE over (B, S) positions
+    mrope_sections: tuple = ()
     # SSM
     ssm_state: int = 0
     ssm_expand: int = 2
     ssm_head_dim: int = 64
     ssm_conv: int = 4
     shared_attn: bool = False    # zamba2: one attention+MLP block, reused
+    causal: bool = True          # False: bidirectional encoder (no decode)
+    # the model takes (B, S, d_model) embeddings in place of token ids and
+    # has no embedding table (the vision / waveform frontend is a stub)
+    embed_inputs: bool = False
     tie_embeddings: bool = False  # lm_head = embed.T (smollm, gemma3)
     norm_eps: float = 1e-6
     dtype: torch.dtype = torch.bfloat16

@@ -1,6 +1,7 @@
-"""The model: embedding, the layers in the JAX scan's order, the logits.
+"""The model: the input (token embedding or given embeddings), the layers
+in the JAX scan's order, the logits.
 
-Port of ``repro.models.model`` for serving:
+Port of ``repro.models.model`` for inference:
 
   Model(cfg, device=...)            parameters allocated, not initialised
   model.init_params(generator)      the port's init (JAX's distributions)
@@ -10,6 +11,19 @@ Port of ``repro.models.model`` for serving:
   model.decode_step(token, cache)   -> (logits (B, V), cache)
   num_params(cfg)                   parameter count, nothing allocated
   active_params(cfg)                parameters a token touches (MoE: k of E)
+
+A config with ``embed_inputs`` (qwen2-vl-72b's patch and token
+embeddings, hubert-xlarge's frame embeddings) has no embedding table:
+each entry point takes ``embeds=`` (B, T, d_model), cast to ``cfg.dtype``,
+in place of token ids, as JAX's batch takes ``"embeds"`` in place of
+``"tokens"``.  ``forward`` and ``prefill`` take optional ``positions``
+((3, B, T) under M-RoPE, JAX's ``batch["positions"]``); by default and at
+decode the positions follow JAX's ``_positions``: ``arange`` from 0, and
+at decode the cache length, the same value in all three M-RoPE streams.
+That is JAX's rule, not Qwen2-VL's, which would go on from the largest
+position of the prompt plus one.  A model with ``causal`` False (the
+encoder) attends both ways; its ``decode_step`` is not a meaningful
+continuation, as in JAX, which has no decode path for it.
 
 JAX scans the stacked ``groups`` and then applies the ``tail``; the port
 keeps one list in that order (layer ``r * len(pattern) + i``, then the
@@ -45,26 +59,30 @@ class Model(nn.Module):
         cfg.validate()
         dev = resolve_device(device)
         specs = cfg.layer_specs()
-        classes = [Bk.layer_class(s.kind) for s in specs]
         self.cfg = cfg
-        self.embed = Bk.new_param((cfg.vocab_size, cfg.d_model), cfg.dtype, dev)
+        self.embed = (None if cfg.embed_inputs else
+                      Bk.new_param((cfg.vocab_size, cfg.d_model), cfg.dtype,
+                                   dev))
         self.layers = nn.ModuleList(
-            [cls(cfg, s, dev) for cls, s in zip(classes, specs)])
+            [Bk.LAYERS[s.kind](cfg, s, dev) for s in specs])
         self.shared = (Bk.DenseLayer(cfg, cfg.pattern[-1], dev)
                        if cfg.shared_attn else None)
         self.final_norm = Bk.new_param((cfg.d_model,), torch.float32, dev)
-        self.lm_head = (None if cfg.tie_embeddings else
+        # JAX ties the head to the embedding only where there is one
+        tied = cfg.tie_embeddings and not cfg.embed_inputs
+        self.lm_head = (None if tied else
                         Bk.new_param((cfg.d_model, cfg.vocab_size), cfg.dtype,
-                                  dev))
+                                     dev))
 
     @property
     def device(self) -> torch.device:
-        return self.embed.device
+        return self.final_norm.device
 
     @torch.no_grad()
     def init_params(self, generator: torch.Generator) -> "Model":
         """Random weights from ``generator`` (on the parameters' device)."""
-        init_dense(self.embed, generator, in_axis=-1)
+        if self.embed is not None:
+            init_dense(self.embed, generator, in_axis=-1)
         for layer in self.layers:
             layer.init_params(generator)
         if self.shared is not None:
@@ -78,10 +96,36 @@ class Model(nn.Module):
         return Cache([Bk.cache_spec(self.cfg, layer.spec, batch, max_seq,
                                     self.device) for layer in self.layers])
 
-    def _run(self, x, mode, cache, start):
+    def _embed_in(self, tokens, embeds) -> torch.Tensor:
+        """JAX's ``_embed_in``: embeddings cast to ``cfg.dtype`` for an
+        ``embed_inputs`` model, else the token ids' rows of the table."""
+        cfg = self.cfg
+        if cfg.embed_inputs:
+            if embeds is None or tokens is not None:
+                raise ValueError(f"{cfg.name} takes embeds=, not tokens")
+            return embeds.to(cfg.dtype)
+        if tokens is None or embeds is not None:
+            raise ValueError(f"{cfg.name} takes tokens, not embeds=")
+        return F.embedding(tokens, self.embed)
+
+    def _positions(self, x, offset, positions=None) -> torch.Tensor:
+        """JAX's ``_positions``: ``offset + arange(T)`` broadcast to (B, T),
+        and to all three streams under M-RoPE; given ``positions`` pass
+        only under M-RoPE, as JAX reads ``batch["positions"]`` only there."""
+        B, T = x.shape[:2]
+        if self.cfg.mrope_sections and positions is not None:
+            if tuple(positions.shape) != (3, B, T):
+                raise ValueError(f"positions {tuple(positions.shape)}, "
+                                 f"(3, {B}, {T}) expected")
+            return positions
+        pos = torch.arange(offset, offset + T, device=self.device)
+        pos = pos[None].expand(B, T)
+        return pos[None].expand(3, B, T) if self.cfg.mrope_sections else pos
+
+    def _run(self, x, mode, cache, start, pos):
         for i, layer in enumerate(self.layers):
             c = None if cache is None else cache.layers[i]
-            x, _ = layer(self.cfg, x, mode, c, start, self.shared)
+            x, _ = layer(self.cfg, x, mode, c, start, pos, self.shared)
         return x
 
     def _logits(self, x):
@@ -89,30 +133,42 @@ class Model(nn.Module):
         return h @ (self.embed.T if self.lm_head is None else self.lm_head)
 
     @torch.no_grad()
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        """Full forward without a cache: tokens (B, T) -> logits (B, T, V)."""
-        return self._logits(self._run(F.embedding(tokens, self.embed), TRAIN,
-                                      None, 0))
+    def forward(self, tokens: torch.Tensor | None = None, *,
+                embeds: torch.Tensor | None = None,
+                positions: torch.Tensor | None = None) -> torch.Tensor:
+        """Full forward without a cache: tokens (B, T), or ``embeds`` (B, T,
+        D), -> logits (B, T, V)."""
+        x = self._embed_in(tokens, embeds)
+        return self._logits(self._run(x, TRAIN, None, 0,
+                                      self._positions(x, 0, positions)))
 
     @torch.no_grad()
-    def prefill(self, tokens: torch.Tensor, max_seq: int | None = None):
-        """tokens (B, T) -> (logits of the last position (B, V), cache).
+    def prefill(self, tokens: torch.Tensor | None = None,
+                max_seq: int | None = None, *,
+                embeds: torch.Tensor | None = None,
+                positions: torch.Tensor | None = None):
+        """tokens (B, T), or ``embeds`` (B, T, D), -> (logits of the last
+        position (B, V), cache).
 
         The cache holds ``max(max_seq, T)`` positions and is filled in place
         up to T, so decoding continues in it without copying.
         """
-        B, T = tokens.shape
+        x = self._embed_in(tokens, embeds)
+        B, T = x.shape[:2]
         cache = self.init_cache(B, max(max_seq or T, T))
-        x = self._run(F.embedding(tokens, self.embed), PREFILL, cache, 0)
+        x = self._run(x, PREFILL, cache, 0, self._positions(x, 0, positions))
         cache.len = T
         return self._logits(x[:, -1:])[:, 0], cache
 
     @torch.no_grad()
-    def decode_step(self, token: torch.Tensor, cache: Cache):
-        """token (B, 1) at position ``cache.len`` -> (logits (B, V), cache),
-        the cache updated in place."""
-        x = self._run(F.embedding(token, self.embed), DECODE, cache,
-                      cache.len)
+    def decode_step(self, token: torch.Tensor | None = None,
+                    cache: Cache | None = None, *,
+                    embeds: torch.Tensor | None = None):
+        """token (B, 1), or ``embeds`` (B, 1, D), at position ``cache.len``
+        -> (logits (B, V), cache), the cache updated in place."""
+        x = self._embed_in(token, embeds)
+        x = self._run(x, DECODE, cache, cache.len,
+                      self._positions(x, cache.len))
         cache.len += 1
         return self._logits(x)[:, 0], cache
 

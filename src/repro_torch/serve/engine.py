@@ -36,10 +36,15 @@ class ServeEngine:
 
     Each admitted cohort decodes together at one cache length: prompts are
     left-padded with token 0 to the cohort's longest, with no padding mask,
-    exactly as the JAX engine does.
+    exactly as the JAX engine does.  Prompts are token ids, as JAX's engine
+    takes them: a model with ``embed_inputs`` (qwen2-vl-72b, hubert-xlarge)
+    is refused.
     """
 
     def __init__(self, model, max_batch: int = 8, latency_unit: float = 1e-3):
+        if model.cfg.embed_inputs:
+            raise ValueError(f"{model.cfg.name} takes embedding inputs; the "
+                             "engine serves token prompts only")
         self.model = model
         self.max_batch = max_batch
         self.latency_unit = latency_unit  # seconds per histogram unit

@@ -629,6 +629,64 @@ def test_small_serve_run_of_every_attention_model(card, arch):
     assert FA.launches - before == 2 * cfg.num_layers   # two cohorts
 
 
+def _grid_positions(B, n, grid):
+    """(3, B, n) M-RoPE positions: a ``grid`` x ``grid`` image at t 0,
+    h = row, w = col, then text from ``grid`` on in all three streams."""
+    r = torch.arange(grid * grid) // grid
+    c = torch.arange(grid * grid) % grid
+    text = grid + torch.arange(n - grid * grid)
+    pos = torch.stack([torch.cat([torch.zeros_like(r), text]),
+                       torch.cat([r, text]), torch.cat([c, text])])
+    return pos[:, None].expand(3, B, n).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen2-vl-72b", "hubert-xlarge"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_embedding_input_models_kernel_path_equals_plain(card, exact_f32,
+                                                        arch, dtype):
+    """The qwen2-vl (image-grid M-RoPE positions, causal) and hubert
+    (non-causal) smoke configs on the card: one flash launch per layer a
+    forward, and the kernel path's logits against ``use_kernels=False``."""
+    import dataclasses
+
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype=dtype)
+    model = Model(cfg, device=card).init_params(
+        torch.Generator(device=card).manual_seed(0))
+    g = torch.Generator().manual_seed(4)
+    x = torch.randn((2, 200, cfg.d_model), generator=g).to(card)
+    kw = {"embeds": x}
+    if cfg.mrope_sections:
+        kw["positions"] = _grid_positions(2, 200, 8).to(card)
+    before = FA.launches
+    got = model(**kw)
+    torch.cuda.synchronize()
+    assert FA.launches - before == cfg.num_layers
+    model.cfg = dataclasses.replace(cfg, use_kernels=False)
+    want = model(**kw)
+    assert FA.launches - before == cfg.num_layers
+    tol = (dict(rtol=5e-2, atol=1e-1) if dtype == torch.bfloat16
+           else dict(rtol=1e-4, atol=1e-4))
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_non_causal_at_hubert_width_equals_plain(card, exact_f32,
+                                                       dtype):
+    """hubert-xlarge's attention (16 heads, hd 80, non-causal) at B 2, S
+    1,000: every key attends, so the KV loop runs past the diagonal."""
+    q, k, v = _qkv(2, 1000, 16, 16, 80, dtype, card, seed=80)
+    before = FA.launches
+    got = FA.flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert FA.launches == before + 1
+    want = FA.flash_attention_plain(q, k, v, causal=False)
+    torch.testing.assert_close(got.float(), want.float(), **FLASH_TOL[dtype])
+    causal = FA.flash_attention_plain(q, k, v, causal=True)
+    assert float((causal.float() - want.float()).abs().max()) > 0.1
+
+
 # the default init's decay, exp(-exp(0.18)): the clamps bind from step 57
 # of a chunk of 64, and for chunks longer than 73 A_excl is subnormal
 CLAMPED_W = 0.30203348

@@ -4,9 +4,12 @@ the same weights: ``model_params_from_numpy`` carries JAX's
 and the decode step's logits are compared on the smoke configs of every
 ported architecture (zamba2, smollm, rwkv6, the dense deepseek-coder and
 internlm2, gemma3 with its window of 32 binding at T 128, the MoE qwen3
-and dbrx), in float32 (the algorithm; tight) and bfloat16 (the working
-type; loose), plus the port's own prefill-then-decode against its full
-forward."""
+and dbrx, qwen2-vl with embedding inputs and M-RoPE positions whose three
+streams differ, the non-causal hubert encoder), in float32 (the
+algorithm; tight) and bfloat16 (the working type; loose), plus the port's
+own prefill-then-decode against its full forward.  hubert is left out of
+the decode tests, as ``tests/test_archs_smoke.py`` leaves it out: an
+encoder has no decode path."""
 import dataclasses
 
 import jax
@@ -23,7 +26,9 @@ from repro_torch.convert import model_params_from_numpy
 from repro_torch.models import model as TM
 
 ARCHS = ["zamba2-1.2b", "smollm-135m", "rwkv6-7b", "deepseek-coder-33b",
-         "internlm2-20b", "gemma3-4b", "qwen3-moe-235b-a22b", "dbrx-132b"]
+         "internlm2-20b", "gemma3-4b", "qwen3-moe-235b-a22b", "dbrx-132b",
+         "qwen2-vl-72b", "hubert-xlarge"]
+DECODE_ARCHS = [a for a in ARCHS if a != "hubert-xlarge"]
 # float32: the same arithmetic in another order (XLA's fused scans against
 # torch's ops), a few ulps per layer.  bfloat16: the port rounds to bf16
 # wherever JAX's code casts, but XLA on the CPU keeps elementwise chains
@@ -51,6 +56,57 @@ def _configs(arch, dtype):
 def _tokens(cfg, seed, n=T):
     return np.random.default_rng(seed).integers(
         0, cfg.vocab_size, (B, n)).astype(np.int32)
+
+
+def grid_positions(n, grid, lead=(0, 5)):
+    """(3, B, n) M-RoPE positions of Qwen2-VL's kind: row b has ``lead[b]``
+    text tokens, a ``grid`` x ``grid`` image (t = lead, h = lead + row,
+    w = lead + col), then text again from the image's largest position
+    plus one, the same value in all three streams."""
+    pos = np.zeros((3, B, n), np.int32)
+    for b, t0 in enumerate(lead):
+        pos[:, b, :t0] = np.arange(t0)
+        r, c = np.divmod(np.arange(grid * grid), grid)
+        img = slice(t0, t0 + grid * grid)
+        pos[0, b, img] = t0
+        pos[1, b, img] = t0 + r
+        pos[2, b, img] = t0 + c
+        rest = n - (t0 + grid * grid)
+        pos[:, b, t0 + grid * grid:] = t0 + grid + np.arange(rest)
+    return pos
+
+
+def _batch(cfg, seed, n=T, grid=True):
+    """JAX's batch and the port's keyword arguments on the same inputs:
+    tokens, or float32 embeddings (B, n, D), with image-grid M-RoPE
+    positions (``grid``) where the config has sections."""
+    if not cfg.embed_inputs:
+        toks = _tokens(cfg, seed, n)
+        return {"tokens": jnp.asarray(toks)}, {
+            "tokens": torch.from_numpy(toks).long()}
+    e = np.random.default_rng(seed).standard_normal(
+        (B, n, cfg.d_model)).astype(np.float32)
+    jb, tb = {"embeds": jnp.asarray(e)}, {"embeds": torch.from_numpy(e)}
+    if cfg.mrope_sections and grid:
+        pos = grid_positions(n, 8)
+        jb["positions"] = jnp.asarray(pos)
+        tb["positions"] = torch.from_numpy(pos)
+    return jb, tb
+
+
+def _last(jb, tb):
+    """The batches cut to all but the last position, and the last one as
+    JAX's and the port's decode inputs."""
+    key = "embeds" if "embeds" in jb else "tokens"
+    pre_j = {key: jb[key][:, :-1]}
+    pre_t = {key: tb[key][:, :-1]}
+    if "positions" in jb:
+        pre_j["positions"] = jb["positions"][..., :-1]
+        pre_t["positions"] = tb["positions"][..., :-1]
+    dec_j = {"embeds" if key == "embeds" else "token": jb[key][:, -1:]}
+    dec_t = {"embeds": tb[key][:, -1:]} if key == "embeds" else {
+        "token": tb[key][:, -1:]}
+    return pre_j, pre_t, dec_j, dec_t
 
 
 def _np(a):
@@ -104,10 +160,9 @@ def _build(arch, dtype):
 @pytest.mark.parametrize("arch", ARCHS)
 def test_prefill_logits_and_every_cache_leaf_match_jax(arch, dtype):
     jcfg, tcfg, params, model = _build(arch, dtype)
-    toks = _tokens(jcfg, 1)
-    jlogits, jcache = _jax_run(lambda p, b: M.prefill(jcfg, p, b), params,
-                               {"tokens": jnp.asarray(toks)})
-    logits, cache = model.prefill(torch.from_numpy(toks).long())
+    jb, tb = _batch(jcfg, 1)
+    jlogits, jcache = _jax_run(lambda p, b: M.prefill(jcfg, p, b), params, jb)
+    logits, cache = model.prefill(**tb)
     _close(logits, jlogits, dtype, "logits")
     assert cache.len == int(jcache["len"]) == T
     jl = _jax_layer_caches(jcfg, jcache)
@@ -125,13 +180,11 @@ def test_prefill_logits_and_every_cache_leaf_match_jax(arch, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", DECODE_ARCHS)
 def test_decode_step_logits_match_jax(arch, dtype):
     jcfg, tcfg, params, model = _build(arch, dtype)
-    toks = _tokens(jcfg, 2, T + 1)
-    pre, last = toks[:, :-1], toks[:, -1:]
-    _, jcache = _jax_run(lambda p, b: M.prefill(jcfg, p, b), params,
-                         {"tokens": jnp.asarray(pre)})
+    pre_j, pre_t, dec_j, dec_t = _last(*_batch(jcfg, 2, T + 1))
+    _, jcache = _jax_run(lambda p, b: M.prefill(jcfg, p, b), params, pre_j)
     full = M.init_cache(jcfg, B, T + 4)
 
     def place(dst, src):  # JAX's cache grown to T + 4 positions
@@ -142,9 +195,9 @@ def test_decode_step_logits_match_jax(arch, dtype):
 
     jcache = jax.tree.map(place, full, jcache)
     jlogits, _ = _jax_run(lambda p, c, b: M.decode_step(jcfg, p, c, b),
-                          params, jcache, {"token": jnp.asarray(last)})
-    _, cache = model.prefill(torch.from_numpy(pre).long(), max_seq=T + 4)
-    logits, cache = model.decode_step(torch.from_numpy(last).long(), cache)
+                          params, jcache, dec_j)
+    _, cache = model.prefill(max_seq=T + 4, **pre_t)
+    logits, cache = model.decode_step(cache=cache, **dec_t)
     assert cache.len == T + 1
     _close(logits, jlogits, dtype, "decode logits")
 
@@ -198,10 +251,12 @@ def test_gqa_nine_over_three_matches_jax():
 
 
 @pytest.mark.parametrize("T_", [64, 100])
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", DECODE_ARCHS)
 def test_prefill_then_decode_matches_forward(arch, T_):
     """decode(prefill(x[:-1]), x[-1]) equals forward(x) at the last
-    position (float32; a ragged length too, which JAX cannot prefill)."""
+    position (float32; a ragged length too, which JAX cannot prefill);
+    qwen2-vl at its default positions, equal streams, as JAX's own test
+    takes them: only then is JAX's decode position the forward's."""
     _, tcfg = _configs(arch, "float32")
     if tcfg.num_experts:
         # capacity drops depend on the tokens in a call; full capacity makes
@@ -210,12 +265,13 @@ def test_prefill_then_decode_matches_forward(arch, T_):
             tcfg, capacity_factor=tcfg.num_experts / tcfg.experts_per_tok)
     model = TM.Model(tcfg, device="cpu").init_params(
         torch.Generator().manual_seed(3))
-    toks = torch.from_numpy(_tokens(tcfg, 3, T_)).long()
-    full = model(toks)
-    last, cache = model.prefill(toks[:, :-1], max_seq=T_)
+    jb, tb = _batch(tcfg, 3, T_, grid=False)
+    full = model(**tb)
+    _, pre, _, dec = _last(jb, tb)
+    last, cache = model.prefill(max_seq=T_, **pre)
     np.testing.assert_allclose(last.numpy(), full[:, -2].numpy(), rtol=1e-5,
                                atol=1e-5)
-    logits, _ = model.decode_step(toks[:, -1:], cache)
+    logits, _ = model.decode_step(cache=cache, **dec)
     np.testing.assert_allclose(logits.numpy(), full[:, -1].numpy(),
                                rtol=1e-4, atol=1e-4)
 
@@ -286,12 +342,6 @@ def test_smollm_ties_its_embeddings():
     assert m.lm_head is None
 
 
-@pytest.mark.parametrize("name", ["hubert-xlarge", "qwen2-vl-72b"])
-def test_later_architectures_raise(name):
-    with pytest.raises(NotImplementedError):
-        tconfigs.get_config(name)
-
-
 def test_converter_rejects_a_mismatched_tree():
     jcfg, tcfg = _configs("smollm-135m", "float32")
     params = M.init_params(jcfg, jax.random.PRNGKey(0))
@@ -304,13 +354,18 @@ def test_converter_rejects_a_mismatched_tree():
 @pytest.mark.parametrize("arch", ARCHS)
 def test_lm_head_tied_as_jax(arch):
     """``lm_head`` exists exactly where JAX's tree has one (gemma3 and
-    smollm tie it to the embedding; deepseek-coder and internlm2 do not)."""
+    smollm tie it to the embedding; deepseek-coder and internlm2 do not;
+    the embedding-input models have no embedding to tie it to), and so
+    does ``embed``."""
     jtree = jax.eval_shape(lambda: M.init_params(jget_smoke(arch),
                                                  jax.random.PRNGKey(0)))
     m = TM.Model(tconfigs.get_smoke_config(arch), device="meta")
     assert (m.lm_head is not None) == ("lm_head" in jtree)
-    full = TM.Model(tconfigs.get_config(arch), device="meta")
-    assert (full.lm_head is None) == tconfigs.get_config(arch).tie_embeddings
+    assert (m.embed is not None) == ("embed" in jtree)
+    cfg = tconfigs.get_config(arch)
+    full = TM.Model(cfg, device="meta")
+    assert (full.lm_head is None) == (cfg.tie_embeddings
+                                      and not cfg.embed_inputs)
 
 
 @pytest.mark.parametrize("arch", ["gemma3-4b", "deepseek-coder-33b"])
