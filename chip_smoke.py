@@ -5,8 +5,8 @@ Run from the root of a checkout: ``python3 chip_smoke.py`` (no arguments;
 one card).  It imports ``repro_torch`` from ``src/`` and nothing of JAX.
 Phases, each printed with its numbers and wall time:
 
-1. build every CUDA kernel of both paths from
-   ``src/repro_torch/kernels/csrc``, and the earlier ``runqlat_hist`` and
+1. build every CUDA kernel of the paths (the backward flash kernel among
+   them) from ``src/repro_torch/kernels/csrc``, and the earlier ``runqlat_hist`` and
    ``wkv`` kernels kept in ``tools/earlier/`` to be timed beside their
    replacements (one ``nvcc`` per source, all at once), print the
    registers, shared memory and spills of ``runqlat_hist``,
@@ -193,10 +193,34 @@ Phases, each printed with its numbers and wall time:
     prefill's last logits against the forward's last row; a profile of one
     forward; then the non-causal flash case at that shape (B 8, S 1,000, H
     16, hd 80) in bf16 and float32 beside SDPA and the plain version;
-33. ``metric_pipeline``: ``benchmarks/bench_torch_metric_pipeline.py`` at
+33. ``flash_bwd_kernel``: the backward flash kernel
+    (``csrc/flash_attention_bwd.cu``, three launches a call) against
+    ``flash_attention_bwd_plain`` (dq, dk, dv) at smollm-135m's train
+    shape (B 8, S 1,024, H 9 over 3, hd 64, causal), hubert-xlarge's (B
+    8, S 1,000, H 16, hd 80, non-causal) and ``main_hd128`` (B 4, S
+    1,024, H 16, hd 128), each in bf16 and float32, and a windowed case
+    (window 100) at hd 64; two launches bitwise equal; each timed beside
+    the plain version and SDPA's backward (``torch.autograd.grad``, timed
+    only), its device time from CUDA graphs and its bound;
+34. ``train_smollm``: smollm-135m at full size (134.5 M parameters,
+    random weights seeded 0) trained by ``launch.train.train_loop`` for
+    20 steps on ``SyntheticLM(seq 1,024, global batch 8, seed 0)`` with
+    remat, accum 2, int8 compression and lr 6e-4 with the launcher's
+    warmup; both flash counts set to 0 before and read after (2,400
+    forward launches, 3,600 backward ones); the loss must fall (last five
+    steps' mean below the first five's) and stay finite; step ms,
+    tokens/s, peak memory, one more step profiled (busy share, kernels,
+    the backward kernel's share of device time); a float32 copy of the
+    whole model, on one batch, its gradients through the kernels against
+    the plain path's (60 3xTF32 forward launches, 90 backward ones): the
+    backward kernel within 1e-4 of each leaf's largest value against the
+    plain backward, on the plain forward and on the kernel forward, the
+    whole kernel path within 1e-2 (the 3xTF32 forward's rounding,
+    amplified by the trained model's wq / wk gradients);
+35. ``metric_pipeline``: ``benchmarks/bench_torch_metric_pipeline.py`` at
     1,000 and 4,000 nodes x 14 x 256 samples (CUDA events), every sample
     binned once, the histograms equal to the plain version's;
-34. ``colocation``: ``examples/torch_colocation_sim.py`` ``--selftest``
+36. ``colocation``: ``examples/torch_colocation_sim.py`` ``--selftest``
     and its demo on the card (ICO places 14 pods, the smollm smoke model
     serves 8 requests through the wgmma flash kernel (hd 16), Eq. 1 of its
     runqlat histogram).
@@ -1794,6 +1818,341 @@ def phase_encode_hubert(torch, np, card, FA, build):
 
 
 # --------------------------------------------------------------------------
+# training: the backward flash kernel and smollm-135m at full size
+# --------------------------------------------------------------------------
+
+# dq, dk, dv of the kernel against the plain backward, within this share of
+# each result's largest magnitude: float32 sums the same float32 products
+# in another order over up to S keys (or S G queries); bf16 results are the
+# same float32 values rounded, so a bf16 ulp (2^-8) of the largest at most
+BWD_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+# smollm-135m's train microbatch is B 4; the whole batch B 8 is the shape
+# the bound and the SDPA backward are quoted at
+BWD_CASES = [("smollm", 8, 1024, 9, 3, 64, "bfloat16", 0, True),
+             ("smollm_float32", 8, 1024, 9, 3, 64, "float32", 0, True),
+             ("hubert", 8, 1000, 16, 16, 80, "bfloat16", 0, False),
+             ("hubert_float32", 8, 1000, 16, 16, 80, "float32", 0, False),
+             ("main_hd128", 4, 1024, 16, 16, 128, "bfloat16", 0, True),
+             ("main_hd128_float32", 4, 1024, 16, 16, 128, "float32", 0, True),
+             ("window_hd64", 1, 1000, 9, 3, 64, "bfloat16", 100, True)]
+
+
+def _bwd_case(torch, FA, g, card, name, B, S, H, KV, hd, dtype, window,
+              causal):
+    """The backward kernel against ``flash_attention_bwd_plain`` on the
+    same q, k, v, out (the forward kernel's) and dO: max abs error of dq,
+    dk, dv and their share of each result's largest value, two launches
+    compared bit for bit; times by CUDA events (order plain, kernel,
+    kernel, plain, library: ``scaled_dot_product_attention``'s backward on
+    the same tensors, timed only) and the kernel's device time from CUDA
+    graphs; the bound is the largest of the inputs and outputs over the
+    memory rate, the backward's five products over the kept pairs (s
+    recomputed, dp, dv, dk, dq; 2 hd flops each) at the bf16 tensor cores'
+    rate (float32 at 3xTF32's, as the forward's bound), and one
+    exponential a kept pair."""
+    import torch.nn.functional as F
+
+    q, k, v, do = (torch.randn((B, S, h, hd), generator=g, device=card,
+                               dtype=torch.float32).to(dtype)
+                   for h in (H, KV, KV, H))
+    kw = dict(causal=causal, sliding_window=window)
+    out = FA.flash_attention(q, k, v, **kw)
+    got = FA.flash_attention_bwd(q, k, v, out, do, **kw)
+    again = FA.flash_attention_bwd(q, k, v, out, do, **kw)
+    want = FA.flash_attention_bwd_plain(q, k, v, out, do, **kw)
+    torch.cuda.synchronize()
+    nums = {}
+    tol = BWD_TOL[str(dtype).split(".")[-1]]
+    for part, a, b, c in zip(("dq", "dk", "dv"), got, want, again):
+        err = float((a.float() - b.float()).abs().max())
+        rel = err / max(float(b.float().abs().max()), 1e-30)
+        nums[f"max_abs_err_{part}"] = err
+        nums[f"rel_err_{part}"] = rel
+        if rel > tol:
+            raise AssertionError(f"flash bwd {name} {part}: {rel} of the "
+                                 f"largest value, past {tol}")
+        if not torch.equal(a, c):
+            raise AssertionError(f"flash bwd {name} {part}: two launches "
+                                 "differ")
+    del got, again, want
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    i = torch.arange(S, device=card)
+    keep = ((i[:, None] >= i[None, :]) | (not causal)) & (
+        i[None, :] > i[:, None] - window - 1 if window else True)
+    sdpa = dict(is_causal=causal) if not window else dict(attn_mask=keep)
+    lib_out = F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=KV != H,
+                                             **sdpa)
+    dot = do.transpose(1, 2)
+    fns = [
+        ("plain", lambda: FA.flash_attention_bwd_plain(q, k, v, out, do,
+                                                       **kw)),
+        ("kernel", lambda: FA.flash_attention_bwd(q, k, v, out, do, **kw)),
+        ("kernel2", lambda: FA.flash_attention_bwd(q, k, v, out, do, **kw)),
+        ("plain2", lambda: FA.flash_attention_bwd_plain(q, k, v, out, do,
+                                                        **kw)),
+        ("library", lambda: torch.autograd.grad(
+            lib_out, (qt, kt, vt), dot, retain_graph=True))]
+    ms = {n: cuda_ms(fn, iters=10 if n.startswith("plain") else 30,
+                     warmup=2) for n, fn in fns}
+    device_ms = graph_ms(torch, fns[1][1], calls=3, replays=5)
+    pairs = int(keep.sum())
+    # q, out, dO, k, v read; dq, dk, dv written
+    nbytes = q.element_size() * 4 * (q.numel() + k.numel())
+    nops = 5 * 2 * hd * B * H * pairs
+    f32 = dtype == torch.float32
+    terms = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "products": nops / (F32_3XTF32_OPS_PER_S if f32
+                                 else BF16_OPS_PER_S) * 1e3,
+             "exponentials": B * H * pairs / ex2_per_s(torch) * 1e3}
+    term = max(terms, key=terms.get)
+    return dict(
+        shape=f"B{B} S{S} H{H}/{KV} hd{hd} {dtype} window{window}"
+              + ("" if causal else " non-causal"),
+        **nums, bytes=nbytes, flops=nops, bound_ms=terms[term],
+        bound_by="bytes" if term == "bytes" else "operations",
+        bound_term=term, bound_terms_ms=json.dumps(terms),
+        cuda_core_bound_ms=max(terms["bytes"], nops / FP32_OPS_PER_S * 1e3),
+        ms=min(ms["kernel"], ms["kernel2"]), device_ms=device_ms,
+        plain_ms=min(ms["plain"], ms["plain2"]), library_ms=ms["library"],
+        runs=json.dumps(ms))
+
+
+def phase_flash_bwd_kernel(torch, FA, card):
+    """The backward kernel (``csrc/flash_attention_bwd.cu``) against its
+    plain version at smollm-135m's train shape, hubert-xlarge's
+    (non-causal, hd 80) and ``main_hd128``, each in bf16 and float32, and
+    a windowed case at hd 64: errors, determinism, times, bounds."""
+    g = torch.Generator(device=card).manual_seed(7)
+    out = {}
+    for name, B, S, H, KV, hd, dt, window, causal in BWD_CASES:
+        out[name] = _bwd_case(torch, FA, g, card, name, B, S, H, KV, hd,
+                              getattr(torch, dt), window, causal)
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+TRAIN_STEPS = 20
+TRAIN_B, TRAIN_S, TRAIN_ACCUM = 8, 1024, 2
+# the float32 copy's gradients, each leaf's max abs error over its largest
+# magnitude.  The backward kernel against the plain backward on the same
+# forward values (the plain forward's, or the 3xTF32 kernel's) holds 1e-4:
+# float32 sums in another order.  The whole kernel path against the plain
+# path differs by more: the 3xTF32 forward rounds its outputs at ~2^-21,
+# and the wq / wk gradients of a trained model amplify that ~100-1,000
+# times (3.8e-4 and 1.1e-3 in two runs, 7e-5 at the init; the same with
+# the plain backward on the kernel forward), so that comparison is held
+# to 1e-2, a bound on gross faults, not on rounding.
+TRAIN_GRAD_TOL = 1e-4
+TRAIN_PATH_TOL = 1e-2
+
+
+def phase_train_smollm(torch, card, FA):
+    """smollm-135m at full size (30 layers, d 576, vocab 49,152, random
+    weights seeded 0) trained by the launcher's ``train_loop`` for 20
+    steps on ``SyntheticLM(seq 1,024, global batch 8, seed 0)``: remat,
+    accum 2, int8 compression, lr 6e-4 with the launcher's warmup; both
+    flash counts set to 0 before and read after (2 forward launches a
+    layer a microbatch under remat, one backward call's 3 launches a layer
+    a microbatch); the loss must fall (mean of the last five steps below
+    the first five's) and stay finite; step ms, tokens/s, peak memory,
+    one more step profiled; then, on one batch, a float32 copy of the
+    model's gradients through the kernels against the plain path's, and
+    through each kernel alone (the other direction plain)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticLM
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models import model as TM
+    from repro_torch.train.train_step import batch_to_device
+
+    cfg = get_config("smollm-135m")
+    held_before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    FA.launches, FA.bwd_launches = 0, 0
+    sm90 = FA.kernel_launches[FA.SM90[0]]
+    history = []
+    t0 = time.perf_counter()
+    model, opt, losses = train_loop(
+        cfg, steps=TRAIN_STEPS, global_batch=TRAIN_B, seq_len=TRAIN_S,
+        accum=TRAIN_ACCUM, compress=True, lr=6e-4, seed=0, device=card,
+        history=history, log_every=5)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fwd, bwd = FA.launches, FA.bwd_launches
+    sm90 = FA.kernel_launches[FA.SM90[0]] - sm90
+    per_step = cfg.num_layers * TRAIN_ACCUM
+    want_fwd = per_step * 2 * TRAIN_STEPS
+    want_bwd = per_step * FA.BWD_LAUNCHES_PER_CALL * TRAIN_STEPS
+    if (fwd, bwd, sm90) != (want_fwd, want_bwd, want_fwd):
+        raise AssertionError(f"train launches: forward {fwd} (wgmma "
+                             f"{sm90}), backward {bwd}; expected "
+                             f"{want_fwd}, {want_bwd}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"a train loss is not finite: {losses}")
+    first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    if not last < first:
+        raise AssertionError(f"loss did not fall: {first} -> {last}")
+    step_ms = sorted(h["ms"] for h in history[1:])
+    median = step_ms[len(step_ms) // 2]
+    nums = dict(
+        params=sum(p.numel() for p in model.parameters()),
+        layers=cfg.num_layers, steps=TRAIN_STEPS,
+        batch=json.dumps([TRAIN_B, TRAIN_S]), accum=TRAIN_ACCUM,
+        wall_s=wall, first_step_ms=history[0]["ms"],
+        median_step_ms=median, min_step_ms=step_ms[0],
+        tokens_per_s=TRAIN_B * TRAIN_S / (median * 1e-3),
+        loss_first5=first, loss_last5=last,
+        losses=json.dumps([round(x, 4) for x in losses]),
+        grad_norms=json.dumps([round(h["grad_norm"], 4) for h in history]),
+        max_memory_allocated=torch.cuda.max_memory_allocated(),
+        held_by_earlier_phases=held_before,
+        flash_attention_launches=fwd, flash_bwd_launches=bwd)
+    say("train_smollm", **nums)
+
+    # one more step under the profiler
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import make_train_step
+
+    step_fn = make_train_step(model, AdamWConfig(lr=6e-4), accum=TRAIN_ACCUM,
+                              remat=True, compress=True,
+                              schedule_kwargs={"warmup": 10,
+                                               "total": TRAIN_STEPS})
+    ds = SyntheticLM(cfg.vocab_size, TRAIN_S, TRAIN_B, seed=0)
+    batch = ds.batch(TRAIN_STEPS)
+    state = {"opt": opt}
+
+    def one_step():
+        state["opt"], _ = step_fn(state["opt"], batch)
+
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        one_step()
+        torch.cuda.synchronize()
+        prof_s = time.perf_counter() - t0
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_us = sum(e.self_device_time_total for e in rows)
+    bwd_us = sum(e.self_device_time_total for e in rows
+                 if "bwd_" in e.key)
+    fwd_us = sum(e.self_device_time_total for e in rows
+                 if "flash_sm90" in e.key)
+    top = sorted(rows, key=lambda e: -e.self_device_time_total)[:8]
+    prof_nums = dict(
+        profiled_step_ms=prof_s * 1e3, device_us=device_us,
+        device_busy_share=device_us * 1e-6 / prof_s,
+        kernels=sum(e.count for e in rows),
+        flash_bwd_device_share=bwd_us / device_us if device_us else 0.0,
+        flash_fwd_device_share=fwd_us / device_us if device_us else 0.0,
+        top=json.dumps([[e.key[:48], e.self_device_time_total, e.count]
+                        for e in top]))
+    nums.update(prof_nums)
+    say("train_smollm", part="profile", **prof_nums)
+    del opt, state, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # a float32 copy, on one batch: the kernel path's gradients against the
+    # plain path's, and each kernel alone under the other's plain version
+    wide = widened(torch, model, cfg, card)
+    del model
+    wide.requires_grad_(True)
+    params = list(wide.parameters())
+    names = [n for n, _ in wide.named_parameters()]
+    tb = batch_to_device(batch, card)
+    real = FA.FlashAttention
+
+    class Mixed(torch.autograd.Function):
+        """One direction through its kernel, the other through the plain
+        version: ``fwd_kernel`` says which."""
+        fwd_kernel = True
+
+        @staticmethod
+        def forward(ctx, q, k, v, causal, window):
+            fn = FA.flash_attention if Mixed.fwd_kernel else \
+                FA.flash_attention_plain
+            out = fn(q, k, v, causal=causal,
+                     sliding_window=window).contiguous()
+            ctx.save_for_backward(q, k, v, out)
+            ctx.mask = (causal, window)
+            return out
+
+        @staticmethod
+        def backward(ctx, do):
+            fn = FA.flash_attention_bwd_plain if Mixed.fwd_kernel else \
+                FA.flash_attention_bwd
+            return (*fn(*ctx.saved_tensors, do.contiguous(),
+                        causal=ctx.mask[0], sliding_window=ctx.mask[1]),
+                    None, None)
+
+    def grads_of(how):
+        wide.cfg = dataclasses.replace(wide.cfg, use_kernels=how != "plain")
+        Mixed.fwd_kernel = how == "fwd_kernel"
+        FA.FlashAttention = Mixed if how.endswith("kernel") else real
+        try:
+            loss, _ = TM.train_loss(wide, tb, remat=True)
+            return float(loss.detach()), torch.autograd.grad(loss, params)
+        finally:
+            FA.FlashAttention = real
+
+    def worst(a_grads, b_grads):
+        out = (0.0, None)
+        for n, a, b in zip(names, a_grads, b_grads):
+            rel = float((a - b).abs().max()) / max(float(b.abs().max()),
+                                                   1e-30)
+            if rel >= out[0]:
+                out = (rel, n)
+        return out
+
+    FA.kernel_launches[FA.F32[0]], FA.bwd_launches = 0, 0
+    loss_k, g_kernel = grads_of("kernels")
+    f32_fwd, f32_bwd = FA.kernel_launches[FA.F32[0]], FA.bwd_launches
+    loss_p, g_plain = grads_of("plain")
+    _, g_fwd_kernel = grads_of("fwd_kernel")    # 3xTF32 forward only
+    _, g_bwd_kernel = grads_of("bwd_kernel")    # backward kernel only
+    path, path_leaf = worst(g_kernel, g_plain)
+    bwd_alone, bwd_leaf = worst(g_bwd_kernel, g_plain)
+    bwd_on_kernel_fwd, bwd_fwd_leaf = worst(g_kernel, g_fwd_kernel)
+    fwd_alone, _ = worst(g_fwd_kernel, g_plain)
+    cons = dict(float32_loss_kernel=loss_k, float32_loss_plain=loss_p,
+                float32_grad_worst_rel_err=path,
+                float32_grad_worst_leaf=path_leaf,
+                bwd_kernel_alone_worst_rel_err=bwd_alone,
+                bwd_kernel_alone_worst_leaf=bwd_leaf,
+                bwd_kernel_on_kernel_forward_worst_rel_err=bwd_on_kernel_fwd,
+                bwd_kernel_on_kernel_forward_worst_leaf=bwd_fwd_leaf,
+                fwd_kernel_alone_worst_rel_err=fwd_alone,
+                float32_flash_launches=f32_fwd,
+                float32_flash_bwd_launches=f32_bwd)
+    say("train_smollm", part="float32_grads", **cons)
+    # the backward kernel against the plain backward, on the plain
+    # forward's values and on the kernel forward's, every leaf of the
+    # model within TRAIN_GRAD_TOL of its largest value
+    for what, err, leaf in (("alone", bwd_alone, bwd_leaf),
+                            ("on the kernel forward", bwd_on_kernel_fwd,
+                             bwd_fwd_leaf)):
+        if not err <= TRAIN_GRAD_TOL:
+            raise AssertionError(f"float32 gradients, backward kernel "
+                                 f"{what}: {err} at {leaf}, past "
+                                 f"{TRAIN_GRAD_TOL}")
+    if not path <= TRAIN_PATH_TOL:
+        raise AssertionError(f"float32 gradients, kernel path vs plain: "
+                             f"{path} at {path_leaf}, past "
+                             f"{TRAIN_PATH_TOL}")
+    if (f32_fwd, f32_bwd) != (2 * cfg.num_layers,
+                              FA.BWD_LAUNCHES_PER_CALL * cfg.num_layers):
+        raise AssertionError(f"float32 copy launches {f32_fwd}, {f32_bwd}")
+    nums.update(cons)
+    del wide, params, g_kernel, g_plain, g_fwd_kernel, g_bwd_kernel
+    gc.collect()
+    torch.cuda.empty_cache()
+    return nums
+
+
+# --------------------------------------------------------------------------
 # the paper's remaining pieces and the reactive control plane
 # --------------------------------------------------------------------------
 
@@ -2874,7 +3233,8 @@ def main() -> int:
         try:
             libs = build.build(["runqlat_hist", "rollout_tick",
                                 "flash_attention", "flash_attention_sm90",
-                                "flash_attention_f32_sm90", "ssd", "ssd_sm90",
+                                "flash_attention_f32_sm90",
+                                "flash_attention_bwd", "ssd", "ssd_sm90",
                                 "wkv"])
         finally:
             earlier.join()
@@ -2885,6 +3245,12 @@ def main() -> int:
     for name in ("runqlat_hist", "rollout_tick", "ssd_sm90", "wkv"):
         say("build", kernel=name, ptxas=json.dumps(
             ptxas_summary(build.build_logs.get(name, ""))))
+    bwd_ptxas = ptxas_summary(build.build_logs.get("flash_attention_bwd", ""))
+    say("build", kernel="flash_attention_bwd", entries=len(bwd_ptxas),
+        max_registers=max((v.get("registers", 0)
+                           for v in bwd_ptxas.values()), default=0),
+        spill_stores=sum(v.get("spill_stores", 0)
+                         for v in bwd_ptxas.values()))
     for lib, fn in (("flash_attention_sm90", "flash_sm90_kernel"),
                     ("flash_attention_f32_sm90", "flash_f32_kernel")):
         flash_log = build.build_logs.get(lib, "")
@@ -3005,7 +3371,24 @@ def main() -> int:
     widths["hubert_noncausal"] = enc_cases["hubert_noncausal_bfloat16"]
     widths["hubert_noncausal_float32"] = enc_cases["hubert_noncausal_float32"]
 
-    # 33-34. the metric-pipeline bench and the colocation demo on the card
+    # 33-34. training: the backward flash kernel, then smollm-135m at full
+    # size through the launcher's loop
+    hold_little("flash_bwd_kernel")
+    with timers.phase("flash_bwd_kernel"):
+        bwdk = phase_flash_bwd_kernel(torch, FA, card)
+    for name, nums in bwdk.items():
+        say("flash_bwd_kernel", case=name, **nums)
+    done("flash_bwd_kernel")
+    hold_little("train_smollm")
+    with timers.phase("train_smollm"):
+        train = phase_train_smollm(torch, card, FA)
+    done("train_smollm")
+    flash_paths["train_smollm"] = train["flash_attention_launches"]
+    f32_paths["train_smollm"] = train["float32_flash_launches"]
+    bwd_paths = {"train_smollm": train["flash_bwd_launches"],
+                 "train_smollm_float32": train["float32_flash_bwd_launches"]}
+
+    # 35-36. the metric-pipeline bench and the colocation demo on the card
     with timers.phase("metric_pipeline"):
         mp = phase_metric_pipeline(torch, K, card)
     done("metric_pipeline", **mp)
@@ -3053,6 +3436,21 @@ def main() -> int:
         "bound_ms": flash["main"]["bound_ms"],
         "bound_by": flash["main"]["bound_by"],
         "library_ms": flash["main"]["library_ms"]}, {
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/models/attention.py:181",
+        "launches": sum(bwd_paths.values()),
+        "launches_by_path": bwd_paths,
+        "max_abs_err": max(c[f"max_abs_err_{p}"] for c in bwdk.values()
+                           for p in ("dq", "dk", "dv")),
+        "cases": {k: {f: c[f] for f in (
+            "ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by", "bound_term", "cuda_core_bound_ms")}
+            for k, c in bwdk.items()},
+        "ms": bwdk["smollm"]["ms"], "plain_ms": bwdk["smollm"]["plain_ms"],
+        "bound_ms": bwdk["smollm"]["bound_ms"],
+        "bound_by": bwdk["smollm"]["bound_by"],
+        "library_ms": bwdk["smollm"]["library_ms"]}, {
         "name": "flash_attention_f32", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_f32_sm90.cu",
         "replaces": "src/repro/kernels/flash_attention.py:81",

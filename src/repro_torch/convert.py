@@ -1,5 +1,6 @@
-"""Carry state, fitted predictors, detectors, forecast fits, views and model
-weights from the JAX package into the port.
+"""Carry state, fitted predictors, detectors, forecast fits, views, model
+weights and the optimizer's state from the JAX package into the port, and
+parameters, gradients and the optimizer's state back into JAX's layout.
 
 Each function reads only attributes and numpy-convertible arrays of the
 object it is given, so this module imports nothing of ``repro`` or
@@ -226,3 +227,84 @@ def model_params_from_numpy(cfg, tree, *, device) -> Model:
            if k in ("embed", "lm_head", "final_norm")}
     _fill(model, top, "model")
     return model
+
+
+def _jax_path(cfg, name: str) -> tuple:
+    """The place of the port's parameter ``name`` in JAX's tree:
+    ("groups", i, key, r) for layer r * len(pattern) + i, ("tail", j, key),
+    ("shared", key) or (top-level key,)."""
+    parts = name.split(".")
+    if parts[0] == "layers":
+        idx, key = int(parts[1]), parts[2]
+        n = len(cfg.pattern)
+        if idx < cfg.repeats * n:
+            r, i = divmod(idx, n)
+            return ("groups", i, key, r)
+        return ("tail", idx - cfg.repeats * n, key)
+    if parts[0] == "shared":
+        return ("shared", parts[1])
+    return (parts[0],)
+
+
+def params_to_numpy(cfg, named) -> dict:
+    """The port's parameters, or any name -> tensor dict over them (the
+    gradients, the optimizer's ``master``, ``m`` or ``v``), as JAX's
+    ``init_params`` tree of float32 numpy arrays: pattern position i's
+    leaves stacked over ``repeats`` in ``groups[i]``, then ``tail``,
+    ``shared``, ``embed``, ``final_norm``, ``lm_head``.  The inverse of
+    ``model_params_from_numpy``'s map."""
+    if isinstance(named, torch.nn.Module):
+        named = dict(named.named_parameters())
+    tree: dict = {"groups": [{} for _ in cfg.pattern],
+                  "tail": [{} for _ in cfg.tail]}
+    stacks: dict = {}
+    for name, t in named.items():
+        a = t.detach().float().cpu().numpy()
+        path = _jax_path(cfg, name)
+        if path[0] == "groups":
+            _, i, key, r = path
+            stacks.setdefault((i, key), [None] * cfg.repeats)[r] = a
+        elif path[0] == "tail":
+            tree["tail"][path[1]][path[2]] = a
+        elif path[0] == "shared":
+            tree.setdefault("shared", {})[path[1]] = a
+        else:
+            tree[path[0]] = a
+    for (i, key), rows in stacks.items():
+        tree["groups"][i][key] = np.stack(rows)
+    return tree
+
+
+def _leaf(tree, path) -> np.ndarray:
+    """The array at ``_jax_path``'s ``path`` of a JAX parameter tree."""
+    if path[0] == "groups":
+        _, i, key, r = path
+        return np.asarray(tree["groups"][i][key])[r]
+    node = tree
+    for p in path:
+        node = node[p]
+    return np.asarray(node)
+
+
+def opt_state_from_numpy(cfg, opt: dict, *, device) -> dict:
+    """JAX's AdamW state (``master``, ``m``, ``v`` trees, an int32
+    ``step``, and ``comp_err`` with compression) -> the port's: float32
+    tensors keyed by the port's parameter names, in the model's order, and
+    ``step`` as an int."""
+    names = [n for n, _ in Model(cfg, device="meta").named_parameters()]
+    out = {}
+    for key in ("master", "m", "v", "comp_err"):
+        if key in opt:
+            out[key] = {n: _tensor(_leaf(opt[key], _jax_path(cfg, n)),
+                                   torch.float32, device) for n in names}
+    out["step"] = int(np.asarray(opt["step"]))
+    return out
+
+
+def opt_state_to_numpy(cfg, opt: dict) -> dict:
+    """The port's AdamW state -> JAX's layout (float32 numpy trees, an
+    int32 ``step``)."""
+    out = {k: params_to_numpy(cfg, opt[k])
+           for k in ("master", "m", "v", "comp_err") if k in opt}
+    out["step"] = np.int32(opt["step"])
+    return out

@@ -1,0 +1,108 @@
+"""Deterministic synthetic token pipeline: sharded, prefetching.
+
+Port of ``repro.data.pipeline``, which is numpy only: the same draws in
+the same order, so a batch equals JAX's bit for bit (tokens, labels,
+``embeds``, ``positions``, ``mask``).  Batches stay numpy arrays; the
+train step moves them to the model's device.
+
+Each host materializes only its shard of the global batch (shard = slice
+along batch dim by process index), so the pipeline scales to any host
+count.  Tokens follow a Zipf-ish distribution with local n-gram structure
+(repeated spans) so losses are non-trivial.  A background thread keeps a
+prefetch queue full.
+"""
+from __future__ import annotations
+
+import queue
+import threading
+
+import numpy as np
+
+
+class SyntheticLM:
+    def __init__(
+        self,
+        vocab_size: int,
+        seq_len: int,
+        global_batch: int,
+        seed: int = 0,
+        num_hosts: int = 1,
+        host_id: int = 0,
+        embed_dim: int = 0,      # >0: emit embeddings (stub frontends)
+        mrope: bool = False,
+    ):
+        assert global_batch % num_hosts == 0
+        self.vocab = vocab_size
+        self.seq = seq_len
+        self.local_batch = global_batch // num_hosts
+        self.seed = seed
+        self.host_id = host_id
+        self.embed_dim = embed_dim
+        self.mrope = mrope
+        # Zipf weights over vocab
+        ranks = np.arange(1, vocab_size + 1)
+        w = 1.0 / ranks**1.1
+        self.probs = w / w.sum()
+
+    def batch(self, step: int) -> dict:
+        rng = np.random.default_rng(
+            np.random.SeedSequence([self.seed, step, self.host_id])
+        )
+        B, S = self.local_batch, self.seq
+        toks = rng.choice(self.vocab, size=(B, S), p=self.probs).astype(np.int32)
+        # inject span repeats for learnable structure
+        for b in range(B):
+            n_rep = rng.integers(1, 4)
+            for _ in range(n_rep):
+                ln = int(rng.integers(4, min(32, S // 2)))
+                src = int(rng.integers(0, S - 2 * ln))
+                dst = int(rng.integers(src + ln, S - ln))
+                toks[b, dst : dst + ln] = toks[b, src : src + ln]
+        labels = np.concatenate([toks[:, 1:], toks[:, :1]], axis=1)
+        out = {"labels": labels, "mask": np.ones((B, S), np.float32)}
+        if self.embed_dim:
+            emb_rng = np.random.default_rng(
+                np.random.SeedSequence([self.seed + 7, step, self.host_id])
+            )
+            out["embeds"] = emb_rng.normal(0, 1, (B, S, self.embed_dim)).astype(
+                np.float32
+            )
+            if self.mrope:
+                pos = np.broadcast_to(np.arange(S, dtype=np.int32), (B, S))
+                out["positions"] = np.stack([pos, pos, pos])
+        else:
+            out["tokens"] = toks
+        return out
+
+
+class Prefetcher:
+    """Background-thread prefetch of dataset batches."""
+
+    def __init__(self, dataset, start_step: int = 0, depth: int = 2):
+        self.dataset = dataset
+        self.q: queue.Queue = queue.Queue(maxsize=depth)
+        self.step = start_step
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._fill, daemon=True)
+        self._thread.start()
+
+    def _fill(self):
+        s = self.step
+        while not self._stop.is_set():
+            try:
+                self.q.put(self.dataset.batch(s), timeout=0.2)
+                s += 1
+            except queue.Full:
+                continue
+
+    def next(self) -> dict:
+        return self.q.get()
+
+    def close(self):
+        self._stop.set()
+        try:
+            while True:
+                self.q.get_nowait()
+        except queue.Empty:
+            pass
+        self._thread.join(timeout=2)

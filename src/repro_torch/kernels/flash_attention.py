@@ -33,6 +33,16 @@ and the TPU kernel's masks).  For CUDA tensors it launches the routed
 kernel or raises: there is no fallback.
 ``launches`` counts kernel launches of either kernel and nothing else,
 ``kernel_launches`` the same launches by kernel.
+
+The backward (training) is ``flash_attention_bwd``: dq, dk and dv of the
+same function, JAX's ``repro/models/attention.py::_flash_bwd`` formulas
+(the custom-VJP backward of ``flash_mha``; no Pallas kernel).  On CUDA
+tensors it launches ``csrc/flash_attention_bwd.cu`` (three kernels, no
+atomics; ``bwd_launches`` counts each launch), on CPU tensors it takes
+``flash_attention_bwd_plain``, those formulas in float32 written out.
+``FlashAttention`` is the ``torch.autograd.Function`` that joins the two:
+its forward is ``flash_attention``, its backward ``flash_attention_bwd``,
+so a CUDA tensor is differentiated by the kernels or not at all.
 """
 from __future__ import annotations
 
@@ -50,6 +60,19 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}   # the SIMT entry's codes
 launches = 0
 
 
+def _keep(S: int, causal: bool, sliding_window: int, device) -> torch.Tensor:
+    """(S, S) bool, True where query i attends key j: j <= i if causal,
+    j > i - window - 1 with a window."""
+    qi = torch.arange(S, device=device)[:, None]
+    ki = torch.arange(S, device=device)[None, :]
+    mask = torch.ones((S, S), dtype=torch.bool, device=device)
+    if causal:
+        mask &= qi >= ki
+    if sliding_window > 0:
+        mask &= ki > qi - sliding_window - 1
+    return mask
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True,
                           sliding_window: int = 0) -> torch.Tensor:
@@ -59,14 +82,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     kf = k.float().repeat_interleave(G, dim=2)
     vf = v.float().repeat_interleave(G, dim=2)
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) * (1.0 / math.sqrt(hd))
-    qi = torch.arange(S, device=q.device)[:, None]
-    ki = torch.arange(S, device=q.device)[None, :]
-    mask = torch.ones((S, S), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= qi >= ki
-    if sliding_window > 0:
-        mask &= ki > qi - sliding_window - 1
-    s = torch.where(mask, s, NEG_INF)
+    s = torch.where(_keep(S, causal, sliding_window, q.device), s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", p, vf).to(q.dtype)
 
@@ -160,3 +176,128 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     return _launch(q, k, v, causal, sliding_window)
+
+
+# ------------------------------------------------------------- backward --
+
+BWD = ("flash_attention_bwd", "flash_attention_bwd_launch")
+BWD_LAUNCHES_PER_CALL = 3      # the rows pre-pass, dk / dv, dq
+bwd_launches = 0
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, out: torch.Tensor,
+                              dout: torch.Tensor, *, causal: bool = True,
+                              sliding_window: int = 0):
+    """JAX's ``_flash_bwd`` in float32 with GQA: q, out, dout (B, S, H,
+    hd), k, v (B, S, KV, hd) -> (dq, dk, dv) in the inputs' types.
+
+    p = exp(s - m) / max(l, 1e-30) over the kept scores (masked ones
+    -1e30, as the forward), D = rowsum(dout out), ds = p (dout v^T - D),
+    dq = ds k / sqrt(hd), dk = ds^T q / sqrt(hd), dv = p^T dout; dk and dv
+    summed over the H / KV query heads of each KV head."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    scale = 1.0 / math.sqrt(hd)
+    qf, of, dof = q.float(), out.float(), dout.float()
+    kf = k.float().repeat_interleave(G, dim=2)
+    vf = v.float().repeat_interleave(G, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    s = torch.where(_keep(S, causal, sliding_window, q.device), s, NEG_INF)
+    m = s.amax(-1, keepdim=True)
+    e = torch.exp(s - m)
+    p = e / e.sum(-1, keepdim=True).clamp_min(1e-30)
+    D = (dof * of).sum(-1).transpose(1, 2)[..., None]       # (B, H, S, 1)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, dof)
+    dp = torch.einsum("bqhd,bkhd->bhqk", dof, vf)
+    ds = p * (dp - D)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
+    dk = dk.reshape(B, S, KV, G, hd).sum(3)
+    dv = dv.reshape(B, S, KV, G, hd).sum(3)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _launch_bwd(q, k, v, out, dout, causal: bool, sliding_window: int):
+    global bwd_launches
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"flash_attention_bwd kernel takes hd in "
+                         f"{HEAD_DIMS}, got {hd} (ROADMAP Queue A item 3: "
+                         f"the backward at other widths)")
+    for name, t in (("q", q), ("k", k), ("v", v), ("out", out),
+                    ("dout", dout)):
+        if not t.is_contiguous():
+            raise ValueError(f"flash_attention_bwd: {name} must be "
+                             "contiguous")
+    if max(q.numel(), k.numel()) >= 2**31:
+        raise ValueError("flash_attention_bwd: too large for 32-bit "
+                         "indexing")
+    lib, name = BWD
+    fn = getattr(build.load(lib), name)
+    if fn.argtypes is None:  # pointers and the stream as c_void_p
+        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    if q.numel() == 0:
+        return dq, dk, dv
+    ws = torch.empty(3 * B * H * S, dtype=torch.float32, device=q.device)
+    dev, stream = build.device_and_stream(q)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             dout.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+             ws.data_ptr(), B, S, H, KV, hd, int(causal), sliding_window,
+             _DTYPES[q.dtype], dev, stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd launch failed: CUDA error "
+                           f"{err}")
+    bwd_launches += BWD_LAUNCHES_PER_CALL
+    return dq, dk, dv
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, dout: torch.Tensor, *,
+                        causal: bool = True, sliding_window: int = 0):
+    """dq, dk, dv of ``flash_attention(q, k, v)`` whose output is ``out``,
+    for the output gradient ``dout`` (both shaped and typed as q)."""
+    _check(q, k, v, sliding_window)
+    for name, t in (("out", out), ("dout", dout)):
+        if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
+            raise ValueError(f"flash_attention_bwd: {name} "
+                             f"{tuple(t.shape)} {t.dtype} on {t.device} "
+                             f"does not match q {tuple(q.shape)} {q.dtype} "
+                             f"on {q.device}")
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, out, dout, causal=causal,
+                                         sliding_window=sliding_window)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_bwd: unsupported device "
+                         f"{q.device}")
+    return _launch_bwd(q, k, v, out, dout, causal, sliding_window)
+
+
+class FlashAttention(torch.autograd.Function):
+    """``flash_attention`` with its gradient: the forward wrapper, then
+    ``flash_attention_bwd`` on the saved q, k, v and output (JAX's
+    ``flash_mha`` custom VJP).  On CUDA tensors both directions launch
+    kernels or raise."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, sliding_window: int):
+        out = flash_attention(q, k, v, causal=causal,
+                              sliding_window=sliding_window)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.causal, ctx.sliding_window = causal, sliding_window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(
+            q, k, v, out, dout.contiguous(), causal=ctx.causal,
+            sliding_window=ctx.sliding_window)
+        return dq, dk, dv, None, None

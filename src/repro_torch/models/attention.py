@@ -3,7 +3,8 @@ kernel, and single-token decode attention over the KV cache.
 
 Port of ``repro.models.attention``.  JAX's ``attention()``
 runs its pure-jnp ``flash_mha`` (or ``_sliding_window`` past the window);
-the port routes the same call to the ``flash_attention`` wrapper, which
+the port routes the same call to the ``flash_attention`` wrapper (to
+``FlashAttention`` when grad is on, with the backward kernel), which
 computes the same function: the Hopper kernel on CUDA tensors, its plain
 version on the CPU.  The layout stays JAX's (B, S, H, hd) and GQA keeps
 JAX's head order (query head h reads KV head h // (H // KV)).
@@ -64,10 +65,13 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, sliding_window: int = 0,
               use_kernel: bool = True) -> torch.Tensor:
-    """Multi-head attention over full sequences (prefill).
+    """Multi-head attention over full sequences (train and prefill).
 
     q: (B, S, H, hd); k, v: (B, S, KV, hd) with H % KV == 0.  On a CUDA
-    tensor ``use_kernel=False`` takes the kernel's plain version.
+    tensor ``use_kernel=False`` takes the kernel's plain version (under
+    autograd in training).  With grad enabled the kernel path is
+    ``FlashAttention``, whose backward is the backward kernel (the plain
+    formulas on the CPU), as JAX's ``flash_mha`` carries its custom VJP.
 
     Routed as JAX's ``attention()``: a window that binds (``sliding_window
     > 0`` and S past it) takes JAX's ``_sliding_window`` path, which is
@@ -78,8 +82,13 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         causal = True
     else:
         sliding_window = 0
-    fn = FA.flash_attention if use_kernel else FA.flash_attention_plain
-    return fn(q, k, v, causal=causal, sliding_window=sliding_window)
+    if not use_kernel:
+        return FA.flash_attention_plain(q, k, v, causal=causal,
+                                        sliding_window=sliding_window)
+    if torch.is_grad_enabled():
+        return FA.FlashAttention.apply(q, k, v, causal, sliding_window)
+    return FA.flash_attention(q, k, v, causal=causal,
+                              sliding_window=sliding_window)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

@@ -45,6 +45,11 @@ TRAIN, PREFILL, DECODE = "train", "prefill", "decode"
 
 
 def new_param(shape, dtype, device) -> nn.Parameter:
+    """An uninitialised parameter, frozen: inference builds no autograd
+    graph.  Training switches every parameter on with
+    ``model.requires_grad_()`` (``train.init_train_state`` and
+    ``make_train_step`` do), and ``TRAIN`` mode then differentiates every
+    layer kind."""
     return nn.Parameter(torch.empty(shape, dtype=dtype, device=device),
                         requires_grad=False)
 

@@ -1,7 +1,7 @@
 """The model: the input (token embedding or given embeddings), the layers
 in the JAX scan's order, the logits.
 
-Port of ``repro.models.model`` for inference:
+Port of ``repro.models.model``:
 
   Model(cfg, device=...)            parameters allocated, not initialised
   model.init_params(generator)      the port's init (JAX's distributions)
@@ -9,6 +9,7 @@ Port of ``repro.models.model`` for inference:
   model(tokens)                     -> logits (B, T, V), the full forward
   model.prefill(tokens, max_seq)    -> (last logits (B, V), Cache)
   model.decode_step(token, cache)   -> (logits (B, V), cache)
+  train_loss(model, batch)          -> (loss, metrics), with autograd
   num_params(cfg)                   parameter count, nothing allocated
   active_params(cfg)                parameters a token touches (MoE: k of E)
 
@@ -27,8 +28,25 @@ continuation, as in JAX, which has no decode path for it.
 
 JAX scans the stacked ``groups`` and then applies the ``tail``; the port
 keeps one list in that order (layer ``r * len(pattern) + i``, then the
-tail).  ``train_loss`` and ``cross_entropy`` arrive with the training
-slice; JAX's sharding collapses to nothing on one card.
+tail).  JAX's sharding collapses to nothing on one card.
+
+Training (JAX's ``train_loss`` and ``cross_entropy``):
+
+  cross_entropy(logits, labels, mask)   token-mean CE, logsumexp in f32
+  train_loss(model, batch, remat=True)  -> (loss, {"loss", "tokens"})
+
+``train_loss`` runs the layers in ``TRAIN`` mode with autograd on; with
+``remat`` each layer of the repeated pattern runs under
+``torch.utils.checkpoint`` (non-reentrant), where JAX puts
+``jax.checkpoint`` on each step of its layer scan, so the backward
+recomputes the layer's forward (the flash kernel runs twice a layer).
+The parameters are frozen (``requires_grad`` False) as the model is
+built; ``model.requires_grad_()`` switches them on, as the train step
+does.  The encoder's masked-unit loss is the same function over the
+batch's ``mask``.  On a CUDA model only the attention families train: the
+``mamba`` / ``mamba_shared_attn`` and ``rwkv`` layers have no backward
+kernel yet (ROADMAP Queue A item 3), so ``train_loss`` refuses them there;
+on the CPU they train through their kernels' plain versions.
 """
 from __future__ import annotations
 
@@ -37,11 +55,22 @@ import dataclasses
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.models import blocks as Bk
 from repro_torch.models.blocks import DECODE, PREFILL, TRAIN
-from repro_torch.models.common import ModelConfig, init_dense, rms_norm
+from repro_torch.models.common import (
+    MAMBA,
+    MAMBA_SHARED_ATTN,
+    RWKV,
+    ModelConfig,
+    init_dense,
+    rms_norm,
+)
+
+# layer kinds whose kernels have no backward on the card yet
+NO_CARD_BACKWARD = (MAMBA, MAMBA_SHARED_ATTN, RWKV)
 
 
 @dataclasses.dataclass
@@ -171,6 +200,51 @@ class Model(nn.Module):
                       self._positions(x, cache.len))
         cache.len += 1
         return self._logits(x)[:, 0], cache
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: torch.Tensor) -> torch.Tensor:
+    """Token-mean cross entropy over ``mask`` (JAX's ``cross_entropy``):
+    logsumexp in float32, the gold logit gathered, the sum of the masked
+    losses over max(mask.sum(), 1)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = (lse - gold) * mask
+    return nll.sum() / torch.clamp(mask.sum(), min=1.0)
+
+
+def train_loss(model: Model, batch: dict, remat: bool = True):
+    """batch: ``tokens`` (B, T) or ``embeds`` (B, T, D), ``labels`` (B,
+    T), optional ``mask`` (B, T) and ``positions`` (M-RoPE), as tensors on
+    the model's device.  Next-token LM loss (causal) or masked-unit
+    prediction (the encoder, whose ``mask`` marks predicted frames).
+    Returns (loss, {"loss": detached loss, "tokens": mask.sum()})."""
+    cfg = model.cfg
+    if model.device.type == "cuda":
+        kinds = sorted({s.kind for s in cfg.layer_specs()}
+                       & set(NO_CARD_BACKWARD))
+        if kinds:
+            raise NotImplementedError(
+                f"{cfg.name}: training on the card needs backward kernels "
+                f"for {kinds} (ROADMAP Queue A item 3: the ssd and wkv "
+                f"backward kernels)")
+    x = model._embed_in(batch.get("tokens"), batch.get("embeds"))
+    pos = model._positions(x, 0, batch.get("positions"))
+    n_scanned = len(cfg.pattern) * cfg.repeats
+    for i, layer in enumerate(model.layers):
+        def run(h, layer=layer):
+            return layer(cfg, h, TRAIN, None, 0, pos, model.shared)[0]
+        x = (checkpoint(run, x, use_reentrant=False)
+             if remat and i < n_scanned else run(x))
+    logits = model._logits(x)
+    labels = batch["labels"]
+    mask = batch.get("mask")
+    if mask is None:
+        mask = torch.ones(labels.shape, dtype=torch.float32,
+                          device=labels.device)
+    loss = cross_entropy(logits, labels, mask)
+    return loss, {"loss": loss.detach(), "tokens": mask.sum()}
 
 
 def num_params(cfg: ModelConfig) -> int:

@@ -949,3 +949,184 @@ def test_latency_sweep_on_the_card(card):
         for n in ("128", "1000"):
             assert res[name][n]["selected"] == cpu[name][n]["selected"], (
                 name, n)
+
+
+# The backward kernel against its plain version.  Both sum the same
+# float32 products in another order (the plain version in full float32, TF32
+# off): float32 within 1e-4 of each result's largest value (dq, dk, dv are
+# sums over up to S keys or S G queries); bf16 results are the same float32
+# values rounded, so a bf16 ulp (2^-8) of the largest value at most.
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+
+
+def _bwd_inputs(B, S, H, KV, hd, dtype, device, causal, window, seed=0):
+    q, k, v = _qkv(B, S, H, KV, hd, dtype, device, seed=seed)
+    out = FA.flash_attention_plain(q, k, v, causal=causal,
+                                   sliding_window=window).contiguous()
+    g = torch.Generator().manual_seed(seed + 1)
+    dout = torch.randn((B, S, H, hd), generator=g).to(dtype).to(device)
+    return q, k, v, out, dout
+
+
+def _rel_err(got, want):
+    return float((got.float() - want.float()).abs().max() /
+                 want.float().abs().max().clamp_min(1e-30))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,KV", [(9, 3), (4, 4)])
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0),
+                                           (True, 100)])
+@pytest.mark.parametrize("S", [300, 77, 5])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [8, 16, 64, 80, 128, 256])
+def test_flash_bwd_kernel_equals_plain(card, exact_f32, hd, dtype, S, causal,
+                                       window, H, KV):
+    """dq, dk, dv of the backward kernel against ``flash_attention_bwd_plain``
+    at every width, both dtypes, GQA 3 and none, ragged S, causal,
+    non-causal and windowed: three launches a call, counted.  (At S 1 the
+    true dq and dk are 0, one key taking all the weight, and both versions
+    give rounding noise, so the shortest S is 5.)"""
+    q, k, v, out, dout = _bwd_inputs(1 + (S < 100), S, H, KV, hd, dtype,
+                                     card, causal, window, seed=S + hd)
+    before = FA.bwd_launches
+    got = FA.flash_attention_bwd(q, k, v, out, dout, causal=causal,
+                                 sliding_window=window)
+    torch.cuda.synchronize()
+    assert FA.bwd_launches == before + FA.BWD_LAUNCHES_PER_CALL
+    want = FA.flash_attention_bwd_plain(q, k, v, out, dout, causal=causal,
+                                        sliding_window=window)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == dtype and a.shape == b.shape, name
+        assert _rel_err(a, b) <= BWD_TOL[dtype], (name, _rel_err(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_kernel_is_deterministic(card, dtype):
+    """No atomics: two launches on the same inputs give the same bits."""
+    q, k, v, out, dout = _bwd_inputs(2, 1000, 9, 3, 64, dtype, card, True, 0)
+    a = FA.flash_attention_bwd(q, k, v, out, dout)
+    b = FA.flash_attention_bwd(q, k, v, out, dout)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_flash_bwd_refuses_other_widths(card):
+    q, k, v, out, dout = _bwd_inputs(1, 64, 2, 2, 32, torch.float32, card,
+                                     True, 0)
+    with pytest.raises(ValueError, match="ROADMAP"):
+        FA.flash_attention_bwd(q, k, v, out, dout)
+
+
+@pytest.mark.cuda
+def test_flash_bwd_raises_and_never_falls_back(card, monkeypatch):
+    """A library that cannot load raises; the plain version is never
+    taken for a CUDA tensor."""
+    def refuse(*a, **k):
+        raise AssertionError("plain version called for a CUDA tensor")
+
+    def no_lib(name, *a, **k):
+        raise RuntimeError(f"cannot load {name}")
+
+    q, k, v, out, dout = _bwd_inputs(1, 64, 2, 2, 64, torch.float32, card,
+                                     True, 0)
+    monkeypatch.setattr(FA, "flash_attention_bwd_plain", refuse)
+    monkeypatch.setattr(build, "load", no_lib)
+    with pytest.raises(RuntimeError, match="cannot load"):
+        FA.flash_attention_bwd(q, k, v, out, dout)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_autograd_function_on_the_card(card, exact_f32, dtype):
+    """``FlashAttention.apply``'s gradients (the forward and backward
+    kernels) against autograd over the plain forward, at smollm-135m's
+    heads (9 over 3, hd 64)."""
+    q, k, v = (t.requires_grad_() for t in _qkv(2, 256, 9, 3, 64, dtype,
+                                                card, seed=3))
+    g = torch.Generator().manual_seed(5)
+    dout = torch.randn((2, 256, 9, 64), generator=g).to(dtype).to(card)
+    fwd, bwd = FA.launches, FA.bwd_launches
+    got = torch.autograd.grad(FA.FlashAttention.apply(q, k, v, True, 0),
+                              (q, k, v), dout)
+    assert FA.launches == fwd + 1
+    assert FA.bwd_launches == bwd + FA.BWD_LAUNCHES_PER_CALL
+    want = torch.autograd.grad(FA.flash_attention_plain(q, k, v), (q, k, v),
+                               dout)
+    for a, b in zip(got, want):
+        assert _rel_err(a, b) <= BWD_TOL[dtype]
+
+
+@pytest.mark.cuda
+def test_smoke_training_step_goes_through_both_flash_kernels(card):
+    """One ``make_train_step`` step of the smollm smoke model on the card
+    (hd 16, bf16; remat, accum 2, compression): two forward launches a
+    layer a microbatch (remat recomputes), one backward call (three
+    launches) a layer a microbatch, and finite metrics."""
+    from repro_torch.data import SyntheticLM
+    from repro_torch.train import init_train_state, make_train_step
+
+    cfg = get_smoke_config("smollm-135m")
+    model, opt = init_train_state(Model(cfg, device=card),
+                                  torch.Generator(device=card).manual_seed(0),
+                                  compress=True)
+    step = make_train_step(model, accum=2, compress=True)
+    batch = SyntheticLM(cfg.vocab_size, 100, 4, seed=0).batch(0)
+    fwd, bwd = FA.launches, FA.bwd_launches
+    opt, m = step(opt, batch)
+    torch.cuda.synchronize()
+    assert FA.launches - fwd == cfg.num_layers * 2 * 2
+    assert FA.bwd_launches - bwd == (cfg.num_layers * 2
+                                     * FA.BWD_LAUNCHES_PER_CALL)
+    assert np.isfinite(float(m["loss"])) and np.isfinite(
+        float(m["grad_norm"]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["smollm-135m", "gemma3-4b",
+                                  "hubert-xlarge"])
+def test_training_gradients_kernel_path_equal_plain(card, exact_f32, arch):
+    """Float32 smoke models on the card (causal, windowed at T 100 past
+    gemma3's window of 32, non-causal): every gradient leaf through the
+    kernels within 1e-4 of its largest value of the plain path's."""
+    import dataclasses
+
+    from repro_torch.models import model as TM
+
+    cfg = dataclasses.replace(get_smoke_config(arch), dtype=torch.float32)
+    model = Model(cfg, device=card).init_params(
+        torch.Generator(device=card).manual_seed(0))
+    model.requires_grad_(True)
+    g = torch.Generator().manual_seed(1)
+    batch = {"labels": torch.randint(0, cfg.vocab_size, (2, 100),
+                                     generator=g).to(card)}
+    if cfg.embed_inputs:
+        batch["embeds"] = torch.randn((2, 100, cfg.d_model),
+                                      generator=g).to(card)
+    else:
+        batch["tokens"] = torch.randint(0, cfg.vocab_size, (2, 100),
+                                        generator=g).to(card)
+    params = list(model.parameters())
+    grads = {}
+    for use in (True, False):
+        model.cfg = dataclasses.replace(cfg, use_kernels=use)
+        bwd = FA.bwd_launches
+        loss, _ = TM.train_loss(model, batch)
+        grads[use] = torch.autograd.grad(loss, params)
+        assert (FA.bwd_launches - bwd > 0) == use
+    for a, b in zip(grads[True], grads[False]):
+        assert _rel_err(a, b) <= BWD_TOL[torch.float32]
+
+
+@pytest.mark.cuda
+def test_card_training_refuses_scan_layers(card):
+    from repro_torch.models import model as TM
+
+    model = Model(get_smoke_config("zamba2-1.2b"), device=card)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TM.train_loss(model, {"tokens": torch.zeros((1, 4), dtype=torch.long,
+                                                    device=card),
+                              "labels": torch.zeros((1, 4), dtype=torch.long,
+                                                    device=card)})

@@ -347,3 +347,117 @@ def test_launch_raises_on_a_failed_launch(monkeypatch):
     with pytest.raises(RuntimeError, match="719"):
         FA._launch(q, k, v, True, 0)
     assert FA.launches == before
+
+
+# ------------------------------------------------------------- backward --
+
+def _bwd_args(hd, dtype, S=40, H=4, KV=2, seed=9):
+    _, (q, k, v) = _qkv(2, S, H, KV, hd, seed, dtype)
+    out = FA.flash_attention_plain(q, k, v).contiguous()
+    do = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        q.shape).astype(np.float32)).to(TORCH[dtype])
+    return q, k, v, out, do
+
+
+def test_cpu_bwd_takes_plain_and_counts_no_launch(monkeypatch):
+    q, k, v, out, do = _bwd_args(16, "float32")
+    calls = []
+    real = FA.flash_attention_bwd_plain
+
+    def spy(*a, **kw):
+        calls.append(1)
+        return real(*a, **kw)
+
+    monkeypatch.setattr(FA, "flash_attention_bwd_plain", spy)
+    monkeypatch.setattr(FA.build, "load", lambda name: pytest.fail(name))
+    before = FA.bwd_launches
+    dq, dk, dv = FA.flash_attention_bwd(q, k, v, out, do)
+    assert calls == [1] and FA.bwd_launches == before
+    assert dq.shape == q.shape and dk.shape == dv.shape == k.shape
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd", [8, 16, 64, 80, 128, 256])
+def test_bwd_launch_passes_the_shape_and_counts(monkeypatch, dtype, hd):
+    """One call of the backward kernel's entry per backward: nine pointers
+    (q, k, v, out, dout, dq, dk, dv and the 3 B H S float32 scratch of m,
+    l, D), then B, S, H, KV, hd, causal, window, the dtype code and the
+    device, then the stream; ``bwd_launches`` counts its three launches."""
+    calls = []
+
+    class Fn:
+        argtypes = None
+
+        def __call__(self, *args):
+            calls.append(args)
+            return 0
+
+    fn = Fn()
+
+    class Lib:
+        flash_attention_bwd_launch = fn
+
+    monkeypatch.setattr(FA.build, "load", lambda name: (
+        Lib() if name == "flash_attention_bwd" else pytest.fail(name)))
+    monkeypatch.setattr(FA.build, "device_and_stream", lambda t: (0, 7))
+    q, k, v, out, do = _bwd_args(hd, dtype)
+    before = FA.bwd_launches
+    dq, dk, dv = FA._launch_bwd(q, k, v, out, do, False, 12)
+    assert FA.bwd_launches == before + FA.BWD_LAUNCHES_PER_CALL == before + 3
+    assert len(calls) == 1 and len(fn.argtypes) == 19
+    args = calls[0]
+    assert args[0] == q.data_ptr() and args[3] == out.data_ptr()
+    assert args[5] == dq.data_ptr() and args[7] == dv.data_ptr()
+    assert args[9:] == (2, 40, 4, 2, hd, 0, 12, FA._DTYPES[q.dtype], 0, 7)
+    assert dq.dtype == dk.dtype == dv.dtype == q.dtype
+    assert dk.shape == dv.shape == k.shape
+
+
+@pytest.mark.parametrize("hd", [4, 32, 96])
+def test_bwd_launch_refuses_other_widths(monkeypatch, hd):
+    monkeypatch.setattr(FA.build, "load", lambda name: pytest.fail(name))
+    q, k, v, out, do = _bwd_args(hd, "bfloat16")
+    before = FA.bwd_launches
+    with pytest.raises(ValueError, match="ROADMAP"):
+        FA._launch_bwd(q, k, v, out, do, True, 0)
+    assert FA.bwd_launches == before
+
+
+def test_bwd_launch_raises_on_a_failed_launch_or_strided_input(monkeypatch):
+    class Lib:
+        def __getattr__(self, attr):
+            fn = lambda *a: 701  # noqa: E731
+            fn.argtypes = None
+            return fn
+
+    monkeypatch.setattr(FA.build, "load", lambda name: Lib())
+    monkeypatch.setattr(FA.build, "device_and_stream", lambda t: (0, 0))
+    q, k, v, out, do = _bwd_args(64, "float32")
+    before = FA.bwd_launches
+    with pytest.raises(RuntimeError, match="701"):
+        FA._launch_bwd(q, k, v, out, do, True, 0)
+    with pytest.raises(ValueError, match="dout must be contiguous"):
+        FA._launch_bwd(q, k, v, out, do.transpose(1, 2).contiguous()
+                       .transpose(1, 2), True, 0)
+    assert FA.bwd_launches == before
+
+
+def test_model_attention_routes_training_through_the_autograd_function(
+        monkeypatch):
+    """With grad on, the kernel route is ``FlashAttention`` (window and
+    causal routed as in inference: a binding window forces causal, one
+    that does not bind is dropped); under ``no_grad`` it is the forward
+    wrapper; ``use_kernel=False`` stays the plain version either way."""
+    seen = []
+    monkeypatch.setattr(FA.FlashAttention, "apply",
+                        lambda *a: seen.append(("fn",) + a[3:]) or a[0])
+    real = FA.flash_attention
+    monkeypatch.setattr(FA, "flash_attention", lambda *a, **kw: seen.append(
+        ("fwd", kw["causal"], kw["sliding_window"])) or real(*a, **kw))
+    _, (q, k, v) = _qkv(1, 64, 2, 2, 16, 1)
+    tattn.attention(q, k, v, causal=False, sliding_window=32)
+    tattn.attention(q, k, v, causal=False, sliding_window=100)
+    with torch.no_grad():
+        tattn.attention(q, k, v, causal=False, sliding_window=32)
+    tattn.attention(q, k, v, causal=True, use_kernel=False)
+    assert seen == [("fn", True, 32), ("fn", False, 0), ("fwd", True, 32)]

@@ -50,7 +50,19 @@ def test_every_port_module_imports_without_jax_or_repro():
                 "repro_torch.configs.rwkv6_7b",
                 "repro_torch.serve",
                 "repro_torch.serve.engine",
-                "repro_torch.launch.serve"):
+                "repro_torch.launch.serve",
+                "repro_torch.data",
+                "repro_torch.data.pipeline",
+                "repro_torch.optim",
+                "repro_torch.optim.adamw",
+                "repro_torch.optim.compress",
+                "repro_torch.optim.schedule",
+                "repro_torch.train",
+                "repro_torch.train.train_step",
+                "repro_torch.train.checkpoint",
+                "repro_torch.train.fault",
+                "repro_torch.train.pipeline",
+                "repro_torch.launch.train"):
         assert mod in mods, mod
     code = (
         "import importlib, sys\n"
