@@ -193,22 +193,28 @@ Phases, each printed with its numbers and wall time:
     prefill's last logits against the forward's last row; a profile of one
     forward; then the non-causal flash case at that shape (B 8, S 1,000, H
     16, hd 80) in bf16 and float32 beside SDPA and the plain version;
-33. ``flash_bwd_kernel``: the backward flash kernel
-    (``csrc/flash_attention_bwd.cu``, three launches a call) against
+33. ``flash_bwd_kernel``: the backward flash kernels (bf16
+    ``csrc/flash_attention_bwd_sm90.cu``, float32
+    ``csrc/flash_attention_bwd_f32_sm90.cu``, three launches a call, from
+    the forward kernel's lse, which is held against the plain lse, its out
+    bit-equal to a call without lse) against
     ``flash_attention_bwd_plain`` (dq, dk, dv) at smollm-135m's train
     shape (B 8, S 1,024, H 9 over 3, hd 64, causal), hubert-xlarge's (B
     8, S 1,000, H 16, hd 80, non-causal) and ``main_hd128`` (B 4, S
     1,024, H 16, hd 128), each in bf16 and float32, and a windowed case
     (window 100) at hd 64; two launches bitwise equal; each timed beside
-    the plain version and SDPA's backward (``torch.autograd.grad``, timed
-    only), its device time from CUDA graphs and its bound;
+    the plain version, SDPA's backward (``torch.autograd.grad``, timed
+    only) and the SIMT kernel they replaced (``csrc/flash_attention_bwd.cu``
+    through its own entry, held to the plain version too), its and the
+    SIMT kernel's device times from CUDA graphs, and its bound;
 34. ``train_smollm``: smollm-135m at full size (134.5 M parameters,
     random weights seeded 0) trained by ``launch.train.train_loop`` for
     20 steps on ``SyntheticLM(seq 1,024, global batch 8, seed 0)`` with
     remat, accum 2, int8 compression and lr 6e-4 with the launcher's
     warmup; both flash counts set to 0 before and read after (2,400
-    forward launches, 3,600 backward ones); the loss must fall (last five
-    steps' mean below the first five's) and stay finite; step ms,
+    forward launches, 3,600 backward ones, all on the wgmma libraries);
+    the loss must fall (last five steps' mean below the first five's) and
+    stay finite; step ms,
     tokens/s, peak memory, one more step profiled (busy share, kernels,
     the backward kernel's share of device time); a float32 copy of the
     whole model, on one batch, its gradients through the kernels against
@@ -230,6 +236,7 @@ numbers, and last ``{"ok": true, "device": {...}}``.  Any failure raises
 and exits non-zero; without a card it exits 1 before doing anything.
 """
 import copy
+import ctypes
 import dataclasses
 import functools
 import gc
@@ -1837,33 +1844,67 @@ BWD_CASES = [("smollm", 8, 1024, 9, 3, 64, "bfloat16", 0, True),
              ("window_hd64", 1, 1000, 9, 3, 64, "bfloat16", 100, True)]
 
 
-def _bwd_case(torch, FA, g, card, name, B, S, H, KV, hd, dtype, window,
-              causal):
-    """The backward kernel against ``flash_attention_bwd_plain`` on the
-    same q, k, v, out (the forward kernel's) and dO: max abs error of dq,
-    dk, dv and their share of each result's largest value, two launches
-    compared bit for bit; times by CUDA events (order plain, kernel,
-    kernel, plain, library: ``scaled_dot_product_attention``'s backward on
-    the same tensors, timed only) and the kernel's device time from CUDA
-    graphs; the bound is the largest of the inputs and outputs over the
-    memory rate, the backward's five products over the kept pairs (s
-    recomputed, dp, dv, dk, dq; 2 hd flops each) at the bf16 tensor cores'
-    rate (float32 at 3xTF32's, as the forward's bound), and one
-    exponential a kept pair."""
-    import torch.nn.functional as F
+# the forward kernels' log-sum-exp against the plain version's: float32
+# logs of the same float32 sums taken in another order, over scores whose
+# own error (bf16 inputs' products in float32, or 3xTF32 at ~2^-21) is
+# ~1e-6 of their size
+LSE_TOL = dict(rtol=1e-5, atol=1e-4)
 
-    q, k, v, do = (torch.randn((B, S, h, hd), generator=g, device=card,
-                               dtype=torch.float32).to(dtype)
-                   for h in (H, KV, KV, H))
-    kw = dict(causal=causal, sliding_window=window)
-    out = FA.flash_attention(q, k, v, **kw)
-    got = FA.flash_attention_bwd(q, k, v, out, do, **kw)
-    again = FA.flash_attention_bwd(q, k, v, out, do, **kw)
-    want = FA.flash_attention_bwd_plain(q, k, v, out, do, **kw)
+
+def _simt_bwd(torch, FA, build, q, k, v, out, do, causal, window):
+    """The SIMT backward kernel (``csrc/flash_attention_bwd.cu``: its own m
+    / l / D pre-pass, then dk / dv and dq) on q's dtype, called through its
+    own entry: the port routes no pair to it since the wgmma and 3xTF32
+    backward kernels replaced it, and this keeps its time beside theirs in
+    the same run.  Returns a call that gives (dq, dk, dv)."""
+    fn = getattr(build.load(FA.BWD_SIMT[0]), FA.BWD_SIMT[1])
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    B, S, H, hd = q.shape
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    ws = torch.empty(3 * B * H * S, dtype=torch.float32, device=q.device)
+
+    def run():   # on the current stream, which a graph capture sets
+        dev, stream = build.device_and_stream(q)
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                 ws.data_ptr(), B, S, H, k.shape[2], hd, int(causal), window,
+                 FA._DTYPES[q.dtype], dev, stream)
+        if err:
+            raise RuntimeError(f"SIMT flash bwd launch failed: {err}")
+        return dq, dk, dv
+    return run
+
+
+def _profiled_device_ms(torch, fn, calls=5):
+    """Device milliseconds per call of ``fn``: the kernels' own times in a
+    ``torch.profiler`` trace of ``calls`` calls (for SDPA's backward,
+    whose autograd call a CUDA graph does not capture as a whole).  In
+    ``chip_smoke.py``, after its earlier phases' traces, this caught none
+    or a fraction of the autograd engine's kernels (it read 0), where
+    ``tools/train_phases.py``'s traces catch them all, so only that tool
+    asks for it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        fn()
     torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               ) / calls / 1e3
+
+
+def _bwd_errors(torch, name, got, want, tol):
+    """Max abs error of dq, dk, dv and its share of each result's largest
+    value, held to ``tol``."""
     nums = {}
-    tol = BWD_TOL[str(dtype).split(".")[-1]]
-    for part, a, b, c in zip(("dq", "dk", "dv"), got, want, again):
+    for part, a, b in zip(("dq", "dk", "dv"), got, want):
         err = float((a.float() - b.float()).abs().max())
         rel = err / max(float(b.float().abs().max()), 1e-30)
         nums[f"max_abs_err_{part}"] = err
@@ -1871,10 +1912,61 @@ def _bwd_case(torch, FA, g, card, name, B, S, H, KV, hd, dtype, window,
         if rel > tol:
             raise AssertionError(f"flash bwd {name} {part}: {rel} of the "
                                  f"largest value, past {tol}")
+    return nums
+
+
+def _bwd_case(torch, FA, build, g, card, name, B, S, H, KV, hd, dtype,
+              window, causal, library_device=False):
+    """The backward kernel (bf16 the wgmma one, float32 the 3xTF32 one)
+    against ``flash_attention_bwd_plain`` on the same q, k, v, out and lse
+    (the forward kernel's) and dO: max abs error of dq, dk, dv and their
+    share of each result's largest value, two launches compared bit for
+    bit; the forward kernel's lse against the plain version's and its out
+    bit-equal with and without lse; the SIMT kernel it replaced on the
+    same inputs; times by CUDA events (order plain, kernel, kernel, plain,
+    library: ``scaled_dot_product_attention``'s backward on the same
+    tensors, timed only; then the SIMT kernel) and the kernel's and the
+    SIMT kernel's device times from CUDA graphs, SDPA's backward's from
+    a profiler trace with ``library_device`` (``library_device_ms``,
+    else None); the bound is the largest
+    of the inputs and outputs over the memory rate, the backward's five
+    products over the kept pairs (s recomputed, dp, dv, dk, dq; 2 hd flops
+    each) at the bf16 tensor cores' rate (float32 at 3xTF32's, as the
+    forward's bound), and one exponential a kept pair."""
+    import torch.nn.functional as F
+
+    q, k, v, do = (torch.randn((B, S, h, hd), generator=g, device=card,
+                               dtype=torch.float32).to(dtype)
+                   for h in (H, KV, KV, H))
+    kw = dict(causal=causal, sliding_window=window)
+    out, lse = FA.flash_attention(q, k, v, return_lse=True, **kw)
+    bare = FA.flash_attention(q, k, v, **kw)
+    _, plain_lse = FA.flash_attention_plain(q, k, v, return_lse=True, **kw)
+    torch.cuda.synchronize()
+    if not torch.equal(out, bare):
+        raise AssertionError(f"flash bwd {name}: the forward's out differs "
+                             "with lse written")
+    lse_err = _close(torch, lse, plain_lse, what=f"flash lse {name}",
+                     **LSE_TOL)
+    del bare, plain_lse
+    kernel = FA.bwd_route(dtype, hd)[0]
+    before = FA.bwd_kernel_launches[kernel]
+    got = FA.flash_attention_bwd(q, k, v, out, do, lse, **kw)
+    again = FA.flash_attention_bwd(q, k, v, out, do, lse, **kw)
+    want = FA.flash_attention_bwd_plain(q, k, v, out, do, **kw)
+    simt = _simt_bwd(torch, FA, build, q, k, v, out, do, causal, window)
+    simt_got = simt()
+    torch.cuda.synchronize()
+    if FA.bwd_kernel_launches[kernel] != before + 2 * FA.BWD_LAUNCHES_PER_CALL:
+        raise AssertionError(f"flash bwd {name}: not routed to {kernel}")
+    tol = BWD_TOL[str(dtype).split(".")[-1]]
+    nums = _bwd_errors(torch, name, got, want, tol)
+    for part, a, c in zip(("dq", "dk", "dv"), got, again):
         if not torch.equal(a, c):
             raise AssertionError(f"flash bwd {name} {part}: two launches "
                                  "differ")
-    del got, again, want
+    simt_nums = _bwd_errors(torch, f"{name} SIMT", simt_got, want, tol)
+    del got, again, want, simt_got
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
                   for t in (q, k, v))
     i = torch.arange(S, device=card)
@@ -1887,15 +1979,21 @@ def _bwd_case(torch, FA, g, card, name, B, S, H, KV, hd, dtype, window,
     fns = [
         ("plain", lambda: FA.flash_attention_bwd_plain(q, k, v, out, do,
                                                        **kw)),
-        ("kernel", lambda: FA.flash_attention_bwd(q, k, v, out, do, **kw)),
-        ("kernel2", lambda: FA.flash_attention_bwd(q, k, v, out, do, **kw)),
+        ("kernel", lambda: FA.flash_attention_bwd(q, k, v, out, do, lse,
+                                                  **kw)),
+        ("kernel2", lambda: FA.flash_attention_bwd(q, k, v, out, do, lse,
+                                                   **kw)),
         ("plain2", lambda: FA.flash_attention_bwd_plain(q, k, v, out, do,
                                                         **kw)),
         ("library", lambda: torch.autograd.grad(
-            lib_out, (qt, kt, vt), dot, retain_graph=True))]
-    ms = {n: cuda_ms(fn, iters=10 if n.startswith("plain") else 30,
-                     warmup=2) for n, fn in fns}
+            lib_out, (qt, kt, vt), dot, retain_graph=True)),
+        ("simt", simt)]
+    ms = {n: cuda_ms(fn, iters=10 if n in ("plain", "plain2", "simt")
+                     else 30, warmup=2) for n, fn in fns}
     device_ms = graph_ms(torch, fns[1][1], calls=3, replays=5)
+    simt_device_ms = graph_ms(torch, simt, calls=2, replays=3)
+    library_device_ms = _profiled_device_ms(torch, fns[4][1]) \
+        if library_device else None
     pairs = int(keep.sum())
     # q, out, dO, k, v read; dq, dk, dv written
     nbytes = q.element_size() * 4 * (q.numel() + k.numel())
@@ -1909,25 +2007,33 @@ def _bwd_case(torch, FA, g, card, name, B, S, H, KV, hd, dtype, window,
     return dict(
         shape=f"B{B} S{S} H{H}/{KV} hd{hd} {dtype} window{window}"
               + ("" if causal else " non-causal"),
-        **nums, bytes=nbytes, flops=nops, bound_ms=terms[term],
+        kernel=kernel, **nums, lse_max_abs_err=lse_err,
+        simt_max_rel_err=max(simt_nums[f"rel_err_{p}"]
+                             for p in ("dq", "dk", "dv")),
+        bytes=nbytes, flops=nops, bound_ms=terms[term],
         bound_by="bytes" if term == "bytes" else "operations",
         bound_term=term, bound_terms_ms=json.dumps(terms),
         cuda_core_bound_ms=max(terms["bytes"], nops / FP32_OPS_PER_S * 1e3),
         ms=min(ms["kernel"], ms["kernel2"]), device_ms=device_ms,
         plain_ms=min(ms["plain"], ms["plain2"]), library_ms=ms["library"],
-        runs=json.dumps(ms))
+        library_device_ms=library_device_ms, simt_ms=ms["simt"],
+        simt_device_ms=simt_device_ms, runs=json.dumps(ms))
 
 
-def phase_flash_bwd_kernel(torch, FA, card):
-    """The backward kernel (``csrc/flash_attention_bwd.cu``) against its
-    plain version at smollm-135m's train shape, hubert-xlarge's
-    (non-causal, hd 80) and ``main_hd128``, each in bf16 and float32, and
-    a windowed case at hd 64: errors, determinism, times, bounds."""
+def phase_flash_bwd_kernel(torch, FA, build, card, library_device=False):
+    """The backward kernels (bf16 ``csrc/flash_attention_bwd_sm90.cu``,
+    float32 ``csrc/flash_attention_bwd_f32_sm90.cu``) against their plain
+    version at smollm-135m's train shape, hubert-xlarge's (non-causal, hd
+    80) and ``main_hd128``, each in bf16 and float32, and a windowed case
+    at hd 64: errors, determinism, the forward's lse, times beside the
+    SIMT kernel they replaced, bounds (SDPA's backward's device time only
+    with ``library_device``: see ``_profiled_device_ms``)."""
     g = torch.Generator(device=card).manual_seed(7)
     out = {}
     for name, B, S, H, KV, hd, dt, window, causal in BWD_CASES:
-        out[name] = _bwd_case(torch, FA, g, card, name, B, S, H, KV, hd,
-                              getattr(torch, dt), window, causal)
+        out[name] = _bwd_case(torch, FA, build, g, card, name, B, S, H, KV,
+                              hd, getattr(torch, dt), window, causal,
+                              library_device)
         gc.collect()
         torch.cuda.empty_cache()
     return out
@@ -1971,6 +2077,7 @@ def phase_train_smollm(torch, card, FA):
     torch.cuda.reset_peak_memory_stats()
     FA.launches, FA.bwd_launches = 0, 0
     sm90 = FA.kernel_launches[FA.SM90[0]]
+    bwd_sm90 = FA.bwd_kernel_launches[FA.BWD_SM90[0]]
     history = []
     t0 = time.perf_counter()
     model, opt, losses = train_loop(
@@ -1981,13 +2088,15 @@ def phase_train_smollm(torch, card, FA):
     wall = time.perf_counter() - t0
     fwd, bwd = FA.launches, FA.bwd_launches
     sm90 = FA.kernel_launches[FA.SM90[0]] - sm90
+    bwd_sm90 = FA.bwd_kernel_launches[FA.BWD_SM90[0]] - bwd_sm90
     per_step = cfg.num_layers * TRAIN_ACCUM
     want_fwd = per_step * 2 * TRAIN_STEPS
     want_bwd = per_step * FA.BWD_LAUNCHES_PER_CALL * TRAIN_STEPS
-    if (fwd, bwd, sm90) != (want_fwd, want_bwd, want_fwd):
+    if (fwd, bwd, sm90, bwd_sm90) != (want_fwd, want_bwd, want_fwd,
+                                      want_bwd):
         raise AssertionError(f"train launches: forward {fwd} (wgmma "
-                             f"{sm90}), backward {bwd}; expected "
-                             f"{want_fwd}, {want_bwd}")
+                             f"{sm90}), backward {bwd} (wgmma {bwd_sm90}); "
+                             f"expected {want_fwd}, {want_bwd}")
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"a train loss is not finite: {losses}")
     first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
@@ -2074,9 +2183,9 @@ def phase_train_smollm(torch, card, FA):
         def forward(ctx, q, k, v, causal, window):
             fn = FA.flash_attention if Mixed.fwd_kernel else \
                 FA.flash_attention_plain
-            out = fn(q, k, v, causal=causal,
-                     sliding_window=window).contiguous()
-            ctx.save_for_backward(q, k, v, out)
+            out, lse = fn(q, k, v, causal=causal, sliding_window=window,
+                          return_lse=True)
+            ctx.save_for_backward(q, k, v, out.contiguous(), lse)
             ctx.mask = (causal, window)
             return out
 
@@ -2084,7 +2193,8 @@ def phase_train_smollm(torch, card, FA):
         def backward(ctx, do):
             fn = FA.flash_attention_bwd_plain if Mixed.fwd_kernel else \
                 FA.flash_attention_bwd
-            return (*fn(*ctx.saved_tensors, do.contiguous(),
+            q, k, v, out, lse = ctx.saved_tensors
+            return (*fn(q, k, v, out, do.contiguous(), lse,
                         causal=ctx.mask[0], sliding_window=ctx.mask[1]),
                     None, None)
 
@@ -2108,8 +2218,12 @@ def phase_train_smollm(torch, card, FA):
         return out
 
     FA.kernel_launches[FA.F32[0]], FA.bwd_launches = 0, 0
+    FA.bwd_kernel_launches[FA.BWD_F32[0]] = 0
     loss_k, g_kernel = grads_of("kernels")
     f32_fwd, f32_bwd = FA.kernel_launches[FA.F32[0]], FA.bwd_launches
+    if FA.bwd_kernel_launches[FA.BWD_F32[0]] != f32_bwd:
+        raise AssertionError("float32 copy's backward not on the 3xTF32 "
+                             "kernel")
     loss_p, g_plain = grads_of("plain")
     _, g_fwd_kernel = grads_of("fwd_kernel")    # 3xTF32 forward only
     _, g_bwd_kernel = grads_of("bwd_kernel")    # backward kernel only
@@ -3234,7 +3348,10 @@ def main() -> int:
             libs = build.build(["runqlat_hist", "rollout_tick",
                                 "flash_attention", "flash_attention_sm90",
                                 "flash_attention_f32_sm90",
-                                "flash_attention_bwd", "ssd", "ssd_sm90",
+                                "flash_attention_bwd",
+                                "flash_attention_bwd_sm90",
+                                "flash_attention_bwd_f32_sm90", "ssd",
+                                "ssd_sm90",
                                 "wkv"])
         finally:
             earlier.join()
@@ -3245,12 +3362,21 @@ def main() -> int:
     for name in ("runqlat_hist", "rollout_tick", "ssd_sm90", "wkv"):
         say("build", kernel=name, ptxas=json.dumps(
             ptxas_summary(build.build_logs.get(name, ""))))
-    bwd_ptxas = ptxas_summary(build.build_logs.get("flash_attention_bwd", ""))
-    say("build", kernel="flash_attention_bwd", entries=len(bwd_ptxas),
-        max_registers=max((v.get("registers", 0)
-                           for v in bwd_ptxas.values()), default=0),
-        spill_stores=sum(v.get("spill_stores", 0)
-                         for v in bwd_ptxas.values()))
+    for lib in ("flash_attention_bwd", "flash_attention_bwd_sm90",
+                "flash_attention_bwd_f32_sm90"):
+        bwd_ptxas = ptxas_summary(build.build_logs.get(lib, ""))
+        say("build", kernel=lib, entries=len(bwd_ptxas),
+            max_registers=max((v.get("registers", 0)
+                               for v in bwd_ptxas.values()), default=0),
+            spill_stores=sum(v.get("spill_stores", 0)
+                             for v in bwd_ptxas.values()))
+    for lib in ("flash_attention_bwd_sm90", "flash_attention_bwd_f32_sm90"):
+        log = build.build_logs.get(lib, "")
+        for fn in ("bwd_dkdv_kernel", "bwd_dq_kernel"):
+            inst = flash_instantiations(log, fn)
+            say("build", **{f"{lib}.{fn}": json.dumps(inst)})
+            if log and sorted(inst) != FLASH_WIDTHS:
+                raise AssertionError(f"{lib} {fn} instantiations: {inst}")
     for lib, fn in (("flash_attention_sm90", "flash_sm90_kernel"),
                     ("flash_attention_f32_sm90", "flash_f32_kernel")):
         flash_log = build.build_logs.get(lib, "")
@@ -3258,18 +3384,16 @@ def main() -> int:
         say("build", **{f"{lib}_instantiations": json.dumps(inst)})
         if flash_log and sorted(inst) != FLASH_WIDTHS:
             raise AssertionError(f"{fn} instantiations: {inst}")
-    hgmma = sass_count(libs["flash_attention_sm90"], "HGMMA")
-    f32_hmma = sass_count(libs["flash_attention_f32_sm90"], "HMMA")
-    hmma = sass_count(libs["ssd_sm90"], "HMMA")
-    say("build", flash_attention_sm90_hgmma_instructions=hgmma,
-        flash_attention_f32_sm90_hmma_instructions=f32_hmma,
-        ssd_sm90_hmma_instructions=hmma)
-    if hgmma == 0:
-        raise AssertionError("no HGMMA in flash_attention_sm90's SASS")
-    if f32_hmma == 0:
-        raise AssertionError("no HMMA in flash_attention_f32_sm90's SASS")
-    if hmma == 0:
-        raise AssertionError("no HMMA in ssd_sm90's SASS")
+    counts = {f"{lib}_{op.lower()}_instructions": sass_count(libs[lib], op)
+              for lib, op in (("flash_attention_sm90", "HGMMA"),
+                              ("flash_attention_f32_sm90", "HMMA"),
+                              ("flash_attention_bwd_sm90", "HGMMA"),
+                              ("flash_attention_bwd_f32_sm90", "HMMA"),
+                              ("ssd_sm90", "HMMA"))}
+    say("build", **counts)
+    for key, n in counts.items():
+        if n == 0:
+            raise AssertionError(f"none in the SASS: {key}")
 
     # 2-19. the cluster, replay, control-plane and bench paths
     paths = cluster_paths(torch, build, card, timers, done)
@@ -3375,7 +3499,7 @@ def main() -> int:
     # size through the launcher's loop
     hold_little("flash_bwd_kernel")
     with timers.phase("flash_bwd_kernel"):
-        bwdk = phase_flash_bwd_kernel(torch, FA, card)
+        bwdk = phase_flash_bwd_kernel(torch, FA, build, card)
     for name, nums in bwdk.items():
         say("flash_bwd_kernel", case=name, **nums)
     done("flash_bwd_kernel")
@@ -3385,8 +3509,11 @@ def main() -> int:
     done("train_smollm")
     flash_paths["train_smollm"] = train["flash_attention_launches"]
     f32_paths["train_smollm"] = train["float32_flash_launches"]
-    bwd_paths = {"train_smollm": train["flash_bwd_launches"],
-                 "train_smollm_float32": train["float32_flash_bwd_launches"]}
+    bwd_paths = {"train_smollm": train["flash_bwd_launches"]}
+    bwd_f32_paths = {
+        "train_smollm_float32": train["float32_flash_bwd_launches"]}
+    bwd_bf16 = {k: c for k, c in bwdk.items() if "bfloat16" in c["shape"]}
+    bwd_f32 = {k: c for k, c in bwdk.items() if "float32" in c["shape"]}
 
     # 35-36. the metric-pipeline bench and the colocation demo on the card
     with timers.phase("metric_pipeline"):
@@ -3437,20 +3564,38 @@ def main() -> int:
         "bound_by": flash["main"]["bound_by"],
         "library_ms": flash["main"]["library_ms"]}, {
         "name": "flash_attention_bwd", "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_bwd_sm90.cu",
         "replaces": "src/repro/models/attention.py:181",
         "launches": sum(bwd_paths.values()),
         "launches_by_path": bwd_paths,
-        "max_abs_err": max(c[f"max_abs_err_{p}"] for c in bwdk.values()
+        "max_abs_err": max(c[f"max_abs_err_{p}"] for c in bwd_bf16.values()
                            for p in ("dq", "dk", "dv")),
         "cases": {k: {f: c[f] for f in (
-            "ms", "device_ms", "plain_ms", "library_ms", "bound_ms",
-            "bound_by", "bound_term", "cuda_core_bound_ms")}
-            for k, c in bwdk.items()},
+            "ms", "device_ms", "simt_ms", "simt_device_ms", "plain_ms",
+            "library_ms", "library_device_ms", "bound_ms", "bound_by",
+            "bound_term")} for k, c in bwd_bf16.items()},
         "ms": bwdk["smollm"]["ms"], "plain_ms": bwdk["smollm"]["plain_ms"],
         "bound_ms": bwdk["smollm"]["bound_ms"],
         "bound_by": bwdk["smollm"]["bound_by"],
         "library_ms": bwdk["smollm"]["library_ms"]}, {
+        "name": "flash_attention_bwd_f32", "route": "cuda",
+        "source":
+            "src/repro_torch/kernels/csrc/flash_attention_bwd_f32_sm90.cu",
+        "replaces": "src/repro/models/attention.py:181",
+        "launches": sum(bwd_f32_paths.values()),
+        "launches_by_path": bwd_f32_paths,
+        "max_abs_err": max(c[f"max_abs_err_{p}"] for c in bwd_f32.values()
+                           for p in ("dq", "dk", "dv")),
+        "cases": {k: {f: c[f] for f in (
+            "ms", "device_ms", "simt_ms", "simt_device_ms", "plain_ms",
+            "library_ms", "library_device_ms", "bound_ms", "bound_by",
+            "bound_term", "cuda_core_bound_ms")}
+            for k, c in bwd_f32.items()},
+        "ms": bwdk["smollm_float32"]["ms"],
+        "plain_ms": bwdk["smollm_float32"]["plain_ms"],
+        "bound_ms": bwdk["smollm_float32"]["bound_ms"],
+        "bound_by": bwdk["smollm_float32"]["bound_by"],
+        "library_ms": bwdk["smollm_float32"]["library_ms"]}, {
         "name": "flash_attention_f32", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_f32_sm90.cu",
         "replaces": "src/repro/kernels/flash_attention.py:81",

@@ -61,6 +61,12 @@
 //     terms that the first unmasked score multiplies by exp2(-1e30 - m) =
 //     0).  Keys and rows past S are zero-filled by cp.async and masked,
 //     rows past S are not stored, so any S works.
+// With a non-null lse the kernel also writes each row's log-sum-exp, (m +
+// log2 l) ln 2, for the backward kernels.  Launch bounds ask for one block
+// an SM at least: beside that epilogue ptxas's own choice held hd 64 and
+// 128 to 128 and 168 registers and spilled 48 and 8 bytes; so it takes 142
+// and 186 and spills nothing at any width (hd 80's earlier 4-byte spill
+// went too), at equal or lower times on an H100.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -68,6 +74,7 @@ namespace {
 
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // Per head width: warps of 16 query rows a block, keys a K / V tile, and
 // the padded row strides (floats) of Q and K (8 or 24 mod 32) and of V (4
@@ -110,6 +117,14 @@ __device__ __forceinline__ void cp_async_wait() {
 __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// log2(x) on the special-function unit (absolute error ~2^-22), for the
+// log-sum-exp of a row (x = max(l, 1e-30), a normal float)
+__device__ __forceinline__ float lg2(float x) {
+  float y;
+  asm("lg2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
 }
 
@@ -156,11 +171,11 @@ __device__ __forceinline__ void split_a(float g0, float g1, float h0, float h1,
 }
 
 template <int HD>
-__global__ void __launch_bounds__(32 * F32Config<HD>::kWarps)
+__global__ void __launch_bounds__(32 * F32Config<HD>::kWarps, 1)
 flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o, int S,
-                 int H, int KV, int causal, int window, float scale_log2,
-                 int n_qtiles) {
+                 const float* __restrict__ v, float* __restrict__ o,
+                 float* __restrict__ lse, int S, int H, int KV, int causal,
+                 int window, float scale_log2, int n_qtiles) {
   using C = F32Config<HD>;
   constexpr int kThreads = 32 * C::kWarps, KT = C::kKT, C4 = HD / 4;
   constexpr int LQ = C::kLdQK, LV = C::kLdV;
@@ -349,11 +364,19 @@ flash_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       *reinterpret_cast<float2*>(o_hi + 8 * n) =
           make_float2(acc[n][2] / den_hi, acc[n][3] / den_hi);
   }
+  // the rows' log-sum-exp in natural-log units, m + log2(l) (log2 units)
+  // converted once: one thread of the row's four writes it
+  if (lse != nullptr && t == 0) {
+    float* lr = lse + static_cast<long long>(bh) * S;
+    if (row_lo < S) lr[row_lo] = (m[0] + lg2(den_lo)) * kLn2;
+    if (row_hi < S) lr[row_hi] = (m[1] + lg2(den_hi)) * kLn2;
+  }
 }
 
 template <int HD>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
-           int H, int KV, int causal, int window, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int S, int H, int KV, int causal, int window,
+           cudaStream_t stream) {
   using C = F32Config<HD>;
   cudaError_t err = cudaFuncSetAttribute(
       flash_f32_kernel<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -363,8 +386,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
   const dim3 grid(B * H, n_qtiles);  // every (b, h) of a query tile together
   flash_f32_kernel<HD><<<grid, 32 * C::kWarps, C::kBytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), S, H, KV, causal,
-      window, kLog2e / sqrtf(static_cast<float>(HD)), n_qtiles);
+      static_cast<const float*>(v), static_cast<float*>(o), lse, S, H, KV,
+      causal, window, kLog2e / sqrtf(static_cast<float>(HD)), n_qtiles);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -372,23 +395,27 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
 
 // q, o: (B, S, H, hd); k, v: (B, S, KV, hd); contiguous, 16-byte aligned,
 // float32; hd 8, 16, 64, 80, 128 or 256; S at most 65,535 query tiles.
-// Launches on `stream` and returns cudaGetLastError() (0 on success; -1 for
-// an unsupported hd, which the wrapper rules out first).
+// lse: null, or (B, H, S) float32 that receives each row's log-sum-exp (the
+// backward's residual).  Launches on `stream` and returns cudaGetLastError()
+// (0 on success; -1 for an unsupported hd, which the wrapper rules out
+// first).
 extern "C" int flash_attention_f32_sm90_launch(const void* q, const void* k,
-                                               const void* v, void* o, int B,
-                                               int S, int H, int KV, int hd,
-                                               int causal, int window,
-                                               int device, void* stream) {
+                                               const void* v, void* o,
+                                               void* lse, int B, int S, int H,
+                                               int KV, int hd, int causal,
+                                               int window, int device,
+                                               void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   switch (hd) {
-    case 8: return launch<8>(q, k, v, o, B, S, H, KV, causal, window, st);
-    case 16: return launch<16>(q, k, v, o, B, S, H, KV, causal, window, st);
-    case 64: return launch<64>(q, k, v, o, B, S, H, KV, causal, window, st);
-    case 80: return launch<80>(q, k, v, o, B, S, H, KV, causal, window, st);
-    case 128: return launch<128>(q, k, v, o, B, S, H, KV, causal, window, st);
-    case 256: return launch<256>(q, k, v, o, B, S, H, KV, causal, window, st);
+    case 8: return launch<8>(q, k, v, o, l, B, S, H, KV, causal, window, st);
+    case 16: return launch<16>(q, k, v, o, l, B, S, H, KV, causal, window, st);
+    case 64: return launch<64>(q, k, v, o, l, B, S, H, KV, causal, window, st);
+    case 80: return launch<80>(q, k, v, o, l, B, S, H, KV, causal, window, st);
+    case 128: return launch<128>(q, k, v, o, l, B, S, H, KV, causal, window, st);
+    case 256: return launch<256>(q, k, v, o, l, B, S, H, KV, causal, window, st);
     default: return -1;
   }
 }

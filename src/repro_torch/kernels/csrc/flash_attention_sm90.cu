@@ -84,6 +84,8 @@
 //     frontier and starts at the first tile the window reaches (a tile
 //     masked for every row only adds terms that the first unmasked score
 //     multiplies by exp2(-1e30 - m) = 0).
+// With a non-null lse the kernel also writes each row's log-sum-exp, (m +
+// log2 l) ln 2, for the backward kernels; the output is the same either way.
 // Descriptors are 4-D over (hd, heads, S, B), encoded per call on the host
 // with cuTensorMapEncodeTiled (taken through cudaGetDriverEntryPoint, so
 // the library needs no -lcuda) and passed as __grid_constant__ params: a
@@ -102,6 +104,7 @@ constexpr int kThreads = 128 * (kConsumers + 1);
 constexpr int kRowBytes = 128;    // a swizzled tile row: 64 bf16
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // The tiles of a head width hd are TW columns wide: hd rounded up to whole
 // 64-column chunks (TMA zero-fills the columns past hd).  K / V tiles hold
@@ -225,6 +228,14 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// log2(x) on the special-function unit (absolute error ~2^-22), for the
+// log-sum-exp of a row (x = max(l, 1e-30), a normal float)
+__device__ __forceinline__ float lg2(float x) {
+  float y;
+  asm("lg2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
 }
 
@@ -397,8 +408,9 @@ __global__ void __launch_bounds__(kThreads, 1)
 flash_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                   const __grid_constant__ CUtensorMap tk,
                   const __grid_constant__ CUtensorMap tv,
-                  __nv_bfloat16* __restrict__ o, int B, int S, int H, int KV,
-                  int causal, int window, float scale_log2, int n_qtiles) {
+                  __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                  int B, int S, int H, int KV, int causal, int window,
+                  float scale_log2, int n_qtiles) {
   using C = Config<TW>;
   constexpr int kBN = C::kBN, kStages = C::kStages;
   static_assert(HD % 8 == 0 && HD <= TW && TW - HD < 64, "tile width");
@@ -638,6 +650,13 @@ flash_sm90_kernel(const __grid_constant__ CUtensorMap tq,
               __floats2bfloat162_rn(acc[4 * j + 2] / den_hi,
                                     acc[4 * j + 3] / den_hi);
       }
+      // the rows' log-sum-exp in natural-log units, m + log2(l) (log2
+      // units) converted once: one thread of the row's four writes it
+      if (lse != nullptr && ln.col == 0) {
+        float* lr = lse + (static_cast<long long>(it.b) * H + it.h) * S;
+        if (r_lo < S) lr[r_lo] = (m[0] + lg2(den_lo)) * kLn2;
+        if (r_hi < S) lr[r_hi] = (m[1] + lg2(den_hi)) * kLn2;
+      }
     }
     if (wg == 0) turn_begin();  // the hand-back after the last turn
   }
@@ -690,8 +709,9 @@ bool make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int B,
 }
 
 template <int HD, int TW>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
-           int H, int KV, int causal, int window, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int S, int H, int KV, int causal, int window,
+           cudaStream_t stream) {
   using C = Config<TW>;
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return -2;
@@ -713,7 +733,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
   const int n_qtiles = (S + kBM - 1) / kBM;
   const int blocks = min(n_qtiles * H * B, sms);  // one resident block an SM
   flash_sm90_kernel<HD, TW><<<blocks, kThreads, smem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), B, S, H, KV, causal, window,
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, B, S, H, KV, causal,
+      window,
       kLog2e / sqrtf(static_cast<float>(HD)), n_qtiles);
   return static_cast<int>(cudaGetLastError());
 }
@@ -721,32 +742,35 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int S,
 }  // namespace
 
 // q, o: (B, S, H, hd); k, v: (B, S, KV, hd); contiguous, 16-byte aligned,
-// bfloat16; hd 8, 16, 64, 80, 128 or 256.  Launches on `stream` and returns
-// cudaGetLastError() (0 on success); -1 for an unsupported hd, -2 when the
-// driver has no cuTensorMapEncodeTiled, -3 when a map cannot be encoded.
+// bfloat16; hd 8, 16, 64, 80, 128 or 256.  lse: null, or (B, H, S) float32
+// that receives each row's log-sum-exp (the backward's residual).  Launches
+// on `stream` and returns cudaGetLastError() (0 on success); -1 for an
+// unsupported hd, -2 when the driver has no cuTensorMapEncodeTiled, -3 when
+// a map cannot be encoded.
 extern "C" int flash_attention_sm90_launch(const void* q, const void* k,
-                                           const void* v, void* o, int B,
-                                           int S, int H, int KV, int hd,
+                                           const void* v, void* o, void* lse,
+                                           int B, int S, int H, int KV, int hd,
                                            int causal, int window, int device,
                                            void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* l = static_cast<float*>(lse);
   // the head width, then the tiles' width: hd 8 and 16 run in 64-column
   // tiles, hd 80 in 128-column ones
   switch (hd) {
     case 8:
-      return launch<8, 64>(q, k, v, o, B, S, H, KV, causal, window, st);
+      return launch<8, 64>(q, k, v, o, l, B, S, H, KV, causal, window, st);
     case 16:
-      return launch<16, 64>(q, k, v, o, B, S, H, KV, causal, window, st);
+      return launch<16, 64>(q, k, v, o, l, B, S, H, KV, causal, window, st);
     case 64:
-      return launch<64, 64>(q, k, v, o, B, S, H, KV, causal, window, st);
+      return launch<64, 64>(q, k, v, o, l, B, S, H, KV, causal, window, st);
     case 80:
-      return launch<80, 128>(q, k, v, o, B, S, H, KV, causal, window, st);
+      return launch<80, 128>(q, k, v, o, l, B, S, H, KV, causal, window, st);
     case 128:
-      return launch<128, 128>(q, k, v, o, B, S, H, KV, causal, window, st);
+      return launch<128, 128>(q, k, v, o, l, B, S, H, KV, causal, window, st);
     case 256:
-      return launch<256, 256>(q, k, v, o, B, S, H, KV, causal, window, st);
+      return launch<256, 256>(q, k, v, o, l, B, S, H, KV, causal, window, st);
     default:
       return -1;
   }

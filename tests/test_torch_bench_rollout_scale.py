@@ -12,6 +12,19 @@ import torch
 
 from test_torch_noise import jax_noise_stream, jax_window_noise
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for the module's tests: under the suite's
+    several worker processes, torch's default of one thread a core in each
+    makes their small CPU kernels spin against each other, and alone on an
+    8-core CPU the module took 13 s at one thread against 15 s at eight."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 CPU = torch.device("cpu")
 DAYS, NODES, SEEDS = 0.05, 12, (0, 1)

@@ -25,6 +25,19 @@ from repro_torch.convert import forest_from_numpy
 from repro_torch.obs import explain
 from test_torch_noise import jax_noise_stream
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for the module's tests: under the suite's
+    several worker processes, torch's default of one thread a core in each
+    makes their small CPU kernels spin against each other, and alone on an
+    8-core CPU the module took 53 s at one thread against 74 s at eight."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 CPU = torch.device("cpu")
 N_PODS, SIM_SEEDS = 12, (7, 8)

@@ -4,6 +4,7 @@ Only torch and ``repro_torch`` are imported here (no JAX), so this file
 runs on a machine with a card: ``python -m pytest -m cuda
 tests/test_torch_cuda.py``.  Without a card the ``cuda`` tests skip.
 """
+import ctypes
 import shutil
 
 import numpy as np
@@ -959,13 +960,17 @@ def test_latency_sweep_on_the_card(card):
 BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 
 
-def _bwd_inputs(B, S, H, KV, hd, dtype, device, causal, window, seed=0):
+def _bwd_inputs(B, S, H, KV, hd, dtype, device, causal, window, seed=0,
+                kernel_fwd=True):
+    """q, k, v, out, dout and lse: out and lse from the forward kernel (or,
+    for a width it does not take, the plain version)."""
     q, k, v = _qkv(B, S, H, KV, hd, dtype, device, seed=seed)
-    out = FA.flash_attention_plain(q, k, v, causal=causal,
-                                   sliding_window=window).contiguous()
+    fwd = FA.flash_attention if kernel_fwd else FA.flash_attention_plain
+    out, lse = fwd(q, k, v, causal=causal, sliding_window=window,
+                   return_lse=True)
     g = torch.Generator().manual_seed(seed + 1)
     dout = torch.randn((B, S, H, hd), generator=g).to(dtype).to(device)
-    return q, k, v, out, dout
+    return q, k, v, out.contiguous(), dout, lse
 
 
 def _rel_err(got, want):
@@ -982,18 +987,25 @@ def _rel_err(got, want):
 @pytest.mark.parametrize("hd", [8, 16, 64, 80, 128, 256])
 def test_flash_bwd_kernel_equals_plain(card, exact_f32, hd, dtype, S, causal,
                                        window, H, KV):
-    """dq, dk, dv of the backward kernel against ``flash_attention_bwd_plain``
-    at every width, both dtypes, GQA 3 and none, ragged S, causal,
-    non-causal and windowed: three launches a call, counted.  (At S 1 the
-    true dq and dk are 0, one key taking all the weight, and both versions
-    give rounding noise, so the shortest S is 5.)"""
-    q, k, v, out, dout = _bwd_inputs(1 + (S < 100), S, H, KV, hd, dtype,
-                                     card, causal, window, seed=S + hd)
-    before = FA.bwd_launches
-    got = FA.flash_attention_bwd(q, k, v, out, dout, causal=causal,
+    """dq, dk, dv of the backward kernel (bf16 the wgmma one, float32 the
+    3xTF32 one, from the forward kernel's out and lse) against
+    ``flash_attention_bwd_plain`` at every width, both dtypes, GQA 3 and
+    none, ragged S, causal, non-causal and windowed: three launches a call,
+    counted, on the routed library.  (At S 1 the true dq and dk are 0, one
+    key taking all the weight, and both versions give rounding noise, so
+    the shortest S is 5.)"""
+    q, k, v, out, dout, lse = _bwd_inputs(1 + (S < 100), S, H, KV, hd,
+                                          dtype, card, causal, window,
+                                          seed=S + hd)
+    lib = FA.bwd_route(dtype, hd)[0]
+    assert lib == {torch.bfloat16: "flash_attention_bwd_sm90",
+                   torch.float32: "flash_attention_bwd_f32_sm90"}[dtype]
+    before = FA.bwd_launches, FA.bwd_kernel_launches[lib]
+    got = FA.flash_attention_bwd(q, k, v, out, dout, lse, causal=causal,
                                  sliding_window=window)
     torch.cuda.synchronize()
-    assert FA.bwd_launches == before + FA.BWD_LAUNCHES_PER_CALL
+    assert (FA.bwd_launches, FA.bwd_kernel_launches[lib]) == tuple(
+        n + FA.BWD_LAUNCHES_PER_CALL for n in before)
     want = FA.flash_attention_bwd_plain(q, k, v, out, dout, causal=causal,
                                         sliding_window=window)
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
@@ -1005,19 +1017,84 @@ def test_flash_bwd_kernel_equals_plain(card, exact_f32, hd, dtype, S, causal,
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_bwd_kernel_is_deterministic(card, dtype):
     """No atomics: two launches on the same inputs give the same bits."""
-    q, k, v, out, dout = _bwd_inputs(2, 1000, 9, 3, 64, dtype, card, True, 0)
-    a = FA.flash_attention_bwd(q, k, v, out, dout)
-    b = FA.flash_attention_bwd(q, k, v, out, dout)
+    q, k, v, out, dout, lse = _bwd_inputs(2, 1000, 9, 3, 64, dtype, card,
+                                          True, 0)
+    a = FA.flash_attention_bwd(q, k, v, out, dout, lse)
+    b = FA.flash_attention_bwd(q, k, v, out, dout, lse)
     for x, y in zip(a, b):
         assert torch.equal(x, y)
 
 
 @pytest.mark.cuda
 def test_flash_bwd_refuses_other_widths(card):
-    q, k, v, out, dout = _bwd_inputs(1, 64, 2, 2, 32, torch.float32, card,
-                                     True, 0)
-    with pytest.raises(ValueError, match="ROADMAP"):
-        FA.flash_attention_bwd(q, k, v, out, dout)
+    q, k, v, out, dout, lse = _bwd_inputs(1, 64, 2, 2, 32, torch.float32,
+                                          card, True, 0, kernel_fwd=False)
+    with pytest.raises(ValueError, match="hd"):
+        FA.flash_attention_bwd(q, k, v, out, dout, lse)
+
+
+# the forward kernels' log-sum-exp against the plain version's: float32
+# logs of the same sums in another order, over scores whose own error is
+# ~1e-6 of their size (bf16 inputs' products in float32, or 3xTF32)
+LSE_TOL = dict(rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0),
+                                           (True, 100)])
+@pytest.mark.parametrize("S", [300, 77, 5])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [8, 16, 64, 80, 128, 256])
+def test_flash_forward_lse_equals_plain(card, exact_f32, hd, dtype, S,
+                                        causal, window):
+    """The lse both forward kernels write when asked, (B, H, S) float32,
+    against the plain version's ``m + log(max(l, 1e-30))``, GQA 9 over 3;
+    and the output bit-equal to a call that asks for none (a null lse
+    pointer)."""
+    q, k, v = _qkv(2, S, 9, 3, hd, dtype, card, seed=S + hd)
+    kw = dict(causal=causal, sliding_window=window)
+    before = FA.launches
+    out, lse = FA.flash_attention(q, k, v, return_lse=True, **kw)
+    bare = FA.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert FA.launches == before + 2
+    assert lse.shape == (2, 9, S) and lse.dtype == torch.float32
+    _, want = FA.flash_attention_plain(q, k, v, return_lse=True, **kw)
+    torch.testing.assert_close(lse, want, **LSE_TOL)
+    assert torch.equal(out, bare)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0),
+                                           (True, 100)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [8, 64, 80, 256])
+def test_flash_simt_bwd_kernel_equals_plain(card, exact_f32, hd, dtype,
+                                            causal, window):
+    """The SIMT backward kernel (``csrc/flash_attention_bwd.cu``, on no
+    route since the tensor-core kernels replaced it) called through its own
+    entry, as ``chip_smoke.py`` times it, still equals the plain version;
+    it counts no launch."""
+    q, k, v, out, dout, _ = _bwd_inputs(2, 300, 9, 3, hd, dtype, card,
+                                        causal, window, seed=hd)
+    fn = getattr(build.load(FA.BWD_SIMT[0]), FA.BWD_SIMT[1])
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    got = [torch.empty_like(t) for t in (q, k, v)]
+    ws = torch.empty(3 * 2 * 9 * 300, dtype=torch.float32, device=card)
+    dev, stream = build.device_and_stream(q)
+    before = FA.bwd_launches
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             dout.data_ptr(), *(t.data_ptr() for t in got), ws.data_ptr(), 2,
+             300, 9, 3, hd, int(causal), window, FA._DTYPES[dtype], dev,
+             stream)
+    torch.cuda.synchronize()
+    assert err == 0 and FA.bwd_launches == before
+    want = FA.flash_attention_bwd_plain(q, k, v, out, dout, causal=causal,
+                                        sliding_window=window)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert _rel_err(a, b) <= BWD_TOL[dtype], (name, _rel_err(a, b))
 
 
 @pytest.mark.cuda
@@ -1030,12 +1107,12 @@ def test_flash_bwd_raises_and_never_falls_back(card, monkeypatch):
     def no_lib(name, *a, **k):
         raise RuntimeError(f"cannot load {name}")
 
-    q, k, v, out, dout = _bwd_inputs(1, 64, 2, 2, 64, torch.float32, card,
-                                     True, 0)
+    q, k, v, out, dout, lse = _bwd_inputs(1, 64, 2, 2, 64, torch.float32,
+                                          card, True, 0)
     monkeypatch.setattr(FA, "flash_attention_bwd_plain", refuse)
     monkeypatch.setattr(build, "load", no_lib)
     with pytest.raises(RuntimeError, match="cannot load"):
-        FA.flash_attention_bwd(q, k, v, out, dout)
+        FA.flash_attention_bwd(q, k, v, out, dout, lse)
 
 
 @pytest.mark.cuda

@@ -21,6 +21,19 @@ from repro_torch.core.interference import InterferenceQuantifier as TQuant
 from repro_torch.core.scheduler import ICOScheduler as TICO
 from test_torch_noise import jax_noise_stream
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for the module's tests: under the suite's
+    several worker processes, torch's default of one thread a core in each
+    makes their small CPU kernels spin against each other, and alone on an
+    8-core CPU the module took 22 s at one thread against 22 s at eight."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 CPU = torch.device("cpu")
 
 

@@ -188,6 +188,10 @@ def test_wrapper_rejects_bad_inputs(bad):
 
 _SM90 = ("flash_attention_sm90", "flash_attention_sm90_launch", 8)
 _F32 = ("flash_attention_f32_sm90", "flash_attention_f32_sm90_launch", 8)
+_BWD = {"bfloat16": ("flash_attention_bwd_sm90",
+                     "flash_attention_bwd_sm90_launch"),
+        "float32": ("flash_attention_bwd_f32_sm90",
+                    "flash_attention_bwd_f32_sm90_launch")}
 
 
 @pytest.mark.parametrize("dtype,hd,lib,symbol,ints", [
@@ -206,11 +210,12 @@ _F32 = ("flash_attention_f32_sm90", "flash_attention_f32_sm90_launch", 8)
 ])
 def test_launch_routes_by_dtype(monkeypatch, dtype, hd, lib, symbol, ints):
     """A fixed route by dtype at every width: bf16 goes to the wgmma/TMA
-    kernel, float32 to the 3xTF32 one, each with 8 ints (no dtype code);
-    one launch, counted once in ``launches`` and in its kernel's
-    ``kernel_launches``, and nothing else is tried.  Either entry is
-    handed the real hd (8 and 80 stay 8 and 80: the wgmma kernel pads its
-    tiles itself)."""
+    kernel, float32 to the 3xTF32 one, each with five pointers (the lse
+    output null unless asked for) and 8 ints (no dtype code); one launch,
+    counted once in ``launches`` and in its kernel's ``kernel_launches``,
+    and nothing else is tried.  Either entry is handed the real hd (8 and
+    80 stay 8 and 80: the wgmma kernel pads its tiles itself).  Asked for
+    the lse, the entry gets a (B, H, S) float32 buffer's pointer."""
     calls = []
 
     class Fn:
@@ -244,9 +249,15 @@ def test_launch_routes_by_dtype(monkeypatch, dtype, hd, lib, symbol, ints):
     assert out.shape == q.shape and out.dtype == q.dtype
     assert len(calls) == 1 and calls[0][0] == lib
     args = calls[0][1]
-    assert len(fns[symbol].argtypes) == 4 + ints + 1
-    assert args[4:11] == (2, 40, 4, 2, hd, 1, 16) and args[-2:] == (0, 7)
-    assert len(args) == 4 + ints + 1
+    assert len(fns[symbol].argtypes) == 5 + ints + 1
+    assert args[3] == out.data_ptr() and args[4] is None
+    assert args[5:12] == (2, 40, 4, 2, hd, 1, 16) and args[-2:] == (0, 7)
+    assert len(args) == 5 + ints + 1
+    out, lse = FA._launch(q, k, v, True, 16, return_lse=True)
+    assert FA.launches == before + 2 and len(calls) == 2
+    assert lse.shape == (2, 4, 40) and lse.dtype == torch.float32
+    assert calls[1][1][4] == lse.data_ptr()
+    assert calls[1][1][5:] == args[5:]
 
 
 def test_route_by_dtype_and_width():
@@ -353,14 +364,25 @@ def test_launch_raises_on_a_failed_launch(monkeypatch):
 
 def _bwd_args(hd, dtype, S=40, H=4, KV=2, seed=9):
     _, (q, k, v) = _qkv(2, S, H, KV, hd, seed, dtype)
-    out = FA.flash_attention_plain(q, k, v).contiguous()
+    out, lse = FA.flash_attention_plain(q, k, v, return_lse=True)
     do = torch.from_numpy(np.random.default_rng(seed).standard_normal(
         q.shape).astype(np.float32)).to(TORCH[dtype])
-    return q, k, v, out, do
+    return q, k, v, out.contiguous(), do, lse
+
+
+def test_plain_out_is_the_same_with_lse():
+    """``return_lse`` adds the log-sum-exp and leaves the output's bits."""
+    for dtype in ("float32", "bfloat16"):
+        _, (q, k, v) = _qkv(2, 40, 4, 2, 16, 3, dtype)
+        out, lse = FA.flash_attention(q, k, v, sliding_window=8,
+                                      return_lse=True)
+        assert torch.equal(out, FA.flash_attention(q, k, v,
+                                                   sliding_window=8))
+        assert lse.shape == (2, 4, 40) and lse.dtype == torch.float32
 
 
 def test_cpu_bwd_takes_plain_and_counts_no_launch(monkeypatch):
-    q, k, v, out, do = _bwd_args(16, "float32")
+    q, k, v, out, do, lse = _bwd_args(16, "float32")
     calls = []
     real = FA.flash_attention_bwd_plain
 
@@ -371,7 +393,7 @@ def test_cpu_bwd_takes_plain_and_counts_no_launch(monkeypatch):
     monkeypatch.setattr(FA, "flash_attention_bwd_plain", spy)
     monkeypatch.setattr(FA.build, "load", lambda name: pytest.fail(name))
     before = FA.bwd_launches
-    dq, dk, dv = FA.flash_attention_bwd(q, k, v, out, do)
+    dq, dk, dv = FA.flash_attention_bwd(q, k, v, out, do, lse)
     assert calls == [1] and FA.bwd_launches == before
     assert dq.shape == q.shape and dk.shape == dv.shape == k.shape
 
@@ -379,11 +401,14 @@ def test_cpu_bwd_takes_plain_and_counts_no_launch(monkeypatch):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("hd", [8, 16, 64, 80, 128, 256])
 def test_bwd_launch_passes_the_shape_and_counts(monkeypatch, dtype, hd):
-    """One call of the backward kernel's entry per backward: nine pointers
-    (q, k, v, out, dout, dq, dk, dv and the 3 B H S float32 scratch of m,
-    l, D), then B, S, H, KV, hd, causal, window, the dtype code and the
-    device, then the stream; ``bwd_launches`` counts its three launches."""
+    """One call of the routed backward entry per backward (bf16 the wgmma
+    library, float32 the 3xTF32 one; nothing else is loaded): ten pointers
+    (q, k, v, out, dout, lse, dq, dk, dv and the 2 B H Sp float32 scratch
+    of lse in log2 units and D, Sp = S rounded up to 64), then B, S, H, KV,
+    hd, causal, window and the device, then the stream; ``bwd_launches``
+    and the library's ``bwd_kernel_launches`` count its three launches."""
     calls = []
+    lib, symbol = _BWD[dtype]
 
     class Fn:
         argtypes = None
@@ -395,31 +420,66 @@ def test_bwd_launch_passes_the_shape_and_counts(monkeypatch, dtype, hd):
     fn = Fn()
 
     class Lib:
-        flash_attention_bwd_launch = fn
+        def __getattr__(self, attr):
+            if attr != symbol:
+                raise AttributeError(attr)
+            return fn
 
     monkeypatch.setattr(FA.build, "load", lambda name: (
-        Lib() if name == "flash_attention_bwd" else pytest.fail(name)))
+        Lib() if name == lib else pytest.fail(name)))
     monkeypatch.setattr(FA.build, "device_and_stream", lambda t: (0, 7))
-    q, k, v, out, do = _bwd_args(hd, dtype)
-    before = FA.bwd_launches
-    dq, dk, dv = FA._launch_bwd(q, k, v, out, do, False, 12)
-    assert FA.bwd_launches == before + FA.BWD_LAUNCHES_PER_CALL == before + 3
+    monkeypatch.setattr(FA.torch, "empty", _spy_empty(seen := []))
+    q, k, v, out, do, lse = _bwd_args(hd, dtype)
+    assert FA.bwd_route(TORCH[dtype], hd) == (lib, symbol)
+    before = FA.bwd_launches, dict(FA.bwd_kernel_launches)
+    dq, dk, dv = FA._launch_bwd(q, k, v, out, do, lse, False, 12)
+    assert FA.bwd_launches == before[0] + FA.BWD_LAUNCHES_PER_CALL
+    assert FA.BWD_LAUNCHES_PER_CALL == 3
+    assert FA.bwd_kernel_launches == {**before[1], lib: before[1][lib] + 3}
     assert len(calls) == 1 and len(fn.argtypes) == 19
     args = calls[0]
     assert args[0] == q.data_ptr() and args[3] == out.data_ptr()
-    assert args[5] == dq.data_ptr() and args[7] == dv.data_ptr()
-    assert args[9:] == (2, 40, 4, 2, hd, 0, 12, FA._DTYPES[q.dtype], 0, 7)
+    assert args[4] == do.data_ptr() and args[5] == lse.data_ptr()
+    assert args[6] == dq.data_ptr() and args[8] == dv.data_ptr()
+    assert seen == [2 * 2 * 4 * 64]      # the scratch: 2 B H Sp floats
+    assert args[10:] == (2, 40, 4, 2, hd, 0, 12, 0, 7)
     assert dq.dtype == dk.dtype == dv.dtype == q.dtype
     assert dk.shape == dv.shape == k.shape
+
+
+def _spy_empty(seen):
+    """torch.empty that records the size of each 1-D float32 buffer."""
+    real = torch.empty
+
+    def empty(*size, **kw):
+        if kw.get("dtype") == torch.float32 and len(size) == 1:
+            seen.append(size[0])
+        return real(*size, **kw)
+    return empty
+
+
+def test_bwd_route_by_dtype_and_width():
+    """The backward's route table: bf16 the wgmma library, float32 the
+    3xTF32 one, at every width; the SIMT backward at none; another width
+    or dtype raises."""
+    for hd in FA.HEAD_DIMS:
+        assert FA.bwd_route(torch.bfloat16, hd) is FA.BWD_SM90
+        assert FA.bwd_route(torch.float32, hd) is FA.BWD_F32
+    assert FA.BWD_SIMT not in (FA.BWD_SM90, FA.BWD_F32)
+    for hd in (4, 32, 96, 512):
+        with pytest.raises(ValueError, match="hd"):
+            FA.bwd_route(torch.bfloat16, hd)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        FA.bwd_route(torch.float16, 64)
 
 
 @pytest.mark.parametrize("hd", [4, 32, 96])
 def test_bwd_launch_refuses_other_widths(monkeypatch, hd):
     monkeypatch.setattr(FA.build, "load", lambda name: pytest.fail(name))
-    q, k, v, out, do = _bwd_args(hd, "bfloat16")
+    q, k, v, out, do, lse = _bwd_args(hd, "bfloat16")
     before = FA.bwd_launches
-    with pytest.raises(ValueError, match="ROADMAP"):
-        FA._launch_bwd(q, k, v, out, do, True, 0)
+    with pytest.raises(ValueError, match="hd"):
+        FA._launch_bwd(q, k, v, out, do, lse, True, 0)
     assert FA.bwd_launches == before
 
 
@@ -432,14 +492,18 @@ def test_bwd_launch_raises_on_a_failed_launch_or_strided_input(monkeypatch):
 
     monkeypatch.setattr(FA.build, "load", lambda name: Lib())
     monkeypatch.setattr(FA.build, "device_and_stream", lambda t: (0, 0))
-    q, k, v, out, do = _bwd_args(64, "float32")
-    before = FA.bwd_launches
-    with pytest.raises(RuntimeError, match="701"):
-        FA._launch_bwd(q, k, v, out, do, True, 0)
-    with pytest.raises(ValueError, match="dout must be contiguous"):
-        FA._launch_bwd(q, k, v, out, do.transpose(1, 2).contiguous()
-                       .transpose(1, 2), True, 0)
-    assert FA.bwd_launches == before
+    for dtype in ("float32", "bfloat16"):
+        q, k, v, out, do, lse = _bwd_args(64, dtype)
+        before = FA.bwd_launches, dict(FA.bwd_kernel_launches)
+        with pytest.raises(RuntimeError, match="701"):
+            FA._launch_bwd(q, k, v, out, do, lse, True, 0)
+        with pytest.raises(ValueError, match="dout must be contiguous"):
+            FA._launch_bwd(q, k, v, out, do.transpose(1, 2).contiguous()
+                           .transpose(1, 2), lse, True, 0)
+        with pytest.raises(ValueError, match="lse must be contiguous"):
+            FA._launch_bwd(q, k, v, out, do, lse.transpose(1, 2)
+                           .contiguous().transpose(1, 2), True, 0)
+        assert (FA.bwd_launches, FA.bwd_kernel_launches) == before
 
 
 def test_model_attention_routes_training_through_the_autograd_function(

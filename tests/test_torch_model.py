@@ -25,6 +25,19 @@ from repro_torch import configs as tconfigs
 from repro_torch.convert import model_params_from_numpy
 from repro_torch.models import model as TM
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for the module's tests: under the suite's
+    several worker processes, torch's default of one thread a core in each
+    makes their small CPU kernels spin against each other, and alone on an
+    8-core CPU the module took 102 s at one thread against 167 s at eight."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 ARCHS = ["zamba2-1.2b", "smollm-135m", "rwkv6-7b", "deepseek-coder-33b",
          "internlm2-20b", "gemma3-4b", "qwen3-moe-235b-a22b", "dbrx-132b",
          "qwen2-vl-72b", "hubert-xlarge"]

@@ -9,6 +9,19 @@ from repro.cluster import motivation as jmot
 from repro_torch.cluster import motivation as tmot
 from test_torch_noise import jax_noise_stream
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for the module's tests: under the suite's
+    several worker processes, torch's default of one thread a core in each
+    makes their small CPU kernels spin against each other, and alone on an
+    8-core CPU the module took 23 s at one thread against 29 s at eight."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 CPU = torch.device("cpu")
 
 

@@ -30,6 +30,18 @@ from repro_torch.core.predictors import svm as tsvm
 CPU = torch.device("cpu")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_thread():
+    """One intra-op thread for the module's tests: under the suite's
+    several worker processes, torch's default of one thread a core in each
+    makes their small CPU kernels spin against each other, and alone on an
+    8-core CPU the module took 32 s at one thread against 49 s at eight."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _linear_data(n=400, d=8, seed=0):
     rng = np.random.default_rng(seed)
     X = rng.normal(0, 1, (n, d))

@@ -138,7 +138,8 @@ def main() -> int:
         CS.say("build", other=tag,
                instantiations=json.dumps(instantiations(CS, build,
                                                         csrc.name)))
-        out[f"flash_ab_{tag}"] = other_ab(torch, CS, build, FA, card, paths)
+        out[f"flash_ab_{tag}"] = other_ab(torch, CS, build, FA, card, paths,
+                                          csrc)
         for name, nums in out[f"flash_ab_{tag}"].items():
             CS.say("flash_ab", other=tag, case=name, **nums)
     smi = subprocess.run(
@@ -154,22 +155,29 @@ def main() -> int:
     return 0
 
 
-def _entry(path, ints):
+def _entry(path, ints, pointers=4):
     fn = getattr(ctypes.CDLL(str(path)), f"{Path(path).name.split('-')[0]}"
                  "_launch")
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * ints + [
+    fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * ints + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def other_ab(torch, CS, build, FA, card, paths):
-    """Another tree's flash kernels (``paths``: library by name) against
-    this tree's routed kernel, causal, at each shape of ``flash_kernel``
-    and ``flash_widths``: the other side is the first of its kernels that
-    takes the shape (a tensor-core entry returns -1 for a width it does
-    not take), the SIMT kernel with its dtype code last; a shape none
-    takes is skipped."""
+def _takes_lse(csrc, lib):
+    """Whether the tree's forward entry takes the log-sum-exp pointer after
+    ``o`` (every tensor-core entry since the backward kernels read it)."""
+    return "void* lse" in (Path(csrc) / f"{lib}.cu").read_text()
+
+
+def other_ab(torch, CS, build, FA, card, paths, csrc):
+    """Another tree's flash kernels (``paths``: library by name, built from
+    ``csrc``) against this tree's routed kernel, causal, at each shape of
+    ``flash_kernel`` and ``flash_widths``: the other side is the first of
+    its kernels that takes the shape (a tensor-core entry returns -1 for a
+    width it does not take), the SIMT kernel with its dtype code last; a
+    shape none takes is skipped.  An entry that takes the log-sum-exp
+    pointer is handed null."""
     g = torch.Generator(device=card).manual_seed(4)
     out = {}
     for name, B, S, H, KV, hd, dt, window, *rest in (*CS.FLASH_CASES,
@@ -182,28 +190,29 @@ def other_ab(torch, CS, build, FA, card, paths):
         dev, stream = build.device_and_stream(q)
         head = (B, S, H, KV, hd, 1, window)
         mine = FA._entry(FA.route(dtype, hd))
-        tried = [(lib, _entry(paths[lib], 8), ()) for lib in (
-            "flash_attention_sm90" if dt == "bfloat16"
-            else "flash_attention_f32_sm90",) if lib in paths]
+        tried = [(lib, _entry(paths[lib], 8, 4 + lse), (None,) * lse, ())
+                 for lib in ("flash_attention_sm90" if dt == "bfloat16"
+                             else "flash_attention_f32_sm90",)
+                 if lib in paths for lse in (int(_takes_lse(csrc, lib)),)]
         if "flash_attention" in paths:
             tried.append(("flash_attention", _entry(
-                paths["flash_attention"], 9), (FA._DTYPES[dtype],)))
+                paths["flash_attention"], 9), (), (FA._DTYPES[dtype],)))
 
-        def call(fn, extra):
+        def call(fn, lse, extra):
             o = torch.empty_like(q)
 
             def run():
                 return fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                          o.data_ptr(), *head, *extra, dev, stream)
+                          o.data_ptr(), *lse, *head, *extra, dev, stream)
             return o, run
 
         runs = {}
-        for tag, lib, fn, extra in (
+        for tag, lib, fn, lse, extra in (
                 *(("other", *t) for t in tried),
-                ("this", FA.route(dtype, hd)[0], mine, ())):
+                ("this", FA.route(dtype, hd)[0], mine, (None,), ())):
             if tag in runs:
                 continue
-            o, run = call(fn, extra)
+            o, run = call(fn, lse, extra)
             err = run()
             if err == -1:
                 continue           # that kernel does not take hd

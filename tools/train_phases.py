@@ -1,13 +1,14 @@
-"""Build the backward flash kernel (and the forward ones) and run
-``chip_smoke.py``'s two training phases on the card, in ~1-2 min:
-``flash_bwd_kernel`` (the kernel against its plain version at smollm-
-135m's, hubert-xlarge's and ``main_hd128``'s shapes in both dtypes, and a
-windowed case; times beside the plain version and SDPA's backward, and
-bounds) and ``train_smollm`` (20 full-size smollm-135m steps through the
-launcher's loop, launch counts, loss fall, a profiled step, a float32
-copy's kernel-path gradients against the plain path's).  Prints ptxas's
-numbers for the backward kernel's entries and the card's name and power
-limit.
+"""Build the backward flash kernels (bf16 wgmma, float32 3xTF32, and the
+SIMT one they replaced) and the forward ones, and run ``chip_smoke.py``'s
+two training phases on the card, in ~1-2 min: ``flash_bwd_kernel`` (the
+kernels against their plain version at smollm-135m's, hubert-xlarge's and
+``main_hd128``'s shapes in both dtypes, and a windowed case; times beside
+the plain version, SDPA's backward (its device time from a profiler
+trace too) and the SIMT kernel, and bounds) and
+``train_smollm`` (20 full-size smollm-135m steps through the launcher's
+loop, launch counts, loss fall, a profiled step, a float32 copy's
+kernel-path gradients against the plain path's).  Prints ptxas's numbers
+for the backward kernels' entries and the card's name and power limit.
 
     python3 tools/train_phases.py [--out chiprun_out/train_phases.json]
 """
@@ -36,15 +37,18 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as FA
 
-    build.build(["flash_attention_sm90", "flash_attention_f32_sm90",
-                 "flash_attention_bwd"])
-    for name, nums in cs.ptxas_summary(
-            build.build_logs.get("flash_attention_bwd", "")).items():
-        cs.say("build", entry=name[-60:], **nums)
+    bwd = ["flash_attention_bwd_sm90", "flash_attention_bwd_f32_sm90",
+           "flash_attention_bwd"]
+    build.build(["flash_attention_sm90", "flash_attention_f32_sm90", *bwd])
+    for lib in bwd:
+        for name, nums in cs.ptxas_summary(
+                build.build_logs.get(lib, "")).items():
+            cs.say("build", lib=lib, entry=name[-60:], **nums)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = torch.device("cuda")
-    out = {"flash_bwd_kernel": cs.phase_flash_bwd_kernel(torch, FA, card)}
+    out = {"flash_bwd_kernel": cs.phase_flash_bwd_kernel(
+        torch, FA, build, card, library_device=True)}
     for name, nums in out["flash_bwd_kernel"].items():
         cs.say("flash_bwd_kernel", case=name, **nums)
     out["train_smollm"] = cs.phase_train_smollm(torch, card, FA)
