@@ -10,7 +10,8 @@ Phases, each printed with its numbers and wall time:
    ``wkv`` kernels kept in ``tools/earlier/`` to be timed beside their
    replacements (one ``nvcc`` per source, all at once), print the
    registers, shared memory and spills of ``runqlat_hist``,
-   ``rollout_tick``, ``ssd_sm90`` and ``wkv``, and of each head width of
+   ``rollout_tick``, ``ssd_sm90``, ``ssd_bwd_sm90``, ``wkv`` and
+   ``wkv_bwd``, and of each head width of
    ``flash_attention_sm90`` and ``flash_attention_f32_sm90`` (8, 16, 64,
    80, 128, 256; a missing one is a failure), the ``HGMMA`` instructions
    in ``flash_attention_sm90``'s SASS and the ``HMMA`` ones in
@@ -145,12 +146,12 @@ Phases, each printed with its numbers and wall time:
     (also against the naive recurrence), at T 100 and 910 (chunks of 100
     and 65) and at P 16, timed beside the plain version and the earlier
     serial-chunk kernel;
-24. the same serving path for rwkv6-7b at full width and depth (7.53 B
-    parameters, ~15 GB of bf16 weights), prompts of 256-1,024 tokens in
-    multiples of 64, the ``wkv`` count set to 0 before and read after (32
-    launches per cohort, none at decode), the same checks (prefill +
-    decode against the forward over a cohort's first 64 tokens) and
-    profiles;
+24. the same serving path for rwkv6-7b at full width on 16 of its 32
+    layers (``RWKV6_SERVE_LAYERS``, to keep the script near 800 s),
+    prompts of 256-1,024 tokens in multiples of 64, the ``wkv`` count set
+    to 0 before and read after (16 launches per cohort, none at decode),
+    the same checks (prefill + decode against the forward over a cohort's
+    first 64 tokens) and profiles;
 25. ``flash_widths``: ``flash_attention`` against its plain version at
     every head width beyond 64 and 128, in both dtypes (hd 8, 16, 80, 256
     at B 2, S 1000, H 8 over KV 4; float32 at 64 and 128 too), and at
@@ -159,10 +160,11 @@ Phases, each printed with its numbers and wall time:
     beside the plain version, SDPA and the SIMT kernel
     (``csrc/flash_attention.cu``) on the same inputs; bf16 must route to
     the wgmma kernel, float32 to the 3xTF32 one;
-26-30. the same serving path (``SERVE_FAMILIES``) for gemma3-4b (full
-    depth, 3.88 B parameters, prompts of 1,025-2,048 tokens so that its
-    window binds), internlm2-20b and deepseek-coder-33b (full depth, 19.86
-    B and 33.34 B, ~40 GB and ~67 GB of bf16 weights), qwen3-moe-235b-a22b
+26-30. the same serving path (``SERVE_FAMILIES``) for gemma3-4b (17 of
+    34 layers, prompts of 1,025-2,048 tokens so that its window binds),
+    internlm2-20b and deepseek-coder-33b (24 of 48 and 31 of 62 layers;
+    the whole models, 19.86 B and 33.34 B parameters, ran before the
+    depth was halved to keep the script near 800 s), qwen3-moe-235b-a22b
     (full width, 8 of 94 layers) and dbrx-132b (6 of 40), one flash launch
     per layer per cohort and none at decode, one 3xTF32 flash launch per
     layer of the float32 copy's kernel prefill; before each, what earlier
@@ -223,10 +225,45 @@ Phases, each printed with its numbers and wall time:
     plain backward, on the plain forward and on the kernel forward, the
     whole kernel path within 1e-2 (the 3xTF32 forward's rounding,
     amplified by the trained model's wq / wk gradients);
-35. ``metric_pipeline``: ``benchmarks/bench_torch_metric_pipeline.py`` at
+35. ``ssd_bwd_kernel``: the SSD backward kernel
+    (``csrc/ssd_bwd_sm90.cu``, four launches a call) against
+    ``ssd_bwd_plain`` (dx, ddt, dA, dB, dC) at zamba2-1.2b's train
+    microbatch (B 4, T 1,024, H 64, P 64, N 64) in bf16 and float32, at a
+    ragged T of 1,000 and at the smoke width (H 8, P 16, N 16), the last
+    two with a final-state gradient; A = -linspace(1, 16, H), where JAX's
+    own gradient is NaN; two calls bitwise equal; timed beside the plain
+    version (CUDA events; device time from CUDA graphs), its bound the
+    larger of bytes and the backward's least products;
+36. ``wkv_bwd_kernel``: the WKV backward kernel (``csrc/wkv_bwd.cu``, four
+    launches a call) against ``wkv_bwd_plain`` (dr, dk, dv, dw, du) at
+    rwkv6-7b's train microbatch (B 4, T 1,024, H 64, P 64, chunks of 64)
+    at the default init's decay 0.302 (the 1e-30 floor binds, JAX's own
+    gradient is NaN) and at real decays with a final-state gradient, and
+    at the smoke width (H 4, P 16); the same checks and times;
+37. ``train_zamba2``: zamba2-1.2b at full size (38 layers, d 2,048, 64 SSD
+    heads of P 64, N 64, the shared attention block six times; 1.17 B
+    parameters, random weights seeded 0) trained by ``train_loop`` for 10
+    steps on ``SyntheticLM(seq 1,024, global batch 8, seed 0)``, remat,
+    accum 2, int8 compression, lr 6e-4; the SSD and flash counts set to 0
+    before and read after (SSD forward 1,480: twice a layer a microbatch
+    under remat, once in the two-layer tail; backward 3,040: four a layer
+    a microbatch; flash 240 and 360 for the six shared-block
+    applications); the loss finite and falling; step ms, tokens/s, peak
+    memory, one more step profiled (busy share, the SSD backward's share
+    of device time); on one microbatch a float32 copy's gradients with
+    the SSD scan's directions swapped (``kernels.scan_function``): the
+    backward kernel against ``ssd_bwd_plain`` on the plain and on the
+    kernel forward, the forward kernel alone, and both kernels against
+    both plain versions, each within 1e-4 of each leaf's largest value
+    (autograd through the plain scan is NaN here, as JAX's);
+38. ``train_rwkv6``: rwkv6-7b at full width (d 4,096, 64 heads of 64,
+    d_ff 14,336, vocab 65,536) on its first 4 of 32 layers (1.41 B
+    parameters; the whole model with AdamW's state would not fit one
+    card), the same loop and checks (WKV forward 160, backward 320);
+39. ``metric_pipeline``: ``benchmarks/bench_torch_metric_pipeline.py`` at
     1,000 and 4,000 nodes x 14 x 256 samples (CUDA events), every sample
     binned once, the histograms equal to the plain version's;
-36. ``colocation``: ``examples/torch_colocation_sim.py`` ``--selftest``
+40. ``colocation``: ``examples/torch_colocation_sim.py`` ``--selftest``
     and its demo on the card (ICO places 14 pods, the smollm smoke model
     serves 8 requests through the wgmma flash kernel (hd 16), Eq. 1 of its
     runqlat histogram).
@@ -2267,6 +2304,413 @@ def phase_train_smollm(torch, card, FA):
 
 
 # --------------------------------------------------------------------------
+# training the scan families: the SSD and WKV backward kernels, then
+# zamba2-1.2b at full size and rwkv6-7b at full width
+# --------------------------------------------------------------------------
+
+SCAN_BWD_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+SSD_GRADS = ("dx", "ddt", "dA", "dB", "dC")
+WKV_GRADS = ("dr", "dk", "dv", "dw", "du")
+# B, T, H, P, N, dtype, final-state gradient: zamba2-1.2b's train
+# microbatch in both types, a ragged T, the smoke width (P = N = 16, 8
+# heads)
+SSD_BWD_CASES = [("train", 4, 1024, 64, 64, 64, "bfloat16", False),
+                 ("train_float32", 4, 1024, 64, 64, 64, "float32", False),
+                 ("ragged", 4, 1000, 64, 64, 64, "bfloat16", True),
+                 ("smoke", 4, 200, 8, 16, 16, "bfloat16", True)]
+# B, T, H, P, decay, final-state gradient: rwkv6-7b's train microbatch at
+# the default init's decay (the floors bind) and at real decays, the smoke
+# width (P 16, 4 heads)
+WKV_BWD_CASES = [("train_clamped", 4, 1024, 64, 64, "clamped", False),
+                 ("train_real", 4, 1024, 64, 64, "real", True),
+                 ("smoke", 4, 1024, 4, 16, "real", True)]
+
+
+def _ssd_bwd_flops(B, T, H, P, N, L=64):
+    """The backward's least products over whole chunks of L steps: per
+    (b, chunk, h) the five P x N x L ones (the chunk's state and dS0
+    shares, dS1 B, dy S0, x dS1; the inter-chunk term of dt's gradient,
+    C_t . exp(cum_t) S0^T dy_t, reuses dy S0) and, over the lower
+    triangle, dy x^T, W^T dy, R B and R^T C; C B^T once per (b, chunk), as
+    no head changes it.  The elementwise work (O(L P) a block beside these
+    O(L P N)) is not counted."""
+    tri = L * (L + 1) // 2
+    nc = -(-T // L)
+    per_head = 2 * (5 * L * P * N + tri * (2 * P + 2 * N))
+    return B * nc * (H * per_head + 2 * tri * N)
+
+
+def _wkv_bwd_flops(B, T, H, P, Lc):
+    """The backward's least products over T / Lc chunks: per (b, chunk,
+    h) the five P x P x Lc ones (the chunk's state and dS0 shares, dy
+    S0^T, v dS1^T, kw dS1) and, over the strict lower triangle, att, datt,
+    datt kd, datt^T qd and att^T dy.  The elementwise work (the decays,
+    dr, dk, dw: O(Lc P) a block beside these O(Lc P^2)) is not counted."""
+    tri = Lc * (Lc - 1) // 2
+    per_chunk = 2 * (5 * Lc * P * P + 5 * tri * P)
+    return B * H * (T // Lc) * per_chunk
+
+
+def _scan_bwd_case(torch, lib, name, args, dy, ds, bwd, bwd_plain, grads,
+                   dtype, nbytes, nops, ops_per_s):
+    """A backward kernel against its plain version on the same inputs:
+    each gradient's max abs error and its share of the largest value (held
+    to SCAN_BWD_TOL), launches per call, two calls bit for bit; times by
+    CUDA events (plain, kernel, kernel, plain) and the kernel's device time
+    from CUDA graphs; the bound, the larger of the bytes over the memory
+    rate and the least products over ``ops_per_s``, and beside it the bound
+    with the products on the float32 CUDA cores."""
+    before = lib.bwd_launches
+    got = bwd(*args, dy, ds)
+    again = bwd(*args, dy, ds)
+    torch.cuda.synchronize()
+    per_call = (lib.bwd_launches - before) // 2
+    if per_call != lib.BWD_LAUNCHES_PER_CALL:
+        raise AssertionError(f"{name}: {per_call} launches a call")
+    want = bwd_plain(*args, dy, ds)
+    tol = SCAN_BWD_TOL[dtype]
+    nums = {}
+    for part, a, b, c in zip(grads, got, want, again):
+        if not torch.equal(a, c):
+            raise AssertionError(f"{name} {part}: two calls differ")
+        if not torch.isfinite(a).all():
+            raise AssertionError(f"{name} {part}: not finite")
+        err = float((a.float() - b.float()).abs().max())
+        rel = err / max(float(b.float().abs().max()), 1e-30)
+        nums[f"max_abs_err_{part}"] = err
+        nums[f"rel_err_{part}"] = rel
+        if rel > tol:
+            raise AssertionError(f"{name} {part}: {rel} of the largest "
+                                 f"value, past {tol}")
+    del got, again, want
+    fns = [("plain", lambda: bwd_plain(*args, dy, ds)),
+           ("kernel", lambda: bwd(*args, dy, ds)),
+           ("kernel2", lambda: bwd(*args, dy, ds)),
+           ("plain2", lambda: bwd_plain(*args, dy, ds))]
+    ms = {n: cuda_ms(fn, iters=3 if n.startswith("plain") else 10, warmup=1)
+          for n, fn in fns}
+    device_ms = graph_ms(torch, fns[1][1], calls=3, replays=3)
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    op_ms = nops / ops_per_s * 1e3
+    return dict(
+        launches_per_call=per_call, deterministic=True, **nums,
+        max_abs_err=max(nums[f"max_abs_err_{p}"] for p in grads),
+        max_rel_err=max(nums[f"rel_err_{p}"] for p in grads),
+        bytes=nbytes, flops=nops, bound_ms=max(byte_ms, op_ms),
+        bound_by="bytes" if byte_ms >= op_ms else "operations",
+        bound_terms_ms=json.dumps({"bytes": byte_ms, "products": op_ms}),
+        cuda_core_bound_ms=max(byte_ms, nops / FP32_OPS_PER_S * 1e3),
+        ms=device_ms, events_ms=min(ms["kernel"], ms["kernel2"]),
+        plain_ms=min(ms["plain"], ms["plain2"]), library_ms=None,
+        runs=json.dumps(ms))
+
+
+def phase_ssd_bwd_kernel(torch, SSD, card):
+    """``ssd_bwd`` (``csrc/ssd_bwd_sm90.cu``) against ``ssd_bwd_plain`` at
+    zamba2-1.2b's train microbatch in bf16 and float32, a ragged T and the
+    smoke width, with and without a final-state gradient; A = -linspace(1,
+    16, H) as the model's init, where JAX's own gradient is NaN.  The bound
+    takes the products at the bf16 tensor cores' rate for bf16 inputs and
+    at 3xTF32's for float32 ones (float32 accuracy on the tensor cores, as
+    the float32 flash bounds take it)."""
+    g = torch.Generator(device=card).manual_seed(11)
+    out = {}
+    for name, B, T, H, P, N, dt_name, with_state in SSD_BWD_CASES:
+        dtype = getattr(torch, dt_name)
+        x = torch.randn((B, T, H, P), generator=g, device=card).to(dtype)
+        dt = torch.rand((B, T, H), generator=g, device=card) * 0.19 + 0.01
+        A = -torch.linspace(1.0, 16.0, H, device=card)
+        Bm, Cm = (torch.randn((B, T, N), generator=g, device=card).to(dtype)
+                  for _ in range(2))
+        dy = torch.randn((B, T, H, P), generator=g, device=card).to(dtype)
+        ds = (torch.randn((B, H, P, N), generator=g, device=card)
+              if with_state else None)
+        es = x.element_size()
+        # x, dy and dx; B, C, dB, dC; dt and ddt; A, dA; the state gradient
+        nbytes = (3 * es * x.numel() + 4 * es * Bm.numel()
+                  + 2 * 4 * dt.numel() + 2 * 4 * H
+                  + (4 * ds.numel() if with_state else 0))
+        out[name] = dict(
+            shape=f"B{B} T{T} H{H} P{P} N{N} {dt_name}"
+                  + (" dstate" if with_state else ""),
+            **_scan_bwd_case(
+                torch, SSD, f"ssd_bwd {name}", (x, dt, A, Bm, Cm), dy, ds,
+                SSD.ssd_bwd, SSD.ssd_bwd_plain, SSD_GRADS, dt_name, nbytes,
+                _ssd_bwd_flops(B, T, H, P, N),
+                BF16_OPS_PER_S if dtype == torch.bfloat16
+                else F32_3XTF32_OPS_PER_S))
+        del x, dt, Bm, Cm, dy, ds
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_wkv_bwd_kernel(torch, R, WKV, card):
+    """``wkv_bwd`` (``csrc/wkv_bwd.cu``) against ``wkv_bwd_plain`` at
+    rwkv6-7b's train microbatch (JAX's chunk rule: chunks of 64) at the
+    default init's decay, where the 1e-30 floor binds from step 57 and
+    JAX's own gradient is NaN, and at real decays with a final-state
+    gradient, and at the smoke width; float32, the products at 3xTF32's
+    rate."""
+    g = torch.Generator(device=card).manual_seed(12)
+    out = {}
+    for name, B, T, H, P, regime, with_state in WKV_BWD_CASES:
+        shape = (B, T, H * P)
+        r, k, v, dy = (torch.randn(shape, generator=g, device=card)
+                       for _ in range(4))
+        w = (torch.full(shape, CLAMPED_W, device=card) if regime == "clamped"
+             else torch.rand(shape, generator=g, device=card) * 0.149 + 0.85)
+        u = torch.randn((H, P), generator=g, device=card) * 0.1
+        ds = (torch.randn((B, H, P, P), generator=g, device=card)
+              if with_state else None)
+        Lc = R.chunk_len(T)
+        # r, k, v, w, dy read, dr, dk, dv, dw written; u, du; dstate
+        nbytes = 4 * (9 * r.numel() + 2 * u.numel()
+                      + (ds.numel() if with_state else 0))
+        out[name] = dict(
+            shape=f"B{B} T{T} H{H} P{P} chunk{Lc} float32 {regime}"
+                  + (" dstate" if with_state else ""),
+            **_scan_bwd_case(
+                torch, WKV, f"wkv_bwd {name}", (r, k, v, w, u, H, Lc), dy,
+                ds, WKV.wkv_bwd, WKV.wkv_bwd_plain, WKV_GRADS, "float32",
+                nbytes, _wkv_bwd_flops(B, T, H, P, Lc),
+                F32_3XTF32_OPS_PER_S))
+        del r, k, v, w, dy, ds
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+TRAIN_SCAN_STEPS = 10
+RWKV6_TRAIN_LAYERS = 4
+
+
+def _launch_plan(cfg, FA, lib, micro):
+    """The launches ``micro`` microbatches of ``train_loss`` under remat
+    make: every layer's scan forward once, twice where remat recomputes it
+    (the repeated pattern, not the tail), its backward once (its calls'
+    launches); the shared attention block's flash forward and backward the
+    same way where it runs."""
+    scanned = len(cfg.pattern) * cfg.repeats
+    specs = cfg.layer_specs()
+    runs = [2 if i < scanned else 1 for i in range(len(specs))]
+    attn = [n for n, s in zip(runs, specs) if s.kind == "mamba_shared_attn"]
+    return {"scan": micro * sum(runs),
+            "scan_bwd": micro * len(specs) * lib.BWD_LAUNCHES_PER_CALL,
+            "flash": micro * sum(attn),
+            "flash_bwd": micro * len(attn) * FA.BWD_LAUNCHES_PER_CALL}
+
+
+def phase_train_scan(torch, card, FA, lib, tag, cfg, fn_name, fwd_name,
+                     fwd_plain, bwd, bwd_plain):
+    """``cfg`` (random weights seeded 0) trained by the launcher's
+    ``train_loop`` for TRAIN_SCAN_STEPS steps on ``SyntheticLM(seq 1,024,
+    global batch 8, seed 0)``: remat, accum 2, int8 compression, lr 6e-4
+    with the launcher's warmup; the scan's and the flash kernels' counts
+    set to 0 before and read after, each held to ``_launch_plan``; the
+    loss finite and falling (mean of the last five steps below the first
+    five's); step ms, tokens/s, peak memory, one more step profiled (busy
+    share, the scan backward's and forward's shares of device time); then
+    on one microbatch a float32 copy's gradients with the scan (``lib``'s
+    ``fn_name``) swapped for a ``scan_function`` that takes each direction
+    from its kernel or its plain version: the backward kernel against
+    ``bwd_plain`` on the plain forward and on the kernel forward, the
+    forward kernel alone, and both kernels against both plain versions,
+    each within TRAIN_GRAD_TOL of each leaf's largest value (the flash
+    kernels run in every variant, so their rounding cancels; the scans'
+    own readings were 2.5e-6 to 3.7e-5)."""
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import scan_function
+    from repro_torch.launch.train import train_loop
+    from repro_torch.models import model as TM
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import make_train_step
+    from repro_torch.train.train_step import batch_to_device
+
+    held_before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    FA.launches, FA.bwd_launches = 0, 0
+    lib.launches, lib.bwd_launches = 0, 0
+    history = []
+    t0 = time.perf_counter()
+    model, opt, losses = train_loop(
+        cfg, steps=TRAIN_SCAN_STEPS, global_batch=TRAIN_B, seq_len=TRAIN_S,
+        accum=TRAIN_ACCUM, compress=True, lr=6e-4, seed=0, device=card,
+        history=history, log_every=5)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = {"scan": lib.launches, "scan_bwd": lib.bwd_launches,
+           "flash": FA.launches, "flash_bwd": FA.bwd_launches}
+    want = _launch_plan(cfg, FA, lib, TRAIN_ACCUM * TRAIN_SCAN_STEPS)
+    if got != want:
+        raise AssertionError(f"{tag} launches {got}, expected {want}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{tag}: a train loss is not finite: {losses}")
+    first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    if not last < first:
+        raise AssertionError(f"{tag}: loss did not fall: {first} -> {last}")
+    step_ms = sorted(h["ms"] for h in history[1:])
+    median = step_ms[len(step_ms) // 2]
+    nums = dict(
+        params=sum(p.numel() for p in model.parameters()),
+        layers=cfg.num_layers, d_model=cfg.d_model, steps=TRAIN_SCAN_STEPS,
+        batch=json.dumps([TRAIN_B, TRAIN_S]), accum=TRAIN_ACCUM,
+        wall_s=wall, first_step_ms=history[0]["ms"],
+        median_step_ms=median, min_step_ms=step_ms[0],
+        tokens_per_s=TRAIN_B * TRAIN_S / (median * 1e-3),
+        loss_first5=first, loss_last5=last,
+        losses=json.dumps([round(x, 4) for x in losses]),
+        grad_norms=json.dumps([round(h["grad_norm"], 4) for h in history]),
+        max_memory_allocated=torch.cuda.max_memory_allocated(),
+        held_by_earlier_phases=held_before,
+        **{f"{k}_launches": v for k, v in got.items()})
+    say(tag, **nums)
+
+    step_fn = make_train_step(model, AdamWConfig(lr=6e-4), accum=TRAIN_ACCUM,
+                              remat=True, compress=True,
+                              schedule_kwargs={"warmup": 10,
+                                               "total": TRAIN_SCAN_STEPS})
+    batch = SyntheticLM(cfg.vocab_size, TRAIN_S, TRAIN_B, seed=0).batch(
+        TRAIN_SCAN_STEPS)
+    state = {"opt": opt}
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state["opt"], _ = step_fn(state["opt"], batch)
+        torch.cuda.synchronize()
+        prof_s = time.perf_counter() - t0
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_us = sum(e.self_device_time_total for e in rows)
+
+    def share(*keys):
+        us = sum(e.self_device_time_total for e in rows
+                 if any(k in e.key for k in keys))
+        return us / device_us if device_us else 0.0
+
+    bwd_key = f"{fwd_name}_bwd_"
+    top = sorted(rows, key=lambda e: -e.self_device_time_total)[:8]
+    prof_nums = dict(
+        profiled_step_ms=prof_s * 1e3, device_us=device_us,
+        device_busy_share=device_us * 1e-6 / prof_s,
+        kernels=sum(e.count for e in rows),
+        scan_bwd_device_share=share(bwd_key),
+        scan_fwd_device_share=share(f"{fwd_name}_kernel",
+                                    f"{fwd_name}_sm90_kernel"),
+        flash_device_share=share("flash_", "bwd_prep", "bwd_dkdv",
+                                 "bwd_dq"),
+        top=json.dumps([[e.key[:48], e.self_device_time_total, e.count]
+                        for e in top]))
+    nums.update(prof_nums)
+    say(tag, part="profile", **prof_nums)
+    del opt, state, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # a float32 copy on one microbatch, the scan's directions swapped
+    wide = widened(torch, model, cfg, card)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    wide.requires_grad_(True)
+    params = list(wide.parameters())
+    names = [n for n, _ in wide.named_parameters()]
+    micro = TRAIN_B // TRAIN_ACCUM
+    tb = batch_to_device({k: v[:micro] for k, v in batch.items()}, card)
+    real = getattr(lib, fn_name)
+    fwds = {"kernel": getattr(lib, fwd_name), "plain": fwd_plain}
+    bwds = {"kernel": bwd, "plain": bwd_plain}
+
+    def grads_of(how):
+        setattr(lib, fn_name, scan_function(fn_name, fwds[how[0]],
+                                            bwds[how[1]]))
+        try:
+            loss, _ = TM.train_loss(wide, tb, remat=True)
+            return float(loss.detach()), torch.autograd.grad(loss, params)
+        finally:
+            setattr(lib, fn_name, real)
+
+    def worst(a_grads, b_grads):
+        out = (0.0, None)
+        for n, a, b in zip(names, a_grads, b_grads):
+            if not torch.isfinite(a).all():
+                raise AssertionError(f"{tag} float32 gradient {n} is not "
+                                     "finite")
+            rel = float((a - b).abs().max()) / max(float(b.abs().max()),
+                                                   1e-30)
+            if rel >= out[0]:
+                out = (rel, n)
+        return out
+
+    lib.launches, lib.bwd_launches = 0, 0
+    loss_k, g_kernel = grads_of(("kernel", "kernel"))
+    f32_counts = {"scan": lib.launches, "scan_bwd": lib.bwd_launches}
+    want = _launch_plan(cfg, FA, lib, 1)
+    if f32_counts != {k: want[k] for k in f32_counts}:
+        raise AssertionError(f"{tag} float32 copy launches {f32_counts}")
+    loss_p, g_plain = grads_of(("plain", "plain"))
+    _, g_bwd_kernel = grads_of(("plain", "kernel"))
+    _, g_fwd_kernel = grads_of(("kernel", "plain"))
+    path, path_leaf = worst(g_kernel, g_plain)
+    bwd_alone, bwd_leaf = worst(g_bwd_kernel, g_plain)
+    bwd_on_kernel_fwd, bwd_fwd_leaf = worst(g_kernel, g_fwd_kernel)
+    fwd_alone, fwd_leaf = worst(g_fwd_kernel, g_plain)
+    cons = dict(float32_loss_kernel=loss_k, float32_loss_plain=loss_p,
+                float32_grad_worst_rel_err=path,
+                float32_grad_worst_leaf=path_leaf,
+                bwd_kernel_alone_worst_rel_err=bwd_alone,
+                bwd_kernel_alone_worst_leaf=bwd_leaf,
+                bwd_kernel_on_kernel_forward_worst_rel_err=bwd_on_kernel_fwd,
+                bwd_kernel_on_kernel_forward_worst_leaf=bwd_fwd_leaf,
+                fwd_kernel_alone_worst_rel_err=fwd_alone,
+                fwd_kernel_alone_worst_leaf=fwd_leaf,
+                **{f"float32_{k}_launches": v for k, v in f32_counts.items()})
+    say(tag, part="float32_grads", **cons)
+    for what, err, leaf in (
+            ("backward kernel alone", bwd_alone, bwd_leaf),
+            ("backward kernel on the kernel forward", bwd_on_kernel_fwd,
+             bwd_fwd_leaf),
+            ("forward kernel alone", fwd_alone, fwd_leaf),
+            ("kernel path vs plain", path, path_leaf)):
+        if not err <= TRAIN_GRAD_TOL:
+            raise AssertionError(f"{tag} float32 gradients, {what}: {err} "
+                                 f"at {leaf}, past {TRAIN_GRAD_TOL}")
+    nums.update(cons)
+    del wide, params, g_kernel, g_plain, g_fwd_kernel, g_bwd_kernel
+    gc.collect()
+    torch.cuda.empty_cache()
+    return nums
+
+
+def phase_train_zamba2(torch, card, FA, SSD):
+    """zamba2-1.2b at full size (38 layers, d 2,048, 64 SSD heads of P 64,
+    N 64, the shared attention block six times; ~1.2 B parameters) through
+    ``phase_train_scan``: the SSD scan forward on ``ssd_sm90`` (float32
+    copy: ``ssd.cu``), its backward on ``ssd_bwd_sm90``."""
+    from repro_torch.configs import get_config
+
+    return phase_train_scan(torch, card, FA, SSD, "train_zamba2",
+                            get_config("zamba2-1.2b"), "SSDScan", "ssd",
+                            SSD.ssd_plain, SSD.ssd_bwd, SSD.ssd_bwd_plain)
+
+
+def phase_train_rwkv6(torch, card, FA, WKV):
+    """rwkv6-7b at full width (d 4,096, 64 heads of 64, d_ff 14,336, vocab
+    65,536) on its first RWKV6_TRAIN_LAYERS of 32 layers (~1.41 B
+    parameters: the whole model's ~7.5 B with AdamW's state would not fit
+    one card) through ``phase_train_scan``: the WKV scan forward on
+    ``wkv.cu``, its backward on ``wkv_bwd.cu``."""
+    from repro_torch.configs import get_config
+
+    cfg = first_layers(get_config("rwkv6-7b"), RWKV6_TRAIN_LAYERS)
+    return phase_train_scan(torch, card, FA, WKV, "train_rwkv6", cfg,
+                            "WKVScan", "wkv", WKV.wkv_plain, WKV.wkv_bwd,
+                            WKV.wkv_bwd_plain)
+
+
+# --------------------------------------------------------------------------
 # the paper's remaining pieces and the reactive control plane
 # --------------------------------------------------------------------------
 
@@ -2977,11 +3421,15 @@ def phase_rollout_scale(torch, np, K, RT, card):
 # of the float32 kernel-vs-plain copy (None: all)).  gemma3's prompts pass
 # its 1,024-token window, so the window binds in prefill and in decode;
 # the MoE models keep the depth whose bf16 weights fit one card beside
-# their caches (8 of qwen3's 94 layers, 6 of dbrx's 40: ~42 GB each)
+# their caches (8 of qwen3's 94 layers, 6 of dbrx's 40: ~42 GB each); the
+# dense ones half their depth (17 of gemma3's 34 layers, two of them
+# global; 24 of internlm2's 48, 31 of deepseek's 62), to keep the whole
+# script near 800 s
+RWKV6_SERVE_LAYERS = 16
 SERVE_FAMILIES = [
-    ("gemma3", "gemma3-4b", 1025, 2048, None, None),
-    ("internlm2", "internlm2-20b", 256, 1024, None, 2),
-    ("deepseek33b", "deepseek-coder-33b", 256, 1024, None, 2),
+    ("gemma3", "gemma3-4b", 1025, 2048, 17, None),
+    ("internlm2", "internlm2-20b", 256, 1024, 24, 2),
+    ("deepseek33b", "deepseek-coder-33b", 256, 1024, 31, 2),
     ("qwen3moe", "qwen3-moe-235b-a22b", 256, 1024, 8, 2),
     ("dbrx", "dbrx-132b", 256, 1024, 6, 2),
 ]
@@ -3351,15 +3799,16 @@ def main() -> int:
                                 "flash_attention_bwd",
                                 "flash_attention_bwd_sm90",
                                 "flash_attention_bwd_f32_sm90", "ssd",
-                                "ssd_sm90",
-                                "wkv"])
+                                "ssd_sm90", "ssd_bwd_sm90", "wkv",
+                                "wkv_bwd"])
         finally:
             earlier.join()
         build.load("runqlat_hist", EARLIER)   # raises if that build failed
         build.load("wkv", EARLIER)
     done("build", ptxas=json.dumps({
         k: v.strip().splitlines()[-2:] for k, v in build.build_logs.items()}))
-    for name in ("runqlat_hist", "rollout_tick", "ssd_sm90", "wkv"):
+    for name in ("runqlat_hist", "rollout_tick", "ssd_sm90", "ssd_bwd_sm90",
+                 "wkv", "wkv_bwd"):
         say("build", kernel=name, ptxas=json.dumps(
             ptxas_summary(build.build_logs.get(name, ""))))
     for lib in ("flash_attention_bwd", "flash_attention_bwd_sm90",
@@ -3435,9 +3884,9 @@ def main() -> int:
     with timers.phase("serve_rwkv6"):
         rserve = phase_serve(
             torch, np, card, "rwkv6-7b", {"wkv": WKV},
-            {"wkv": get_config("rwkv6-7b").num_layers},
+            {"wkv": RWKV6_SERVE_LAYERS},
             lambda rng, n: rng.integers(4, 17, n) * 64, "rwkv6",
-            check_len=64)
+            check_len=64, layers=RWKV6_SERVE_LAYERS)
     done("serve_rwkv6")
 
     # 25. flash at every width beyond 64 and 128, gemma3-4b's prefill among
@@ -3450,7 +3899,7 @@ def main() -> int:
     done("flash_widths")
 
     # 26-30. the remaining model families at full width: gemma3-4b,
-    # internlm2-20b and deepseek-coder-33b at full depth, the MoE models at
+    # internlm2-20b and deepseek-coder-33b at half depth, the MoE models at
     # the depth one card holds; the float32 kernel-vs-plain copy of the
     # large ones is their first two layers (a full float32 copy would not
     # fit beside the bf16 model)
@@ -3515,7 +3964,52 @@ def main() -> int:
     bwd_bf16 = {k: c for k, c in bwdk.items() if "bfloat16" in c["shape"]}
     bwd_f32 = {k: c for k, c in bwdk.items() if "float32" in c["shape"]}
 
-    # 35-36. the metric-pipeline bench and the colocation demo on the card
+    # 35-38. training the scan families: the SSD and WKV backward kernels,
+    # then zamba2-1.2b at full size and rwkv6-7b at full width (4 of 32
+    # layers) through the launcher's loop
+    hold_little("ssd_bwd_kernel")
+    with timers.phase("ssd_bwd_kernel"):
+        ssdb = phase_ssd_bwd_kernel(torch, SSD, card)
+    for name, nums in ssdb.items():
+        say("ssd_bwd_kernel", case=name, **nums)
+    done("ssd_bwd_kernel")
+    with timers.phase("wkv_bwd_kernel"):
+        wkvb = phase_wkv_bwd_kernel(torch, R, WKV, card)
+    for name, nums in wkvb.items():
+        say("wkv_bwd_kernel", case=name, **nums)
+    done("wkv_bwd_kernel")
+    hold_little("train_zamba2")
+    with timers.phase("train_zamba2"):
+        tz = phase_train_zamba2(torch, card, FA, SSD)
+    done("train_zamba2")
+    hold_little("train_rwkv6")
+    with timers.phase("train_rwkv6"):
+        tr = phase_train_rwkv6(torch, card, FA, WKV)
+    done("train_rwkv6")
+    flash_paths["train_zamba2"] = tz["flash_launches"]
+    bwd_paths["train_zamba2"] = tz["flash_bwd_launches"]
+    ssd_paths = {"serve_zamba2": serve["ssd_launches"],
+                 "train_zamba2": tz["scan_launches"]}
+    wkv_paths = {"serve_rwkv6": rserve["wkv_launches"],
+                 "train_rwkv6": tr["scan_launches"]}
+
+    def scan_bwd_entry(name, source, replaces, cases, main, path, nums):
+        return {
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": nums["scan_bwd_launches"],
+            "launches_by_path": {path: nums["scan_bwd_launches"]},
+            "launches_per_call": cases[main]["launches_per_call"],
+            "max_abs_err": max(c["max_abs_err"] for c in cases.values()),
+            "max_rel_err": max(c["max_rel_err"] for c in cases.values()),
+            "cases": {k: {f: c[f] for f in (
+                "ms", "events_ms", "plain_ms", "bound_ms", "bound_by",
+                "cuda_core_bound_ms", "max_rel_err")}
+                for k, c in cases.items()},
+            "ms": cases[main]["ms"], "plain_ms": cases[main]["plain_ms"],
+            "bound_ms": cases[main]["bound_ms"],
+            "bound_by": cases[main]["bound_by"], "library_ms": None}
+
+    # 39-40. the metric-pipeline bench and the colocation demo on the card
     with timers.phase("metric_pipeline"):
         mp = phase_metric_pipeline(torch, K, card)
     done("metric_pipeline", **mp)
@@ -3616,7 +4110,7 @@ def main() -> int:
         "name": "ssd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_sm90.cu",
         "replaces": "src/repro/kernels/ssd.py:66",
-        "launches": serve["ssd_launches"],
+        "launches": sum(ssd_paths.values()), "launches_by_path": ssd_paths,
         "max_abs_err": max(c["max_abs_err"] for c in ssdk.values()),
         "ms": ssdk["main"]["ms"], "plain_ms": ssdk["main"]["plain_ms"],
         "bound_ms": ssdk["main"]["bound_ms"],
@@ -3624,14 +4118,21 @@ def main() -> int:
         "name": "wkv", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/wkv.cu",
         "replaces": "src/repro/kernels/rwkv_wkv.py:69",
-        "launches": rserve["wkv_launches"],
+        "launches": sum(wkv_paths.values()), "launches_by_path": wkv_paths,
         "max_abs_err": max(max(c["max_abs_err_y"], c["max_abs_err_state"])
                            for c in wkvk.values()),
         "ms": wkvk["serve_clamped"]["ms"],
         "plain_ms": wkvk["serve_clamped"]["plain_ms"],
         "bound_ms": wkvk["serve_clamped"]["bound_ms"],
         "bound_by": wkvk["serve_clamped"]["bound_by"],
-        "library_ms": None}]}))
+        "library_ms": None},
+        scan_bwd_entry("ssd_bwd",
+                       "src/repro_torch/kernels/csrc/ssd_bwd_sm90.cu",
+                       "src/repro/models/ssd.py:16", ssdb, "train",
+                       "train_zamba2", tz),
+        scan_bwd_entry("wkv_bwd", "src/repro_torch/kernels/csrc/wkv_bwd.cu",
+                       "src/repro/models/rwkv.py:47", wkvb,
+                       "train_clamped", "train_rwkv6", tr)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

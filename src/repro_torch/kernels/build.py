@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` into its own shared library, loaded with ``ctypes``.  Nothing is
 built when a module is imported: the first wrapper call on a CUDA tensor
 builds (or reuses) the library.  Libraries go to ``kernels/_build/`` (listed
-in ``.gitignore``) under a name that carries a hash of the source and the
-flags, so an edited source is never served from a stale build.
+in ``.gitignore``) under a name that carries a hash of the source, the
+headers (``*.cuh``) of its directory and the flags, so an edited source or
+header is never served from a stale build.
 
 ``build(names)`` starts one ``nvcc`` per source, all at once, and waits for
 them together; ``chip_smoke.py`` calls it up front to time the build.  Both
@@ -46,7 +47,8 @@ def nvcc() -> str:
 
 
 def _target(name: str, csrc: Path) -> Path:
-    src = (csrc / f"{name}.cu").read_bytes()
+    src = (csrc / f"{name}.cu").read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(csrc.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"{name}-{digest[:16]}.so"
 

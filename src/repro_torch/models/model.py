@@ -43,10 +43,11 @@ recomputes the layer's forward (the flash kernel runs twice a layer).
 The parameters are frozen (``requires_grad`` False) as the model is
 built; ``model.requires_grad_()`` switches them on, as the train step
 does.  The encoder's masked-unit loss is the same function over the
-batch's ``mask``.  On a CUDA model only the attention families train: the
-``mamba`` / ``mamba_shared_attn`` and ``rwkv`` layers have no backward
-kernel yet (ROADMAP Queue A item 3), so ``train_loss`` refuses them there;
-on the CPU they train through their kernels' plain versions.
+batch's ``mask``.  Every layer kind trains on a CUDA model: attention
+through ``FlashAttention``, the ``mamba`` / ``mamba_shared_attn`` scans
+through ``SSDScan`` and the ``rwkv`` scan through ``WKVScan``, each a
+forward and a backward kernel; on the CPU the scans train through their
+kernels' plain versions.
 """
 from __future__ import annotations
 
@@ -60,17 +61,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.device import resolve_device
 from repro_torch.models import blocks as Bk
 from repro_torch.models.blocks import DECODE, PREFILL, TRAIN
-from repro_torch.models.common import (
-    MAMBA,
-    MAMBA_SHARED_ATTN,
-    RWKV,
-    ModelConfig,
-    init_dense,
-    rms_norm,
-)
-
-# layer kinds whose kernels have no backward on the card yet
-NO_CARD_BACKWARD = (MAMBA, MAMBA_SHARED_ATTN, RWKV)
+from repro_torch.models.common import ModelConfig, init_dense, rms_norm
 
 
 @dataclasses.dataclass
@@ -221,14 +212,6 @@ def train_loss(model: Model, batch: dict, remat: bool = True):
     prediction (the encoder, whose ``mask`` marks predicted frames).
     Returns (loss, {"loss": detached loss, "tokens": mask.sum()})."""
     cfg = model.cfg
-    if model.device.type == "cuda":
-        kinds = sorted({s.kind for s in cfg.layer_specs()}
-                       & set(NO_CARD_BACKWARD))
-        if kinds:
-            raise NotImplementedError(
-                f"{cfg.name}: training on the card needs backward kernels "
-                f"for {kinds} (ROADMAP Queue A item 3: the ssd and wkv "
-                f"backward kernels)")
     x = model._embed_in(batch.get("tokens"), batch.get("embeds"))
     pos = model._positions(x, 0, batch.get("positions"))
     n_scanned = len(cfg.pattern) * cfg.repeats

@@ -10,7 +10,8 @@ evolves as
 with decay w_t = exp(-exp(min(w0 + LoRA_w(x_t), 0.18))).  ``wkv_chunked``
 (train and prefill) routes to the ``wkv`` kernel wrapper: the Hopper
 kernel on CUDA tensors, its plain version (JAX's chunked arithmetic) on the
-CPU.  ``wkv_decode`` is plain torch.
+CPU; on CUDA tensors that want a gradient to ``WKVScan``, whose backward
+is the backward kernel.  ``wkv_decode`` is plain torch.
 
 Types follow JAX's promotion: the token-shift mix of a bfloat16 activation
 with a float32 ``mu`` is float32, so r, k, v, g, w and the channel mix's
@@ -62,12 +63,28 @@ def wkv_chunked(r, k, v, w, u, num_heads: int, chunk: int = 64, *,
     """Chunked WKV-6.  r/k/v/w: (B, T, H*P), u: (H, P).
 
     Returns (y (B, T, H*P) float32, final_state (B, H, P, P) float32).  On
-    a CUDA tensor ``use_kernel=False`` takes the kernel's plain version.
+    a CUDA tensor ``use_kernel=False`` takes the kernel's plain version
+    (under autograd in training), and where a gradient is wanted (grad
+    enabled, an input that requires it) the kernel path is ``WKVScan``
+    (forward and backward kernels).  The backward kernel takes chunks of at
+    most ``MAX_BWD_CHUNK`` steps, so a T whose chunks are longer (64 < T <
+    128, or T 160) is refused there before the forward runs.  Without a
+    gradient (serving) the forward kernel runs alone; on the CPU autograd
+    runs through the plain version, as JAX differentiates its
+    ``wkv_chunked``.
     """
     Lc = chunk_len(r.shape[1], chunk)
     args = [t.float().contiguous() for t in (r, k, v, w, u)]
-    fn = K.wkv if use_kernel else K.wkv_plain
-    return fn(*args, num_heads, Lc)
+    if not use_kernel:
+        return K.wkv_plain(*args, num_heads, Lc)
+    if (r.device.type == "cuda" and torch.is_grad_enabled()
+            and any(t.requires_grad for t in args)):
+        if Lc > K.MAX_BWD_CHUNK:
+            raise NotImplementedError(
+                f"wkv_chunked: T={r.shape[1]} gives chunks of {Lc} steps; "
+                f"the backward kernel takes at most {K.MAX_BWD_CHUNK}")
+        return K.WKVScan.apply(*args, num_heads, Lc)
+    return K.wkv(*args, num_heads, Lc)
 
 
 def wkv_decode(r, k, v, w, u, state):

@@ -5,9 +5,11 @@ scalar decay per step:
 
     S_t = exp(dt_t * A_h) S_{t-1} + dt_t * x_t B_t^T,    y_t = S_t C_t
 
-``ssd_chunked`` (prefill) routes to the ``ssd`` kernel wrapper: the Hopper
-kernel on CUDA tensors, its plain version (JAX's chunked arithmetic) on
-the CPU.  ``ssd_decode`` and ``causal_conv1d`` are plain torch.
+``ssd_chunked`` (train and prefill) routes to the ``ssd`` kernel wrapper:
+the Hopper kernel on CUDA tensors, its plain version (JAX's chunked
+arithmetic) on the CPU; on CUDA tensors that want a gradient to
+``SSDScan``, whose backward is the backward kernel.  ``ssd_decode`` and
+``causal_conv1d`` are plain torch.
 """
 from __future__ import annotations
 
@@ -23,11 +25,21 @@ def ssd_chunked(x, dt, A, B_, C, *, use_kernel: bool = True):
     Single B/C group shared across heads.  Returns (y (B,T,H,P) like x,
     final_state (B,H,P,N) float32).  Any T: a ragged last chunk is padded
     (JAX's ``ssd_chunked`` asserts that chunks tile T).  On a CUDA tensor
-    ``use_kernel=False`` takes the kernel's plain version.
+    ``use_kernel=False`` takes the kernel's plain version (under autograd
+    in training), and where a gradient is wanted (grad enabled, an input
+    that requires it) the kernel path is ``SSDScan`` (forward and backward
+    kernels).  Without a gradient (serving) the forward kernel runs alone;
+    on the CPU autograd runs through the plain version, as JAX
+    differentiates its ``ssd_chunked``.
     """
     args = (x.contiguous(), dt.float().contiguous(), A.float().contiguous(),
             B_.contiguous(), C.contiguous())
-    return K.ssd(*args) if use_kernel else K.ssd_plain(*args)
+    if not use_kernel:
+        return K.ssd_plain(*args)
+    if (x.device.type == "cuda" and torch.is_grad_enabled()
+            and any(t.requires_grad for t in args)):
+        return K.SSDScan.apply(*args)
+    return K.ssd(*args)
 
 
 def ssd_decode(x, dt, A, B_, C, state):

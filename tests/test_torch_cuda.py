@@ -16,7 +16,7 @@ from repro_torch.cluster.fleet import make_fleet
 from repro_torch.cluster.simulator import Cluster
 from repro_torch.cluster.workloads import Pod, online_arrays
 from repro_torch.configs import get_smoke_config
-from repro_torch.kernels import build
+from repro_torch.kernels import build, scan_function
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import rollout_tick as RT
 from repro_torch.kernels import runqlat_hist as K
@@ -1197,13 +1197,214 @@ def test_training_gradients_kernel_path_equal_plain(card, exact_f32, arch):
         assert _rel_err(a, b) <= BWD_TOL[torch.float32]
 
 
-@pytest.mark.cuda
-def test_card_training_refuses_scan_layers(card):
-    from repro_torch.models import model as TM
+# ---------------------------------------------- the scans' backward kernels
 
-    model = Model(get_smoke_config("zamba2-1.2b"), device=card)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TM.train_loss(model, {"tokens": torch.zeros((1, 4), dtype=torch.long,
-                                                    device=card),
-                              "labels": torch.zeros((1, 4), dtype=torch.long,
-                                                    device=card)})
+def _scan_grads_close(got, want, dtype, names):
+    """Each gradient's max abs error within BWD_TOL of its largest value:
+    float32, the same float32 terms in another order; bf16 outputs, a bf16
+    ulp of a value near the largest."""
+    for name, a, b in zip(names, got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        assert torch.isfinite(a).all(), name
+        assert _rel_err(a, b) <= BWD_TOL[dtype], (name, _rel_err(a, b))
+
+
+SSD_GRADS = ("dx", "ddt", "dA", "dB", "dC")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,P,N,dtype,with_state", [
+    (4, 1024, 64, 64, 64, torch.bfloat16, False),   # zamba2-1.2b's microbatch
+    (4, 1024, 64, 64, 64, torch.float32, True),
+    (2, 1000, 4, 64, 64, torch.bfloat16, True),     # a ragged last chunk
+    (2, 37, 3, 16, 16, torch.float32, False),       # one short chunk
+    (2, 200, 8, 16, 16, torch.bfloat16, True),      # the smoke width
+    (1, 130, 2, 48, 32, torch.float32, True),
+    (2, 65, 5, 24, 40, torch.float32, False),       # P, N off the 16 grid
+])
+def test_ssd_bwd_kernel_equals_plain(card, exact_f32, B, T, H, P, N, dtype,
+                                     with_state):
+    """Every gradient of the SSD backward kernel against ``ssd_bwd_plain``
+    on the same inputs (A in [-16, -1], as the model's init, where JAX's
+    own gradient is NaN): 1e-4 of each gradient's largest value in float32,
+    1e-2 in bf16; four launches a call."""
+    inp = _ssd_inputs(B, T, H, P, N, dtype, card, seed=T + P,
+                      a_range=(1.0, 16.0))
+    g = torch.Generator(device=card).manual_seed(T)
+    dy = torch.randn(inp[0].shape, generator=g, device=card).to(dtype)
+    ds = (torch.randn((B, H, P, N), generator=g, device=card)
+          if with_state else None)
+    before = SSD.bwd_launches
+    got = SSD.ssd_bwd(*inp, dy, ds)
+    torch.cuda.synchronize()
+    assert SSD.bwd_launches == before + SSD.BWD_LAUNCHES_PER_CALL
+    _scan_grads_close(got, SSD.ssd_bwd_plain(*inp, dy, ds), dtype, SSD_GRADS)
+
+
+@pytest.mark.cuda
+def test_ssd_bwd_kernel_is_deterministic(card):
+    """No atomics, fixed orders of summation: two calls, the same bits."""
+    inp = _ssd_inputs(2, 1000, 8, 64, 64, torch.bfloat16, card, seed=5,
+                      a_range=(1.0, 16.0))
+    dy = torch.randn(inp[0].shape, device=card).bfloat16()
+    first = SSD.ssd_bwd(*inp, dy)
+    again = SSD.ssd_bwd(*inp, dy)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.cuda
+def test_ssd_scan_backward_launches_the_kernel(card, monkeypatch):
+    """``SSDScan`` on CUDA tensors: the forward and backward kernels, never
+    a plain version; the dropped final state's gradient arrives as None."""
+    def refuse(*a, **k):
+        raise AssertionError("plain version called for a CUDA tensor")
+
+    monkeypatch.setattr(SSD, "ssd_plain", refuse)
+    monkeypatch.setattr(SSD, "ssd_bwd_plain", refuse)
+    inp = [t.requires_grad_() for t in _ssd_inputs(
+        2, 100, 4, 32, 16, torch.bfloat16, card, seed=1)]
+    fwd, bwd = SSD.launches, SSD.bwd_launches
+    y, _ = SSD.SSDScan.apply(*inp)
+    y.float().sum().backward()
+    torch.cuda.synchronize()
+    assert (SSD.launches - fwd, SSD.bwd_launches - bwd) == (
+        1, SSD.BWD_LAUNCHES_PER_CALL)
+    assert all(t.grad is not None and torch.isfinite(t.grad).all()
+               for t in inp)
+
+
+WKV_GRADS = ("dr", "dk", "dv", "dw", "du")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,H,P,Lc,regime,with_state", [
+    (4, 1024, 64, 64, 64, "clamped", False),   # rwkv6-7b's microbatch
+    (4, 1024, 64, 64, 64, "real", True),
+    (2, 64, 4, 16, 64, "clamped", True),       # the smoke width, floors bind
+    (2, 96, 3, 16, 32, "real", False),
+    (1, 40, 2, 64, 40, "clamped", True),       # one chunk of 40
+    (2, 128, 2, 12, 16, "real", True),
+])
+def test_wkv_bwd_kernel_equals_plain(card, exact_f32, B, T, H, P, Lc, regime,
+                                     with_state):
+    """Every gradient of the WKV backward kernel against ``wkv_bwd_plain``
+    on the same float32 inputs: 1e-4 of each gradient's largest value, at
+    the default init's decay (the 1e-30 floor binds from step 57) and at
+    real decays; four launches a call."""
+    inp = _wkv_inputs(B, T, H, P, regime, card, seed=T + P)
+    g = torch.Generator(device=card).manual_seed(T)
+    dy = torch.randn(inp[0].shape, generator=g, device=card)
+    ds = (torch.randn((B, H, P, P), generator=g, device=card)
+          if with_state else None)
+    before = WKV.bwd_launches
+    got = WKV.wkv_bwd(*inp, H, Lc, dy, ds)
+    torch.cuda.synchronize()
+    assert WKV.bwd_launches == before + WKV.BWD_LAUNCHES_PER_CALL
+    _scan_grads_close(got, WKV.wkv_bwd_plain(*inp, H, Lc, dy, ds),
+                      torch.float32, WKV_GRADS)
+
+
+@pytest.mark.cuda
+def test_wkv_bwd_kernel_is_deterministic_and_refuses_long_chunks(card):
+    inp = _wkv_inputs(2, 1024, 16, 64, "real", card, seed=9)
+    dy = torch.randn(inp[0].shape, device=card)
+    first = WKV.wkv_bwd(*inp, 16, 64, dy)
+    again = WKV.wkv_bwd(*inp, 16, 64, dy)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    before = WKV.bwd_launches
+    with pytest.raises(ValueError, match="chunks"):
+        WKV.wkv_bwd(*inp, 16, 128, dy)
+    assert WKV.bwd_launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["zamba2-1.2b", "rwkv6-7b"])
+def test_scan_models_train_on_the_card(card, exact_f32, arch):
+    """One ``make_train_step`` step of the smoke config (remat, accum 2,
+    compression) on the card: each scan's forward kernel twice a layer a
+    microbatch where remat recomputes it (once in zamba2's tail) and its
+    backward kernel once, finite metrics; then a float32 copy's gradients
+    with the scan swapped for a ``scan_function`` of each pair of
+    directions: the backward kernel alone, the forward kernel alone and
+    both kernels, each within 1e-4 of each leaf's largest value of the
+    plain directions' (the plain forward and ``*_bwd_plain``: autograd
+    through the float32 plain scan is NaN at this init)."""
+    import dataclasses
+
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import model as TM
+    from repro_torch.train import init_train_state, make_train_step
+    from repro_torch.train.train_step import batch_to_device
+
+    lib, fn_name = (SSD, "SSDScan") if arch == "zamba2-1.2b" else \
+        (WKV, "WKVScan")
+    cfg = get_smoke_config(arch)
+    model, opt = init_train_state(Model(cfg, device=card),
+                                  torch.Generator(device=card).manual_seed(0),
+                                  compress=True)
+    step = make_train_step(model, accum=2, compress=True)
+    batch = SyntheticLM(cfg.vocab_size, 128, 4, seed=0).batch(0)
+    fwd, bwd = lib.launches, lib.bwd_launches
+    opt, m = step(opt, batch)
+    torch.cuda.synchronize()
+    scanned = len(cfg.pattern) * cfg.repeats       # under remat
+    assert lib.launches - fwd == (cfg.num_layers + scanned) * 2
+    assert lib.bwd_launches - bwd == (cfg.num_layers * 2
+                                      * lib.BWD_LAUNCHES_PER_CALL)
+    assert np.isfinite(float(m["loss"])) and np.isfinite(
+        float(m["grad_norm"]))
+
+    wide = Model(dataclasses.replace(cfg, dtype=torch.float32), device=card)
+    with torch.no_grad():
+        for (_, a), (_, b) in zip(wide.named_parameters(),
+                                  model.named_parameters()):
+            a.copy_(b)
+    wide.requires_grad_(True)
+    names = [n for n, _ in wide.named_parameters()]
+    tb = batch_to_device(batch, card)
+    real = getattr(lib, fn_name)
+    fwds = {"kernel": lib.ssd if lib is SSD else lib.wkv,
+            "plain": lib.ssd_plain if lib is SSD else lib.wkv_plain}
+    bwds = {"kernel": lib.ssd_bwd if lib is SSD else lib.wkv_bwd,
+            "plain": lib.ssd_bwd_plain if lib is SSD else lib.wkv_bwd_plain}
+    grads = {}
+    for how in (("kernel", "kernel"), ("plain", "kernel"), ("kernel", "plain"),
+                ("plain", "plain")):
+        setattr(lib, fn_name, scan_function(fn_name, fwds[how[0]],
+                                            bwds[how[1]]))
+        before = lib.bwd_launches
+        try:
+            loss, _ = TM.train_loss(wide, tb)
+            grads[how] = torch.autograd.grad(loss, list(wide.parameters()))
+        finally:
+            setattr(lib, fn_name, real)
+        assert (lib.bwd_launches > before) == (how[1] == "kernel")
+    # each kernel alone and both together: float32 sums in another order
+    plain = grads["plain", "plain"]
+    for how in (("kernel", "kernel"), ("plain", "kernel"), ("kernel", "plain")):
+        for name, a, c in zip(names, grads[how], plain):
+            assert torch.isfinite(a).all(), (how, name)
+            assert _rel_err(a, c) <= BWD_TOL[torch.float32], (
+                how, name, _rel_err(a, c))
+
+
+@pytest.mark.cuda
+def test_wkv_chunked_refuses_long_chunks_before_the_forward(card):
+    """The backward kernel takes chunks of at most 64 steps: where a
+    gradient is wanted on the card at a T whose chunks are longer (T 100:
+    one chunk of 100; T 160: two of 80), ``wkv_chunked`` refuses before the
+    forward kernel runs; without a gradient that T runs on the forward
+    kernel as before."""
+    for T in (100, 160):
+        inp = _wkv_inputs(1, T, 2, 16, "real", card, seed=T)
+        leaves = [t.requires_grad_() for t in inp]
+        fwd, bwd = WKV.launches, WKV.bwd_launches
+        with pytest.raises(NotImplementedError, match="chunks of"):
+            trwkv.wkv_chunked(*leaves, 2)
+        assert (WKV.launches, WKV.bwd_launches) == (fwd, bwd)
+        with torch.no_grad():
+            y, _ = trwkv.wkv_chunked(*inp, 2)
+        torch.cuda.synchronize()
+        assert WKV.launches == fwd + 1 and torch.isfinite(y).all()

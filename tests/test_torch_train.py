@@ -311,19 +311,6 @@ def test_loss_decreases():
     assert losses[-1] < losses[0] - 0.1, losses
 
 
-def test_card_training_refuses_scan_layers_without_backward_kernels():
-    """On a CUDA model ``train_loss`` raises for the mamba and rwkv kinds
-    (no backward kernel yet) and names the ROADMAP item; nothing runs."""
-    class OnCard(TM.Model):
-        device = property(lambda self: torch.device("cuda"))
-
-    for arch in ("zamba2-1.2b", "rwkv6-7b"):
-        model = OnCard(tconfigs.get_smoke_config(arch), device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TM.train_loss(model, {"tokens": torch.zeros((1, 4), dtype=torch.long),
-                                  "labels": torch.zeros((1, 4), dtype=torch.long)})
-
-
 def test_cross_entropy_matches_jax():
     rng = np.random.default_rng(0)
     logits = rng.standard_normal((2, 9, 33)).astype(np.float32) * 4

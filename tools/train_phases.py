@@ -1,16 +1,24 @@
-"""Build the backward flash kernels (bf16 wgmma, float32 3xTF32, and the
-SIMT one they replaced) and the forward ones, and run ``chip_smoke.py``'s
-two training phases on the card, in ~1-2 min: ``flash_bwd_kernel`` (the
-kernels against their plain version at smollm-135m's, hubert-xlarge's and
-``main_hd128``'s shapes in both dtypes, and a windowed case; times beside
-the plain version, SDPA's backward (its device time from a profiler
-trace too) and the SIMT kernel, and bounds) and
+"""Build the kernels one architecture trains through and run
+``chip_smoke.py``'s training phases for it on the card, with the
+backward kernels' ptxas numbers and the card's name and power limit.
+
+``--arch smollm-135m`` (the default, ~1-2 min): ``flash_bwd_kernel`` (the
+backward flash kernels against their plain version at smollm-135m's,
+hubert-xlarge's and ``main_hd128``'s shapes in both dtypes, and a windowed
+case; times beside the plain version, SDPA's backward (its device time
+from a profiler trace too) and the SIMT kernel, and bounds) and
 ``train_smollm`` (20 full-size smollm-135m steps through the launcher's
 loop, launch counts, loss fall, a profiled step, a float32 copy's
-kernel-path gradients against the plain path's).  Prints ptxas's numbers
-for the backward kernels' entries and the card's name and power limit.
+kernel-path gradients against the plain path's).
 
-    python3 tools/train_phases.py [--out chiprun_out/train_phases.json]
+``--arch zamba2-1.2b``: ``ssd_bwd_kernel`` (the SSD backward kernel
+against ``ssd_bwd_plain`` at zamba2-1.2b's train microbatch in bf16 and
+float32, a ragged T and the smoke width) and ``train_zamba2`` (the full
+model through the launcher's loop).  ``--arch rwkv6-7b``:
+``wkv_bwd_kernel`` and ``train_rwkv6`` (full width, 4 of 32 layers).
+``--arch all`` runs the three in turn.
+
+    python3 tools/train_phases.py [--arch A] [--out train_phases.json]
 """
 from __future__ import annotations
 
@@ -21,10 +29,23 @@ import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ARCHS = ("smollm-135m", "zamba2-1.2b", "rwkv6-7b")
+# the libraries each architecture's phases build
+LIBS = {"smollm-135m": ["flash_attention_bwd_sm90",
+                        "flash_attention_bwd_f32_sm90",
+                        "flash_attention_bwd", "flash_attention_sm90",
+                        "flash_attention_f32_sm90"],
+        "zamba2-1.2b": ["ssd_bwd_sm90", "ssd_sm90", "ssd",
+                        "flash_attention_bwd_sm90",
+                        "flash_attention_bwd_f32_sm90",
+                        "flash_attention_sm90", "flash_attention_f32_sm90"],
+        "rwkv6-7b": ["wkv_bwd", "wkv"]}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="smollm-135m",
+                    choices=(*ARCHS, "all"))
     ap.add_argument("--out", default=None, help="write the numbers here")
     args = ap.parse_args()
     import torch
@@ -36,22 +57,43 @@ def main() -> int:
     import chip_smoke as cs
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import rwkv_wkv as WKV
+    from repro_torch.kernels import ssd as SSD
+    from repro_torch.models import rwkv as R
 
-    bwd = ["flash_attention_bwd_sm90", "flash_attention_bwd_f32_sm90",
-           "flash_attention_bwd"]
-    build.build(["flash_attention_sm90", "flash_attention_f32_sm90", *bwd])
-    for lib in bwd:
-        for name, nums in cs.ptxas_summary(
-                build.build_logs.get(lib, "")).items():
-            cs.say("build", lib=lib, entry=name[-60:], **nums)
+    archs = ARCHS if args.arch == "all" else (args.arch,)
+    libs = sorted({lib for a in archs for lib in LIBS[a]})
+    build.build(libs)
+    for lib in libs:
+        if "bwd" in lib:   # the backward kernels' ptxas numbers
+            for name, nums in cs.ptxas_summary(
+                    build.build_logs.get(lib, "")).items():
+                cs.say("build", lib=lib, entry=name[-60:], **nums)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = torch.device("cuda")
-    out = {"flash_bwd_kernel": cs.phase_flash_bwd_kernel(
-        torch, FA, build, card, library_device=True)}
-    for name, nums in out["flash_bwd_kernel"].items():
-        cs.say("flash_bwd_kernel", case=name, **nums)
-    out["train_smollm"] = cs.phase_train_smollm(torch, card, FA)
+    phases = {
+        "smollm-135m": [
+            ("flash_bwd_kernel", lambda: cs.phase_flash_bwd_kernel(
+                torch, FA, build, card, library_device=True)),
+            ("train_smollm", lambda: cs.phase_train_smollm(torch, card, FA))],
+        "zamba2-1.2b": [
+            ("ssd_bwd_kernel", lambda: cs.phase_ssd_bwd_kernel(
+                torch, SSD, card)),
+            ("train_zamba2", lambda: cs.phase_train_zamba2(
+                torch, card, FA, SSD))],
+        "rwkv6-7b": [
+            ("wkv_bwd_kernel", lambda: cs.phase_wkv_bwd_kernel(
+                torch, R, WKV, card)),
+            ("train_rwkv6", lambda: cs.phase_train_rwkv6(
+                torch, card, FA, WKV))]}
+    out = {}
+    for a in archs:
+        for name, run in phases[a]:
+            out[name] = run()
+            if name.endswith("_kernel"):
+                for case, nums in out[name].items():
+                    cs.say(name, case=case, **nums)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
