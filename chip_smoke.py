@@ -238,8 +238,10 @@ Phases, each printed with its numbers and wall time:
     launches a call) against ``wkv_bwd_plain`` (dr, dk, dv, dw, du) at
     rwkv6-7b's train microbatch (B 4, T 1,024, H 64, P 64, chunks of 64)
     at the default init's decay 0.302 (the 1e-30 floor binds, JAX's own
-    gradient is NaN) and at real decays with a final-state gradient, and
-    at the smoke width (H 4, P 16); the same checks and times;
+    gradient is NaN) and at real decays with a final-state gradient, at
+    the smoke width (H 4, P 16), and at rwkv6-7b's width at T 160 (JAX's
+    rule: two chunks of 80 steps) at both decays; the same checks and
+    times;
 37. ``train_zamba2``: zamba2-1.2b at full size (38 layers, d 2,048, 64 SSD
     heads of P 64, N 64, the shared attention block six times; 1.17 B
     parameters, random weights seeded 0) trained by ``train_loop`` for 10
@@ -2320,10 +2322,13 @@ SSD_BWD_CASES = [("train", 4, 1024, 64, 64, 64, "bfloat16", False),
                  ("smoke", 4, 200, 8, 16, 16, "bfloat16", True)]
 # B, T, H, P, decay, final-state gradient: rwkv6-7b's train microbatch at
 # the default init's decay (the floors bind) and at real decays, the smoke
-# width (P 16, 4 heads)
+# width (P 16, 4 heads), and rwkv6-7b's width at T 160, where JAX's rule
+# gives two chunks of 80 steps (the kernel's two 64-row halves)
 WKV_BWD_CASES = [("train_clamped", 4, 1024, 64, 64, "clamped", False),
                  ("train_real", 4, 1024, 64, 64, "real", True),
-                 ("smoke", 4, 1024, 4, 16, "real", True)]
+                 ("smoke", 4, 1024, 4, 16, "real", True),
+                 ("long_chunks_clamped", 4, 160, 64, 64, "clamped", False),
+                 ("long_chunks_real", 4, 160, 64, 64, "real", True)]
 
 
 def _ssd_bwd_flops(B, T, H, P, N, L=64):
@@ -2450,8 +2455,9 @@ def phase_wkv_bwd_kernel(torch, R, WKV, card):
     rwkv6-7b's train microbatch (JAX's chunk rule: chunks of 64) at the
     default init's decay, where the 1e-30 floor binds from step 57 and
     JAX's own gradient is NaN, and at real decays with a final-state
-    gradient, and at the smoke width; float32, the products at 3xTF32's
-    rate."""
+    gradient, at the smoke width, and at T 160 (two chunks of 80: the
+    kernel's two 64-row halves) at both decays; float32, the products at
+    3xTF32's rate."""
     g = torch.Generator(device=card).manual_seed(12)
     out = {}
     for name, B, T, H, P, regime, with_state in WKV_BWD_CASES:
@@ -3811,6 +3817,11 @@ def main() -> int:
                  "wkv", "wkv_bwd"):
         say("build", kernel=name, ptxas=json.dumps(
             ptxas_summary(build.build_logs.get(name, ""))))
+    for lib in ("ssd_bwd_sm90", "wkv_bwd"):  # the scan backwards spill none
+        spills = {e: v["spill_stores"] for e, v in ptxas_summary(
+            build.build_logs.get(lib, "")).items() if v.get("spill_stores")}
+        if spills:
+            raise AssertionError(f"{lib} spills: {spills}")
     for lib in ("flash_attention_bwd", "flash_attention_bwd_sm90",
                 "flash_attention_bwd_f32_sm90"):
         bwd_ptxas = ptxas_summary(build.build_logs.get(lib, ""))
@@ -3994,9 +4005,17 @@ def main() -> int:
                  "train_rwkv6": tr["scan_launches"]}
 
     def scan_bwd_entry(name, source, replaces, cases, main, path, nums):
+        # ptxas's numbers only where this run compiled the library: a build
+        # reused from an earlier run in this checkout has no log (null)
+        log = build.build_logs.get(os.path.basename(source)[:-3])
+        ptxas = ptxas_summary(log) if log else None
         return {
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": nums["scan_bwd_launches"],
+            "ptxas_max_registers": None if ptxas is None else max(
+                (v.get("registers", 0) for v in ptxas.values()), default=0),
+            "ptxas_spill_stores": None if ptxas is None else sum(
+                v.get("spill_stores", 0) for v in ptxas.values()),
             "launches_by_path": {path: nums["scan_bwd_launches"]},
             "launches_per_call": cases[main]["launches_per_call"],
             "max_abs_err": max(c["max_abs_err"] for c in cases.values()),

@@ -37,12 +37,11 @@ import torch
 from repro_torch.kernels import build, plain_dtype, scan_function
 
 MAX_P = 64          # the kernel's bound on the head size P (a multiple of 4)
-MAX_CHUNK = 128     # the kernel's bound on the chunk length
+MAX_CHUNK = 128     # the kernels' bound on the chunk length (both directions)
 
 launches = 0
 bwd_launches = 0
 BWD_LAUNCHES_PER_CALL = 4   # chunk states, the chain, the chunks, du's sum
-MAX_BWD_CHUNK = 64          # the backward kernel's bound on the chunk length
 W_FLOOR, A_FLOOR = 1e-38, 1e-30   # JAX's floors on w and on A_incl
 
 
@@ -305,9 +304,9 @@ def _launch_bwd(r, k, v, w, u, num_heads, chunk_len, dy, dstate):
             raise ValueError(f"wkv_bwd: {name} must be contiguous")
     if not 0 < P <= MAX_P:
         raise ValueError(f"wkv_bwd kernel takes P <= {MAX_P}, got P={P}")
-    if chunk_len > MAX_BWD_CHUNK:
+    if chunk_len > MAX_CHUNK:
         raise ValueError(f"wkv_bwd kernel takes chunks of at most "
-                         f"{MAX_BWD_CHUNK} steps, got {chunk_len}")
+                         f"{MAX_CHUNK} steps, got {chunk_len}")
     if r.numel() >= 2**31:
         raise ValueError("wkv_bwd: too large for 32-bit indexing")
     fn = _bwd_entry()
@@ -340,8 +339,9 @@ def wkv_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Gradients (dr, dk, dv, dw, du) of ``wkv(r, k, v, w, u, num_heads,
     chunk_len)`` for the output gradient ``dy`` (B, T, H*P) and the final
     state's ``dstate`` ((B, H, P, P), or None for zero): the kernel
-    ``csrc/wkv_bwd.cu`` on CUDA tensors (float32, chunks of at most 64
-    steps), ``wkv_bwd_plain`` on the CPU."""
+    ``csrc/wkv_bwd.cu`` on CUDA tensors (float32, chunks of at most
+    ``MAX_CHUNK`` steps, as the forward kernel), ``wkv_bwd_plain`` on
+    the CPU."""
     _check(r, k, v, w, u, num_heads, chunk_len)
     if dy.shape != r.shape or dy.device != r.device:
         raise ValueError(f"wkv_bwd: dy {tuple(dy.shape)} on {dy.device} "
@@ -364,5 +364,4 @@ WKVScan = scan_function("WKVScan", wkv, wkv_bwd, """``wkv`` with its
 gradient: the forward wrapper, then ``wkv_bwd`` on the saved inputs (the
 chunk-start states are recomputed in the backward, so the forward writes
 nothing extra).  On CUDA tensors both directions launch kernels or raise;
-the backward kernel takes chunks of at most ``MAX_BWD_CHUNK`` steps, which
-``models/rwkv.py::wkv_chunked`` checks before the forward runs.""")
+both take chunks of up to ``MAX_CHUNK`` steps.""")

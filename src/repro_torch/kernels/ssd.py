@@ -45,6 +45,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 launches = 0
 bwd_launches = 0
 BWD_LAUNCHES_PER_CALL = 4   # chunk states, the chain, the chunks, the sums
+BWD_HEADS = 8               # heads a block of the backward kernel, at most
 
 
 def _chunking(T: int):
@@ -294,10 +295,21 @@ def ssd_bwd_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 def _bwd_entry():
     fn = build.load("ssd_bwd_sm90").ssd_bwd_launch
     if fn.argtypes is None:  # pointers and the stream as c_void_p, not int
-        fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 7 + [
+        fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 8 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
+
+
+def _bwd_heads(Bsz: int, nc: int, H: int, sms: int) -> int:
+    """Heads a block of the backward kernel's state and chunk passes:
+    BWD_HEADS (C B^T and the loads of B and C shared by more heads), halved
+    while that leaves fewer than two blocks for each of the card's ``sms``
+    multiprocessors, down to one."""
+    heads = BWD_HEADS
+    while heads > 1 and Bsz * nc * -(-H // heads) < 2 * sms:
+        heads //= 2
+    return heads
 
 
 def _launch_bwd(x, dt, A, B_, C, dy, dstate):
@@ -331,19 +343,22 @@ def _launch_bwd(x, dt, A, B_, C, dy, dstate):
         return dx, ddt, dA.zero_(), dB.zero_(), dC.zero_()
     _, nc, _ = _chunking(T)
     f32 = dict(dtype=torch.float32, device=x.device)
-    # chunk states, then S0; G, then dS1 (B, nc, H, P, N); per-head dB and
-    # dC (B, T, H, N); per-block dA and each chunk's exp(cum_end)
-    states = torch.empty((2, Bsz, nc, H, P, N), **f32)
-    parts = torch.empty((2, Bsz, T, H, N), **f32)
-    small = torch.empty((2, Bsz * nc * H), **f32)
     dev, stream = build.device_and_stream(x)
+    heads = _bwd_heads(Bsz, nc, H,
+                       torch.cuda.get_device_properties(dev).multi_processor_count)
+    # chunk states, then S0; G, then dS1 (B, nc, H, P, N); dB and dC of
+    # each group of `heads` heads (B, T, ceil(H / heads), N); per-head dA of
+    # each (b, chunk) and each chunk's exp(cum_end)
+    states = torch.empty((2, Bsz, nc, H, P, N), **f32)
+    parts = torch.empty((2, Bsz, T, -(-H // heads), N), **f32)
+    small = torch.empty((2, Bsz * nc * H), **f32)
     err = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), B_.data_ptr(),
              C.data_ptr(), dy.data_ptr(),
              0 if dstate is None else dstate.data_ptr(), dx.data_ptr(),
              ddt.data_ptr(), dA.data_ptr(), dB.data_ptr(), dC.data_ptr(),
              states[0].data_ptr(), states[1].data_ptr(), parts[0].data_ptr(),
              parts[1].data_ptr(), small[0].data_ptr(), small[1].data_ptr(),
-             Bsz, T, H, P, N, _DTYPES[x.dtype], dev, stream)
+             Bsz, T, H, P, N, heads, _DTYPES[x.dtype], dev, stream)
     if err != 0:
         raise RuntimeError(f"ssd_bwd launch failed: CUDA error {err}")
     bwd_launches += BWD_LAUNCHES_PER_CALL

@@ -66,12 +66,9 @@ def wkv_chunked(r, k, v, w, u, num_heads: int, chunk: int = 64, *,
     a CUDA tensor ``use_kernel=False`` takes the kernel's plain version
     (under autograd in training), and where a gradient is wanted (grad
     enabled, an input that requires it) the kernel path is ``WKVScan``
-    (forward and backward kernels).  The backward kernel takes chunks of at
-    most ``MAX_BWD_CHUNK`` steps, so a T whose chunks are longer (64 < T <
-    128, or T 160) is refused there before the forward runs.  Without a
-    gradient (serving) the forward kernel runs alone; on the CPU autograd
-    runs through the plain version, as JAX differentiates its
-    ``wkv_chunked``.
+    (forward and backward kernels).  Without a gradient (serving) the
+    forward kernel runs alone; on the CPU autograd runs through the plain
+    version, as JAX differentiates its ``wkv_chunked``.
     """
     Lc = chunk_len(r.shape[1], chunk)
     args = [t.float().contiguous() for t in (r, k, v, w, u)]
@@ -79,10 +76,6 @@ def wkv_chunked(r, k, v, w, u, num_heads: int, chunk: int = 64, *,
         return K.wkv_plain(*args, num_heads, Lc)
     if (r.device.type == "cuda" and torch.is_grad_enabled()
             and any(t.requires_grad for t in args)):
-        if Lc > K.MAX_BWD_CHUNK:
-            raise NotImplementedError(
-                f"wkv_chunked: T={r.shape[1]} gives chunks of {Lc} steps; "
-                f"the backward kernel takes at most {K.MAX_BWD_CHUNK}")
         return K.WKVScan.apply(*args, num_heads, Lc)
     return K.wkv(*args, num_heads, Lc)
 

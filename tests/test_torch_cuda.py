@@ -1221,6 +1221,8 @@ SSD_GRADS = ("dx", "ddt", "dA", "dB", "dC")
     (2, 200, 8, 16, 16, torch.bfloat16, True),      # the smoke width
     (1, 130, 2, 48, 32, torch.float32, True),
     (2, 65, 5, 24, 40, torch.float32, False),       # P, N off the 16 grid
+    (8, 1024, 20, 64, 64, torch.bfloat16, False),   # 8 heads a block on 132
+                                                    # SMs, the last group 4
 ])
 def test_ssd_bwd_kernel_equals_plain(card, exact_f32, B, T, H, P, N, dtype,
                                      with_state):
@@ -1238,6 +1240,40 @@ def test_ssd_bwd_kernel_equals_plain(card, exact_f32, B, T, H, P, N, dtype,
     got = SSD.ssd_bwd(*inp, dy, ds)
     torch.cuda.synchronize()
     assert SSD.bwd_launches == before + SSD.BWD_LAUNCHES_PER_CALL
+    _scan_grads_close(got, SSD.ssd_bwd_plain(*inp, dy, ds), dtype, SSD_GRADS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads,B,T,H,P,N,dtype,with_state", [
+    (2, 2, 300, 5, 64, 64, torch.bfloat16, True),    # groups of 2, 2, 1
+    (3, 1, 200, 8, 32, 48, torch.float32, False),    # 3, 3, 2
+    (4, 2, 1024, 62, 64, 64, torch.float32, True),   # fifteen of 4, one of 2
+    (4, 1, 1000, 6, 64, 64, torch.bfloat16, True),   # 4, 2; a ragged chunk
+    (8, 1, 130, 12, 64, 64, torch.bfloat16, False),  # 8, 4
+    (8, 2, 100, 8, 24, 40, torch.float32, True),     # one whole group
+])
+def test_ssd_bwd_kernel_groups_of_heads(card, exact_f32, monkeypatch, heads,
+                                        B, T, H, P, N, dtype, with_state):
+    """The backward kernel at ``heads`` heads a block, whatever the card's
+    multiprocessors would choose, the last group short where H is not a
+    multiple of it (C B^T shared, dB and dC summed over a group's heads):
+    every gradient against ``ssd_bwd_plain`` at the tolerances above."""
+    chosen = []
+
+    def fixed(Bsz, nc, H_, sms):
+        chosen.append(heads)
+        return heads
+
+    monkeypatch.setattr(SSD, "_bwd_heads", fixed)
+    inp = _ssd_inputs(B, T, H, P, N, dtype, card, seed=T + H,
+                      a_range=(1.0, 16.0))
+    g = torch.Generator(device=card).manual_seed(H)
+    dy = torch.randn(inp[0].shape, generator=g, device=card).to(dtype)
+    ds = (torch.randn((B, H, P, N), generator=g, device=card)
+          if with_state else None)
+    got = SSD.ssd_bwd(*inp, dy, ds)
+    torch.cuda.synchronize()
+    assert chosen == [heads]
     _scan_grads_close(got, SSD.ssd_bwd_plain(*inp, dy, ds), dtype, SSD_GRADS)
 
 
@@ -1285,13 +1321,17 @@ WKV_GRADS = ("dr", "dk", "dv", "dw", "du")
     (2, 96, 3, 16, 32, "real", False),
     (1, 40, 2, 64, 40, "clamped", True),       # one chunk of 40
     (2, 128, 2, 12, 16, "real", True),
+    (2, 100, 4, 64, 100, "clamped", False),    # chunks of 65-128 steps:
+    (2, 160, 4, 64, 80, "real", True),         # two 64-row halves
+    (1, 127, 2, 16, 127, "clamped", True),
 ])
 def test_wkv_bwd_kernel_equals_plain(card, exact_f32, B, T, H, P, Lc, regime,
                                      with_state):
     """Every gradient of the WKV backward kernel against ``wkv_bwd_plain``
     on the same float32 inputs: 1e-4 of each gradient's largest value, at
-    the default init's decay (the 1e-30 floor binds from step 57) and at
-    real decays; four launches a call."""
+    the default init's decay (the 1e-30 floor binds from step 57; past step
+    ~64 A_excl leaves float32's normal range, in both versions) and at real
+    decays, chunks of up to 128 steps; four launches a call."""
     inp = _wkv_inputs(B, T, H, P, regime, card, seed=T + P)
     g = torch.Generator(device=card).manual_seed(T)
     dy = torch.randn(inp[0].shape, generator=g, device=card)
@@ -1307,21 +1347,30 @@ def test_wkv_bwd_kernel_equals_plain(card, exact_f32, B, T, H, P, Lc, regime,
 
 @pytest.mark.cuda
 def test_wkv_bwd_kernel_is_deterministic_and_refuses_long_chunks(card):
-    inp = _wkv_inputs(2, 1024, 16, 64, "real", card, seed=9)
-    dy = torch.randn(inp[0].shape, device=card)
-    first = WKV.wkv_bwd(*inp, 16, 64, dy)
-    again = WKV.wkv_bwd(*inp, 16, 64, dy)
-    torch.cuda.synchronize()
-    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    """No atomics, fixed orders of summation: two calls give the same
+    bits, at chunks of 64 and of 100 (two halves); a chunk of 129 steps is
+    refused before any launch."""
+    for T, Lc in ((1024, 64), (1000, 100)):
+        inp = _wkv_inputs(2, T, 16, 64, "real", card, seed=9)
+        dy = torch.randn(inp[0].shape, device=card)
+        first = WKV.wkv_bwd(*inp, 16, Lc, dy)
+        again = WKV.wkv_bwd(*inp, 16, Lc, dy)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(first, again)), Lc
+    inp = _wkv_inputs(1, 258, 2, 64, "real", card, seed=9)
     before = WKV.bwd_launches
     with pytest.raises(ValueError, match="chunks"):
-        WKV.wkv_bwd(*inp, 16, 128, dy)
+        WKV.wkv_bwd(*inp, 2, 129, torch.randn(inp[0].shape, device=card))
     assert WKV.bwd_launches == before
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("arch", ["zamba2-1.2b", "rwkv6-7b"])
-def test_scan_models_train_on_the_card(card, exact_f32, arch):
+@pytest.mark.parametrize("arch,seq", [
+    pytest.param("zamba2-1.2b", 128, id="zamba2-1.2b"),
+    pytest.param("rwkv6-7b", 128, id="rwkv6-7b"),
+    pytest.param("rwkv6-7b", 160, id="rwkv6-7b-seq160"),  # chunks of 80
+])
+def test_scan_models_train_on_the_card(card, exact_f32, arch, seq):
     """One ``make_train_step`` step of the smoke config (remat, accum 2,
     compression) on the card: each scan's forward kernel twice a layer a
     microbatch where remat recomputes it (once in zamba2's tail) and its
@@ -1345,7 +1394,7 @@ def test_scan_models_train_on_the_card(card, exact_f32, arch):
                                   torch.Generator(device=card).manual_seed(0),
                                   compress=True)
     step = make_train_step(model, accum=2, compress=True)
-    batch = SyntheticLM(cfg.vocab_size, 128, 4, seed=0).batch(0)
+    batch = SyntheticLM(cfg.vocab_size, seq, 4, seed=0).batch(0)
     fwd, bwd = lib.launches, lib.bwd_launches
     opt, m = step(opt, batch)
     torch.cuda.synchronize()
@@ -1391,19 +1440,38 @@ def test_scan_models_train_on_the_card(card, exact_f32, arch):
 
 
 @pytest.mark.cuda
-def test_wkv_chunked_refuses_long_chunks_before_the_forward(card):
-    """The backward kernel takes chunks of at most 64 steps: where a
-    gradient is wanted on the card at a T whose chunks are longer (T 100:
-    one chunk of 100; T 160: two of 80), ``wkv_chunked`` refuses before the
-    forward kernel runs; without a gradient that T runs on the forward
-    kernel as before."""
+def test_wkv_chunked_refuses_long_chunks_before_the_forward(card, exact_f32):
+    """Chunks of more than 64 steps, which JAX's rule gives at T 100 (one
+    chunk of 100) and T 160 (two of 80), are no longer refused: under
+    autograd ``wkv_chunked`` launches the forward kernel once and the
+    backward kernel's launches once, and its gradients equal the plain
+    directions' (``wkv_plain``, ``wkv_bwd_plain``) within 1e-4 of each
+    one's largest value; without a gradient the forward kernel runs alone.
+    The backward kernel's own refusal of chunks past 128 steps, which JAX's
+    rule never gives, is in the test above."""
+    plain = scan_function("WKVScan", WKV.wkv_plain, WKV.wkv_bwd_plain)
     for T in (100, 160):
         inp = _wkv_inputs(1, T, 2, 16, "real", card, seed=T)
-        leaves = [t.requires_grad_() for t in inp]
-        fwd, bwd = WKV.launches, WKV.bwd_launches
-        with pytest.raises(NotImplementedError, match="chunks of"):
-            trwkv.wkv_chunked(*leaves, 2)
-        assert (WKV.launches, WKV.bwd_launches) == (fwd, bwd)
+        g = torch.Generator(device=card).manual_seed(T)
+        dy = torch.randn(inp[0].shape, generator=g, device=card)
+        ds = torch.randn((1, 2, 16, 16), generator=g, device=card)
+        grads = {}
+        for how in ("kernel", "plain"):
+            leaves = [t.clone().requires_grad_() for t in inp]
+            fwd, bwd = WKV.launches, WKV.bwd_launches
+            if how == "kernel":
+                y, s = trwkv.wkv_chunked(*leaves, 2)
+            else:
+                y, s = plain.apply(*leaves, 2, trwkv.chunk_len(T))
+            ((y * dy).sum() + (s * ds).sum()).backward()
+            torch.cuda.synchronize()
+            counts = (WKV.launches - fwd, WKV.bwd_launches - bwd)
+            assert counts == ((1, WKV.BWD_LAUNCHES_PER_CALL)
+                              if how == "kernel" else (0, 0)), (T, counts)
+            grads[how] = [t.grad for t in leaves]
+        _scan_grads_close(grads["kernel"], grads["plain"], torch.float32,
+                          WKV_GRADS)
+        fwd = WKV.launches
         with torch.no_grad():
             y, _ = trwkv.wkv_chunked(*inp, 2)
         torch.cuda.synchronize()

@@ -163,6 +163,18 @@ def test_ssd_scan_gradcheck(T):
     assert torch.autograd.gradcheck(K.SSDScan.apply, args)
 
 
+@pytest.mark.parametrize("B,nc,H,sms,heads", [
+    (4, 16, 64, 132, 8),   # zamba2-1.2b's train microbatch: 512 blocks
+    (4, 4, 8, 132, 1),     # the smoke width: 16 blocks at 8 heads
+    (2, 16, 64, 132, 4),   # 256 blocks at 8 heads, under two an SM
+    (1, 1, 1, 132, 1),
+])
+def test_bwd_heads_a_block(B, nc, H, sms, heads):
+    """The backward kernel's heads a block: BWD_HEADS, halved while that
+    leaves fewer than two blocks for each of the card's multiprocessors."""
+    assert K._bwd_heads(B, nc, H, sms) == heads
+
+
 def test_ssd_bwd_checks_its_arguments():
     d = {n: torch.from_numpy(v) for n, v in _inputs(1, 8, 2, 4, 3, 0).items()}
     args = (d["x"], d["dt"], d["A"], d["B_"], d["C"])

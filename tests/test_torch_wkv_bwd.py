@@ -154,6 +154,67 @@ def test_bwd_plain_with_decays_near_the_floor():
     _check(d, 2, True, expect_nan=True)
 
 
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("T", [100, 127, 160])
+def test_bwd_plain_matches_jax_vjp_at_long_chunks(T, with_state):
+    """Chunks of more than 64 steps, as JAX's rule gives them: T 100 and
+    127 one chunk, T 160 two of 80; real decays, JAX finite."""
+    _check(_inputs(2, T, 2, 16, T + with_state, "real"), 2, with_state,
+           expect_nan=False)
+
+
+def _float64_autograd(d, H, with_state):
+    """The gradients of autograd through ``wkv_plain`` in float64 (JAX's
+    chunk rule), for dy and, with_state, the final state's gradient."""
+    leaves = [torch.from_numpy(d[n]).double().requires_grad_()
+              for n in "rkvwu"]
+    y, s = K.wkv_plain(*leaves, H, trwkv.chunk_len(d["r"].shape[1]))
+    loss = (y * torch.from_numpy(d["dy"]).double()).sum()
+    if with_state:
+        loss = loss + (s * torch.from_numpy(d["dstate"]).double()).sum()
+    return [g.numpy() for g in torch.autograd.grad(loss, leaves)]
+
+
+@pytest.mark.parametrize("with_state", [False, True])
+@pytest.mark.parametrize("T", [100, 127, 160])
+def test_bwd_plain_at_long_chunks_where_jax_is_nan(T, with_state):
+    """The default decay at chunks of 100, 127 and 80 steps: the 1e-30
+    floor binds from step 57 (and A_excl leaves float32's normal range past
+    step ~64), JAX's gradient holds NaN; the port's float32 gradients
+    equal JAX's finite elements, the float64 run of itself and autograd
+    through the float64 plain forward (which divides by A_incl squared,
+    finite in float64); dw's columns that straddle the floor between the
+    two types are left out of the float64 comparisons and counted."""
+    d = _inputs(2, T, 2, 16, 3 * T + with_state, "clamped")
+    _check(d, 2, with_state, expect_nan=True)
+    got = _port(d, 2, with_state)
+    cols, flips = _floor_flips(d["w"], 2)
+    for name, g, a in zip(NAMES, got, _float64_autograd(d, 2, with_state)):
+        assert np.isfinite(a).all(), name
+        keep = ~cols if name == "dw" else None
+        assert _rel(g, a, keep) <= TOL, (name, _rel(g, a, keep),
+                                         f"{flips} elements by the floor")
+
+
+@pytest.mark.parametrize("T", [100, 160])
+def test_wkv_chunked_trains_on_the_cpu_at_long_chunks(T):
+    """Autograd through ``wkv_chunked`` on the CPU (the plain version, as
+    JAX differentiates its ``wkv_chunked``) at T 100 (one chunk of 100)
+    and T 160 (two of 80): finite, equal to ``wkv_bwd`` and to JAX's
+    ``jax.vjp``."""
+    d = _inputs(1, T, 2, 16, T, "real")
+    leaves = [torch.from_numpy(d[n]).requires_grad_() for n in "rkvwu"]
+    y, s = trwkv.wkv_chunked(*leaves, 2)
+    ((y * torch.from_numpy(d["dy"])).sum()
+     + (s * torch.from_numpy(d["dstate"])).sum()).backward()
+    got = [t.grad.numpy() for t in leaves]
+    for name, g, b, j in zip(NAMES, got, _port(d, 2, True),
+                             _jax_vjp(d, 2, True)):
+        assert np.isfinite(g).all(), name
+        assert _rel(g, b) <= TOL, (name, _rel(g, b))
+        assert _rel(g, j) <= TOL, (name, _rel(g, j))
+
+
 @pytest.mark.parametrize("T,Lc", [(8, 8), (12, 4)])
 def test_wkv_scan_gradcheck(T, Lc):
     """``WKVScan`` in float64 on the CPU (plain forward, plain backward)
