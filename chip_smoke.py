@@ -146,10 +146,10 @@ Phases, each printed with its numbers and wall time:
     (also against the naive recurrence), at T 100 and 910 (chunks of 100
     and 65) and at P 16, timed beside the plain version and the earlier
     serial-chunk kernel;
-24. the same serving path for rwkv6-7b at full width on 16 of its 32
+24. the same serving path for rwkv6-7b at full width on 8 of its 32
     layers (``RWKV6_SERVE_LAYERS``, to keep the script near 800 s),
     prompts of 256-1,024 tokens in multiples of 64, the ``wkv`` count set
-    to 0 before and read after (16 launches per cohort, none at decode),
+    to 0 before and read after (8 launches per cohort, none at decode),
     the same checks (prefill + decode against the forward over a cohort's
     first 64 tokens) and profiles;
 25. ``flash_widths``: ``flash_attention`` against its plain version at
@@ -162,9 +162,9 @@ Phases, each printed with its numbers and wall time:
     the wgmma kernel, float32 to the 3xTF32 one;
 26-30. the same serving path (``SERVE_FAMILIES``) for gemma3-4b (17 of
     34 layers, prompts of 1,025-2,048 tokens so that its window binds),
-    internlm2-20b and deepseek-coder-33b (24 of 48 and 31 of 62 layers;
+    internlm2-20b and deepseek-coder-33b (12 of 48 and 12 of 62 layers;
     the whole models, 19.86 B and 33.34 B parameters, ran before the
-    depth was halved to keep the script near 800 s), qwen3-moe-235b-a22b
+    depths were cut to keep the script near 800 s), qwen3-moe-235b-a22b
     (full width, 8 of 94 layers) and dbrx-132b (6 of 40), one flash launch
     per layer per cohort and none at decode, one 3xTF32 flash launch per
     layer of the float32 copy's kernel prefill; before each, what earlier
@@ -174,14 +174,15 @@ Phases, each printed with its numbers and wall time:
     models; an MoE's plain run is held to the kernel run's routing
     (``PinnedRouting``), the tokens that would route otherwise reported;
 31. ``serve_qwen2vl`` (before it and before 32, the same < 2 GB check):
-    qwen2-vl-72b at full width on its first 20 of 80 layers (18.80 B parameters, ~37.6 GB of bf16 weights; the full
-    config's parameter count checked against JAX's 71,459,676,160), driven
+    qwen2-vl-72b at full width on its first 10 of 80 layers (10.02 B
+    parameters, ~20.0 GB of bf16 weights; the full config's parameter
+    count checked against JAX's 71,459,676,160), driven
     through ``prefill`` and ``decode_step`` (the engine takes token prompts
     only): two cohorts of 4 requests of seeded embeddings at S 1,024 and
     512, each a 448 x 448 image (a 16 x 16 grid of merged patches at t 0,
     h = row, w = col) then text from position 16 on, so the three M-RoPE
     streams differ; 16 decode steps fed seeded embeddings, the greedy
-    tokens reported; 20 flash launches a prefill (hd 128, 64 query heads
+    tokens reported; 10 flash launches a prefill (hd 128, 64 query heads
     over 8 KV heads), none at decode; the kernel path against the plain
     path in bf16 and on a float32 copy of the first 2 layers (2 3xTF32
     launches), prefill + decode against the forward at equal-stream
@@ -202,13 +203,16 @@ Phases, each printed with its numbers and wall time:
     bit-equal to a call without lse) against
     ``flash_attention_bwd_plain`` (dq, dk, dv) at smollm-135m's train
     shape (B 8, S 1,024, H 9 over 3, hd 64, causal), hubert-xlarge's (B
-    8, S 1,000, H 16, hd 80, non-causal) and ``main_hd128`` (B 4, S
-    1,024, H 16, hd 128), each in bf16 and float32, and a windowed case
-    (window 100) at hd 64; two launches bitwise equal; each timed beside
-    the plain version, SDPA's backward (``torch.autograd.grad``, timed
-    only) and the SIMT kernel they replaced (``csrc/flash_attention_bwd.cu``
-    through its own entry, held to the plain version too), its and the
-    SIMT kernel's device times from CUDA graphs, and its bound;
+    8, S 1,000, H 16, hd 80, non-causal), ``main_hd128`` (B 4, S 1,024, H
+    16, hd 128) and the attention of the last three families trained (B 4,
+    S 1,024: qwen3-moe's 64 heads over 4, GQA group 16, hd 64; dbrx's 48
+    over 8, group 6, hd 128; qwen2-vl's 64 over 8, group 8, hd 128), each
+    in bf16 and float32, and a windowed case (window 100) at hd 64; two
+    launches bitwise equal; each timed beside the plain version, SDPA's
+    backward (``torch.autograd.grad``, timed only) and, at the first seven,
+    the SIMT kernel they replaced (``csrc/flash_attention_bwd.cu`` through
+    its own entry, held to the plain version too), its and the SIMT
+    kernel's device times from CUDA graphs, and its bound;
 34. ``train_smollm``: smollm-135m at full size (134.5 M parameters,
     random weights seeded 0) trained by ``launch.train.train_loop`` for
     20 steps on ``SyntheticLM(seq 1,024, global batch 8, seed 0)`` with
@@ -262,10 +266,28 @@ Phases, each printed with its numbers and wall time:
     d_ff 14,336, vocab 65,536) on its first 4 of 32 layers (1.41 B
     parameters; the whole model with AdamW's state would not fit one
     card), the same loop and checks (WKV forward 160, backward 320);
-39. ``metric_pipeline``: ``benchmarks/bench_torch_metric_pipeline.py`` at
+39-41. ``train_qwen3moe``, ``train_dbrx``, ``train_qwen2vl``
+    (``TRAIN_FAMILIES``): qwen3-moe-235b-a22b, dbrx-132b and qwen2-vl-72b
+    at full width (d_model, heads, KV heads, head_dim, per-expert d_ff,
+    vocabulary and top-k as published) on their first layer, the MoE on
+    64 of 128 and 8 of 16 experts (one card does not hold more with
+    AdamW's state); the loop and checks of
+    38 (flash forward 40 and backward 60 launches, all on the wgmma
+    libraries), peak memory under 90% of the card, a profiled step with
+    the flash kernels' and the MoE dispatch's shares of device time, an
+    MoE's gradients of one microbatch twice from the same weights
+    compared bit for bit, and a float32 copy on half a microbatch (2 x
+    1,024) with the flash directions swapped: the backward kernel alone
+    and on the kernel forward within 1e-4 of each leaf's largest value,
+    the whole kernel path within 1e-2 (an MoE's runs on the first run's
+    routing, layer by layer through remat's recomputes, the tokens it moved
+    reported; qwen2-vl's at a 16 x 16 image's grid positions then text, so
+    its three M-RoPE streams differ; its training batches are the
+    launcher's);
+42. ``metric_pipeline``: ``benchmarks/bench_torch_metric_pipeline.py`` at
     1,000 and 4,000 nodes x 14 x 256 samples (CUDA events), every sample
     binned once, the histograms equal to the plain version's;
-40. ``colocation``: ``examples/torch_colocation_sim.py`` ``--selftest``
+43. ``colocation``: ``examples/torch_colocation_sim.py`` ``--selftest``
     and its demo on the card (ICO places 14 pods, the smollm smoke model
     serves 8 requests through the wgmma flash kernel (hd 16), Eq. 1 of its
     runqlat histogram).
@@ -1200,61 +1222,6 @@ def _cache_leaves(cache):
                 yield f"{i}/{key}" + (f"/{k2}" if k2 else ""), t
 
 
-class PinnedRouting:
-    """While active, ``repro_torch.models.ffn.moe_route`` records each
-    call's experts by token, (B, T, k); after ``replay(select)`` each call
-    routes its tokens to the experts recorded for them (``select`` picks
-    the recorded tokens this call sees, all of them by default; gates,
-    positions and drops are recomputed for those experts, as
-    ``moe_route`` computes them) and counts the tokens whose own top-k set
-    differs.  So a comparison of two runs of an MoE model holds both to
-    one routing, and reports where an ulp (of the attention kernel, or of
-    the decode path against the full forward) moved a near tie of the
-    top-k: a token routed otherwise changes its MoE output by far more
-    than any tolerance that would still test the rest."""
-
-    def __init__(self, torch):
-        from repro_torch.models import ffn
-
-        self.torch, self.ffn, self.real = torch, ffn, ffn.moe_route
-        self.calls, self.at, self.select = [], None, None
-        self.differ, self.tokens = 0, 0
-
-    def __enter__(self):
-        self.ffn.moe_route = self.route
-        return self
-
-    def __exit__(self, *exc):
-        self.ffn.moe_route = self.real
-
-    def replay(self, select=lambda idx: idx):
-        self.at, self.select = 0, select
-
-    def route(self, x, router, **kw):
-        torch = self.torch
-        r = self.real(x, router, **kw)
-        B, T = x.shape[:2]
-        if self.at is None:
-            self.calls.append(r["expert_idx"].reshape(B, T, -1))
-            return r
-        idx = self.select(self.calls[self.at]).reshape(
-            r["expert_idx"].shape)
-        self.at += 1
-        own = r["expert_idx"].sort(-1).values != idx.sort(-1).values
-        self.differ += int(own.any(-1).sum())
-        self.tokens += B * T
-        probs = torch.softmax(r["logits"], dim=-1)
-        gate = probs.gather(-1, idx)
-        gate = gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)
-        NB, Nb, k = idx.shape
-        oh = torch.nn.functional.one_hot(idx, probs.shape[-1]).reshape(
-            NB, Nb * k, -1)
-        pos = ((oh.cumsum(1) - oh) * oh).sum(-1).reshape(NB, Nb, k)
-        keep = pos < r["cap"]
-        return dict(r, expert_idx=idx, pos=pos, keep=keep,
-                    gate=torch.where(keep, gate, 0.0))
-
-
 def kernel_vs_plain_prefill(torch, model, inputs, max_seq, dtype_name,
                             launches):
     """One prefill of ``inputs`` (the prefill's keyword inputs: tokens, or
@@ -1264,8 +1231,10 @@ def kernel_vs_plain_prefill(torch, model, inputs, max_seq, dtype_name,
     top two logits lie within the largest logit error (a near tie).  An
     MoE model's plain run takes the kernel run's routing (``PinnedRouting``);
     the tokens that would have been routed otherwise are reported."""
+    from repro_torch.models.routing import PinnedRouting
+
     cfg = model.cfg
-    pin = PinnedRouting(torch)
+    pin = PinnedRouting()
     with pin:
         k_logits, k_cache = model.prefill(max_seq=max_seq, **inputs)
         pin.replay()
@@ -1353,6 +1322,7 @@ def phase_serve(torch, np, card, arch, kernels, per_prefill, lens, tag,
     n)`` draws the prompt lengths.  Prints ``[serve_<tag>]`` lines."""
     from repro_torch.configs import get_config
     from repro_torch.models.model import Model, active_params
+    from repro_torch.models.routing import PinnedRouting
     from repro_torch.serve import ServeEngine
 
     cfg = get_config(arch)
@@ -1483,7 +1453,7 @@ def phase_serve(torch, np, card, arch, kernels, per_prefill, lens, tag,
                                         **full_capacity)
         try:
             # an MoE's prefill and decode take the forward's routing
-            with PinnedRouting(torch) as pin:
+            with PinnedRouting() as pin:
                 full = model(x)[:, -1]
                 pin.replay(lambda idx: idx[:, :-1])
                 _, cache = model.prefill(x[:, :-1], x.shape[1])
@@ -1524,32 +1494,41 @@ def phase_serve(torch, np, card, arch, kernels, per_prefill, lens, tag,
     return nums
 
 
-# qwen2-vl-72b at full width on its first 20 of 80 layers (18.80 B of 71.46
-# B parameters, ~37.6 GB of bf16 weights; the whole model is ~143 GB): two
-# cohorts of 4 requests, each a 448 x 448 image (14-px patches merged 2 x
-# 2: a 16 x 16 grid of 256 tokens) then text, 16 decode steps each
+# qwen2-vl-72b at full width on its first 10 of 80 layers (10.02 B of 71.46
+# B parameters, ~20.0 GB of bf16 weights; the whole model is ~143 GB; 20
+# layers until the MoE training phases came, to keep the script near 800
+# s): two cohorts of 4 requests, each a 448 x 448 image (14-px patches
+# merged 2 x 2: a 16 x 16 grid of 256 tokens) then text, 16 decode steps
+# each
 QWEN2VL_PARAMS = 71_459_676_160           # JAX's num_params of the config
-QWEN2VL_LAYERS = 20
+QWEN2VL_LAYERS = 10
 QWEN2VL_COHORTS = (1024, 512)             # S of each cohort
 QWEN2VL_GRID = 16
 QWEN2VL_BATCH, QWEN2VL_STEPS = 4, 16
 
 
-def vlm_cohort(torch, np, card, B, S, D, grid, steps, seed):
-    """One cohort's inputs from seeded numpy normals: (B, S, D) embeddings,
-    each row a ``grid`` x ``grid`` image followed by text; their (3, B, S)
-    M-RoPE positions (the image at t 0, h = row, w = col, the text from
-    ``grid`` on, equal in the three streams); and ``steps`` (B, 1, D)
-    decode embeddings."""
-    rng = np.random.default_rng(seed)
-    embeds = torch.from_numpy(rng.standard_normal(
-        (B, S, D), dtype=np.float32)).to(card)
+def mrope_grid_positions(np, B, S, grid):
+    """(3, B, S) M-RoPE positions of rows that each hold a ``grid`` x
+    ``grid`` image (at t 0, h = row, w = col) and then text from ``grid``
+    on, equal in the three streams."""
     n = grid * grid
     r, c = np.divmod(np.arange(n), grid)
     text = grid + np.arange(S - n)
     pos = np.stack([np.concatenate([np.zeros(n, np.int64), text]),
                     np.concatenate([r, text]), np.concatenate([c, text])])
-    positions = torch.from_numpy(pos)[:, None].expand(3, B, S).to(card)
+    return np.broadcast_to(pos[:, None], (3, B, S)).copy()
+
+
+def vlm_cohort(torch, np, card, B, S, D, grid, steps, seed):
+    """One cohort's inputs from seeded numpy normals: (B, S, D) embeddings,
+    each row a ``grid`` x ``grid`` image followed by text; their (3, B, S)
+    M-RoPE positions (``mrope_grid_positions``); and ``steps`` (B, 1, D)
+    decode embeddings."""
+    rng = np.random.default_rng(seed)
+    embeds = torch.from_numpy(rng.standard_normal(
+        (B, S, D), dtype=np.float32)).to(card)
+    positions = torch.from_numpy(mrope_grid_positions(np, B, S, grid)).to(
+        card)
     dec = torch.from_numpy(rng.standard_normal(
         (steps, B, 1, D), dtype=np.float32)).to(card)
     return embeds, positions, dec
@@ -1873,14 +1852,29 @@ def phase_encode_hubert(torch, np, card, FA, build):
 # same float32 values rounded, so a bf16 ulp (2^-8) of the largest at most
 BWD_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 # smollm-135m's train microbatch is B 4; the whole batch B 8 is the shape
-# the bound and the SDPA backward are quoted at
-BWD_CASES = [("smollm", 8, 1024, 9, 3, 64, "bfloat16", 0, True),
-             ("smollm_float32", 8, 1024, 9, 3, 64, "float32", 0, True),
-             ("hubert", 8, 1000, 16, 16, 80, "bfloat16", 0, False),
-             ("hubert_float32", 8, 1000, 16, 16, 80, "float32", 0, False),
-             ("main_hd128", 4, 1024, 16, 16, 128, "bfloat16", 0, True),
-             ("main_hd128_float32", 4, 1024, 16, 16, 128, "float32", 0, True),
-             ("window_hd64", 1, 1000, 9, 3, 64, "bfloat16", 100, True)]
+# the bound and the SDPA backward are quoted at.  The last six are the
+# attention of the last three families trained, at their microbatch:
+# qwen3-moe 64 heads over 4 (GQA group 16, hd 64), dbrx 48 over 8 (group
+# 6, hd 128), qwen2-vl 64 over 8 (group 8, hd 128); the SIMT kernel (on no
+# route) is timed at the first seven only.
+# name, B, S, H, KV, hd, dtype, window, causal, time the SIMT kernel
+BWD_CASES = [("smollm", 8, 1024, 9, 3, 64, "bfloat16", 0, True, True),
+             ("smollm_float32", 8, 1024, 9, 3, 64, "float32", 0, True, True),
+             ("hubert", 8, 1000, 16, 16, 80, "bfloat16", 0, False, True),
+             ("hubert_float32", 8, 1000, 16, 16, 80, "float32", 0, False,
+              True),
+             ("main_hd128", 4, 1024, 16, 16, 128, "bfloat16", 0, True, True),
+             ("main_hd128_float32", 4, 1024, 16, 16, 128, "float32", 0, True,
+              True),
+             ("window_hd64", 1, 1000, 9, 3, 64, "bfloat16", 100, True, True),
+             ("qwen3moe", 4, 1024, 64, 4, 64, "bfloat16", 0, True, False),
+             ("qwen3moe_float32", 4, 1024, 64, 4, 64, "float32", 0, True,
+              False),
+             ("dbrx", 4, 1024, 48, 8, 128, "bfloat16", 0, True, False),
+             ("dbrx_float32", 4, 1024, 48, 8, 128, "float32", 0, True, False),
+             ("qwen2vl", 4, 1024, 64, 8, 128, "bfloat16", 0, True, False),
+             ("qwen2vl_float32", 4, 1024, 64, 8, 128, "float32", 0, True,
+              False)]
 
 
 # the forward kernels' log-sum-exp against the plain version's: float32
@@ -1955,23 +1949,23 @@ def _bwd_errors(torch, name, got, want, tol):
 
 
 def _bwd_case(torch, FA, build, g, card, name, B, S, H, KV, hd, dtype,
-              window, causal, library_device=False):
+              window, causal, simt_timed=True, library_device=False):
     """The backward kernel (bf16 the wgmma one, float32 the 3xTF32 one)
     against ``flash_attention_bwd_plain`` on the same q, k, v, out and lse
     (the forward kernel's) and dO: max abs error of dq, dk, dv and their
     share of each result's largest value, two launches compared bit for
     bit; the forward kernel's lse against the plain version's and its out
-    bit-equal with and without lse; the SIMT kernel it replaced on the
-    same inputs; times by CUDA events (order plain, kernel, kernel, plain,
-    library: ``scaled_dot_product_attention``'s backward on the same
-    tensors, timed only; then the SIMT kernel) and the kernel's and the
-    SIMT kernel's device times from CUDA graphs, SDPA's backward's from
-    a profiler trace with ``library_device`` (``library_device_ms``,
-    else None); the bound is the largest
-    of the inputs and outputs over the memory rate, the backward's five
-    products over the kept pairs (s recomputed, dp, dv, dk, dq; 2 hd flops
-    each) at the bf16 tensor cores' rate (float32 at 3xTF32's, as the
-    forward's bound), and one exponential a kept pair."""
+    bit-equal with and without lse; with ``simt_timed`` the SIMT kernel it
+    replaced on the same inputs; times by CUDA events (order plain, kernel,
+    kernel, plain, library: ``scaled_dot_product_attention``'s backward on
+    the same tensors, timed only; then the SIMT kernel) and the kernel's
+    and the SIMT kernel's device times from CUDA graphs, SDPA's backward's
+    from a profiler trace with ``library_device`` (``library_device_ms``,
+    else None); the bound is the largest of the inputs and outputs over the
+    memory rate, the backward's five products over the kept pairs (s
+    recomputed, dp, dv, dk, dq; 2 hd flops each) at the bf16 tensor cores'
+    rate (float32 at 3xTF32's, as the forward's bound), and one exponential
+    a kept pair."""
     import torch.nn.functional as F
 
     q, k, v, do = (torch.randn((B, S, h, hd), generator=g, device=card,
@@ -1993,8 +1987,9 @@ def _bwd_case(torch, FA, build, g, card, name, B, S, H, KV, hd, dtype,
     got = FA.flash_attention_bwd(q, k, v, out, do, lse, **kw)
     again = FA.flash_attention_bwd(q, k, v, out, do, lse, **kw)
     want = FA.flash_attention_bwd_plain(q, k, v, out, do, **kw)
-    simt = _simt_bwd(torch, FA, build, q, k, v, out, do, causal, window)
-    simt_got = simt()
+    simt = (_simt_bwd(torch, FA, build, q, k, v, out, do, causal, window)
+            if simt_timed else None)
+    simt_got = simt() if simt else None
     torch.cuda.synchronize()
     if FA.bwd_kernel_launches[kernel] != before + 2 * FA.BWD_LAUNCHES_PER_CALL:
         raise AssertionError(f"flash bwd {name}: not routed to {kernel}")
@@ -2004,7 +1999,8 @@ def _bwd_case(torch, FA, build, g, card, name, B, S, H, KV, hd, dtype,
         if not torch.equal(a, c):
             raise AssertionError(f"flash bwd {name} {part}: two launches "
                                  "differ")
-    simt_nums = _bwd_errors(torch, f"{name} SIMT", simt_got, want, tol)
+    simt_nums = (_bwd_errors(torch, f"{name} SIMT", simt_got, want, tol)
+                 if simt else None)
     del got, again, want, simt_got
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
                   for t in (q, k, v))
@@ -2025,12 +2021,13 @@ def _bwd_case(torch, FA, build, g, card, name, B, S, H, KV, hd, dtype,
         ("plain2", lambda: FA.flash_attention_bwd_plain(q, k, v, out, do,
                                                         **kw)),
         ("library", lambda: torch.autograd.grad(
-            lib_out, (qt, kt, vt), dot, retain_graph=True)),
-        ("simt", simt)]
+            lib_out, (qt, kt, vt), dot, retain_graph=True))] + (
+        [("simt", simt)] if simt else [])
     ms = {n: cuda_ms(fn, iters=10 if n in ("plain", "plain2", "simt")
                      else 30, warmup=2) for n, fn in fns}
     device_ms = graph_ms(torch, fns[1][1], calls=3, replays=5)
-    simt_device_ms = graph_ms(torch, simt, calls=2, replays=3)
+    simt_device_ms = graph_ms(torch, simt, calls=2, replays=3) if simt \
+        else None
     library_device_ms = _profiled_device_ms(torch, fns[4][1]) \
         if library_device else None
     pairs = int(keep.sum())
@@ -2048,30 +2045,37 @@ def _bwd_case(torch, FA, build, g, card, name, B, S, H, KV, hd, dtype,
               + ("" if causal else " non-causal"),
         kernel=kernel, **nums, lse_max_abs_err=lse_err,
         simt_max_rel_err=max(simt_nums[f"rel_err_{p}"]
-                             for p in ("dq", "dk", "dv")),
+                             for p in ("dq", "dk", "dv")) if simt else None,
         bytes=nbytes, flops=nops, bound_ms=terms[term],
         bound_by="bytes" if term == "bytes" else "operations",
         bound_term=term, bound_terms_ms=json.dumps(terms),
         cuda_core_bound_ms=max(terms["bytes"], nops / FP32_OPS_PER_S * 1e3),
         ms=min(ms["kernel"], ms["kernel2"]), device_ms=device_ms,
         plain_ms=min(ms["plain"], ms["plain2"]), library_ms=ms["library"],
-        library_device_ms=library_device_ms, simt_ms=ms["simt"],
+        library_device_ms=library_device_ms, simt_ms=ms.get("simt"),
         simt_device_ms=simt_device_ms, runs=json.dumps(ms))
 
 
-def phase_flash_bwd_kernel(torch, FA, build, card, library_device=False):
+def phase_flash_bwd_kernel(torch, FA, build, card, library_device=False,
+                           cases=None):
     """The backward kernels (bf16 ``csrc/flash_attention_bwd_sm90.cu``,
     float32 ``csrc/flash_attention_bwd_f32_sm90.cu``) against their plain
     version at smollm-135m's train shape, hubert-xlarge's (non-causal, hd
-    80) and ``main_hd128``, each in bf16 and float32, and a windowed case
-    at hd 64: errors, determinism, the forward's lse, times beside the
-    SIMT kernel they replaced, bounds (SDPA's backward's device time only
-    with ``library_device``: see ``_profiled_device_ms``)."""
+    80), ``main_hd128`` and the attention of qwen3-moe, dbrx and qwen2-vl
+    (GQA groups 16, 6 and 8), each in bf16 and float32, and a windowed
+    case at hd 64: errors, determinism, the forward's lse, times beside
+    SDPA's backward and (the first seven cases) the SIMT kernel they
+    replaced, bounds (SDPA's backward's device time only with
+    ``library_device``: see ``_profiled_device_ms``).  ``cases`` (names of
+    ``BWD_CASES``) runs those alone; the inputs come from one generator in
+    the cases' order."""
     g = torch.Generator(device=card).manual_seed(7)
     out = {}
-    for name, B, S, H, KV, hd, dt, window, causal in BWD_CASES:
+    for name, B, S, H, KV, hd, dt, window, causal, simt in BWD_CASES:
+        if cases is not None and name not in cases:
+            continue
         out[name] = _bwd_case(torch, FA, build, g, card, name, B, S, H, KV,
-                              hd, getattr(torch, dt), window, causal,
+                              hd, getattr(torch, dt), window, causal, simt,
                               library_device)
         gc.collect()
         torch.cuda.empty_cache()
@@ -2106,57 +2110,16 @@ def phase_train_smollm(torch, card, FA):
     model's gradients through the kernels against the plain path's, and
     through each kernel alone (the other direction plain)."""
     from repro_torch.configs import get_config
-    from repro_torch.data import SyntheticLM
-    from repro_torch.launch.train import train_loop
-    from repro_torch.models import model as TM
     from repro_torch.train.train_step import batch_to_device
 
     cfg = get_config("smollm-135m")
-    held_before = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    FA.launches, FA.bwd_launches = 0, 0
-    sm90 = FA.kernel_launches[FA.SM90[0]]
-    bwd_sm90 = FA.bwd_kernel_launches[FA.BWD_SM90[0]]
-    history = []
-    t0 = time.perf_counter()
-    model, opt, losses = train_loop(
-        cfg, steps=TRAIN_STEPS, global_batch=TRAIN_B, seq_len=TRAIN_S,
-        accum=TRAIN_ACCUM, compress=True, lr=6e-4, seed=0, device=card,
-        history=history, log_every=5)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    fwd, bwd = FA.launches, FA.bwd_launches
-    sm90 = FA.kernel_launches[FA.SM90[0]] - sm90
-    bwd_sm90 = FA.bwd_kernel_launches[FA.BWD_SM90[0]] - bwd_sm90
-    per_step = cfg.num_layers * TRAIN_ACCUM
-    want_fwd = per_step * 2 * TRAIN_STEPS
-    want_bwd = per_step * FA.BWD_LAUNCHES_PER_CALL * TRAIN_STEPS
-    if (fwd, bwd, sm90, bwd_sm90) != (want_fwd, want_bwd, want_fwd,
-                                      want_bwd):
-        raise AssertionError(f"train launches: forward {fwd} (wgmma "
-                             f"{sm90}), backward {bwd} (wgmma {bwd_sm90}); "
-                             f"expected {want_fwd}, {want_bwd}")
-    if not all(math.isfinite(x) for x in losses):
-        raise AssertionError(f"a train loss is not finite: {losses}")
-    first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
-    if not last < first:
-        raise AssertionError(f"loss did not fall: {first} -> {last}")
-    step_ms = sorted(h["ms"] for h in history[1:])
-    median = step_ms[len(step_ms) // 2]
-    nums = dict(
-        params=sum(p.numel() for p in model.parameters()),
-        layers=cfg.num_layers, steps=TRAIN_STEPS,
-        batch=json.dumps([TRAIN_B, TRAIN_S]), accum=TRAIN_ACCUM,
-        wall_s=wall, first_step_ms=history[0]["ms"],
-        median_step_ms=median, min_step_ms=step_ms[0],
-        tokens_per_s=TRAIN_B * TRAIN_S / (median * 1e-3),
-        loss_first5=first, loss_last5=last,
-        losses=json.dumps([round(x, 4) for x in losses]),
-        grad_norms=json.dumps([round(h["grad_norm"], 4) for h in history]),
-        max_memory_allocated=torch.cuda.max_memory_allocated(),
-        held_by_earlier_phases=held_before,
-        flash_attention_launches=fwd, flash_bwd_launches=bwd)
-    say("train_smollm", **nums)
+    per_step = cfg.num_layers * TRAIN_ACCUM * TRAIN_STEPS
+    want_fwd = per_step * 2
+    want_bwd = per_step * FA.BWD_LAUNCHES_PER_CALL
+    model, opt, nums = train_and_check(
+        torch, card, "train_smollm", cfg, TRAIN_STEPS, flash_counters(FA), dict(flash_attention=want_fwd,
+                                 flash_bwd=want_bwd, flash_sm90=want_fwd,
+                                 flash_bwd_sm90=want_bwd))
 
     # one more step under the profiler
     from repro_torch.optim import AdamWConfig
@@ -2166,40 +2129,13 @@ def phase_train_smollm(torch, card, FA):
                               remat=True, compress=True,
                               schedule_kwargs={"warmup": 10,
                                                "total": TRAIN_STEPS})
-    ds = SyntheticLM(cfg.vocab_size, TRAIN_S, TRAIN_B, seed=0)
-    batch = ds.batch(TRAIN_STEPS)
-    state = {"opt": opt}
-
-    def one_step():
-        state["opt"], _ = step_fn(state["opt"], batch)
-
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        one_step()
-        torch.cuda.synchronize()
-        prof_s = time.perf_counter() - t0
-    rows = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
-    device_us = sum(e.self_device_time_total for e in rows)
-    bwd_us = sum(e.self_device_time_total for e in rows
-                 if "bwd_" in e.key)
-    fwd_us = sum(e.self_device_time_total for e in rows
-                 if "flash_sm90" in e.key)
-    top = sorted(rows, key=lambda e: -e.self_device_time_total)[:8]
-    prof_nums = dict(
-        profiled_step_ms=prof_s * 1e3, device_us=device_us,
-        device_busy_share=device_us * 1e-6 / prof_s,
-        kernels=sum(e.count for e in rows),
-        flash_bwd_device_share=bwd_us / device_us if device_us else 0.0,
-        flash_fwd_device_share=fwd_us / device_us if device_us else 0.0,
-        top=json.dumps([[e.key[:48], e.self_device_time_total, e.count]
-                        for e in top]))
+    batch = launcher_batch(cfg, TRAIN_STEPS)
+    prof_nums, opt = profiled_step(
+        torch, step_fn, opt, batch, {"flash_bwd": ("bwd_",),
+                                     "flash_fwd": ("flash_sm90",)})
     nums.update(prof_nums)
     say("train_smollm", part="profile", **prof_nums)
-    del opt, state, step_fn
+    del opt, step_fn
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2207,10 +2143,159 @@ def phase_train_smollm(torch, card, FA):
     # plain path's, and each kernel alone under the other's plain version
     wide = widened(torch, model, cfg, card)
     del model
+    cons = flash_swapped_grads(torch, FA, wide, batch_to_device(batch, card))
+    say("train_smollm", part="float32_grads", **cons)
+    check_flash_swapped(cons, "train_smollm", cfg.num_layers, FA)
+    nums.update(cons)
+    del wide
+    gc.collect()
+    torch.cuda.empty_cache()
+    return nums
+
+
+def flash_counters(FA):
+    """The flash kernels' launch counters by name, each a (holder, key):
+    every launch of the forward and the backward, and those on the bf16
+    wgmma libraries."""
+    return {"flash_attention": (FA, "launches"),
+            "flash_bwd": (FA, "bwd_launches"),
+            "flash_sm90": (FA.kernel_launches, FA.SM90[0]),
+            "flash_bwd_sm90": (FA.bwd_kernel_launches, FA.BWD_SM90[0])}
+
+
+def _count(holder, key, value=None):
+    """Read a launch counter (a module's attribute or a dict's entry), or
+    set it to ``value``."""
+    if value is None:
+        return holder[key] if isinstance(holder, dict) else getattr(holder,
+                                                                    key)
+    if isinstance(holder, dict):
+        holder[key] = value
+    else:
+        setattr(holder, key, value)
+
+
+def train_and_check(torch, card, tag, cfg, steps, counters, want):
+    """``cfg`` (random weights seeded 0) trained by the launcher's
+    ``train_loop`` for ``steps`` steps on ``SyntheticLM(seq 1,024, global
+    batch 8, seed 0)``: remat, accum 2, int8 compression, lr 6e-4 with the launcher's warmup.  Each of ``counters`` (name -> a
+    (holder, key) launch counter) is set to 0 before and read after, and
+    held to ``want``; the loss must stay finite and fall (the mean of the
+    last five steps below the first five's).  Prints ``[tag]`` with step ms
+    (the median of steps 2 on), tokens/s, peak memory (under 90% of the
+    card) and the memory earlier phases hold.  Returns (model, opt state,
+    numbers)."""
+    from repro_torch.launch.train import train_loop
+
+    held_before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    for holder, key in counters.values():
+        _count(holder, key, 0)
+    history = []
+    t0 = time.perf_counter()
+    model, opt, losses = train_loop(
+        cfg, steps=steps, global_batch=TRAIN_B, seq_len=TRAIN_S,
+        accum=TRAIN_ACCUM, compress=True, lr=6e-4, seed=0, device=card,
+        history=history, log_every=5)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got = {k: _count(*c) for k, c in counters.items()}
+    if got != want:
+        raise AssertionError(f"{tag} launches {got}, expected {want}")
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"{tag}: a train loss is not finite: {losses}")
+    first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    if not last < first:
+        raise AssertionError(f"{tag}: loss did not fall: {first} -> {last}")
+    peak = torch.cuda.max_memory_allocated()
+    card_bytes = torch.cuda.get_device_properties(card).total_memory
+    if peak >= 0.9 * card_bytes:
+        raise AssertionError(f"{tag}: peak memory {peak} of {card_bytes}")
+    step_ms = sorted(h["ms"] for h in history[1:])
+    median = step_ms[len(step_ms) // 2]
+    nums = dict(
+        params=sum(p.numel() for p in model.parameters()),
+        layers=cfg.num_layers, d_model=cfg.d_model, steps=steps,
+        batch=json.dumps([TRAIN_B, TRAIN_S]), accum=TRAIN_ACCUM,
+        wall_s=wall, first_step_ms=history[0]["ms"],
+        median_step_ms=median, min_step_ms=step_ms[0],
+        tokens_per_s=TRAIN_B * TRAIN_S / (median * 1e-3),
+        loss_first5=first, loss_last5=last,
+        losses=json.dumps(losses),   # unrounded: two trees' bits compare
+        grad_norms=json.dumps([round(h["grad_norm"], 4) for h in history]),
+        max_memory_allocated=peak, card_memory=card_bytes,
+        peak_share_of_card=peak / card_bytes,
+        held_by_earlier_phases=held_before,
+        **{f"{k}_launches": v for k, v in got.items()})
+    say(tag, **nums)
+    return model, opt, nums
+
+
+def launcher_batch(cfg, step):
+    """Batch ``step`` of the training data ``train_loop`` draws for ``cfg``
+    at TRAIN_S x TRAIN_B (embeddings and M-RoPE positions for qwen2-vl, as
+    the launcher asks)."""
+    from repro_torch.data import SyntheticLM
+
+    return SyntheticLM(cfg.vocab_size, TRAIN_S, TRAIN_B, seed=0,
+                       embed_dim=cfg.d_model if cfg.embed_inputs else 0,
+                       mrope=bool(cfg.mrope_sections)).batch(step)
+
+
+def first_rows(batch, n):
+    """The first ``n`` rows of a batch (positions (3, B, S) along B)."""
+    return {k: v[:, :n] if k == "positions" else v[:n]
+            for k, v in batch.items()}
+
+
+def profiled_step(torch, step_fn, opt, batch, shares):
+    """One train step under ``torch.profiler``: host ms, device time, the
+    device's busy share, kernels, the top eight, and for each of ``shares``
+    (name -> substrings) the share of device time of the kernels whose
+    names hold one.  Returns (numbers, the new optimizer state)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        opt, _ = step_fn(opt, batch)
+        torch.cuda.synchronize()
+        prof_s = time.perf_counter() - t0
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_us = sum(e.self_device_time_total for e in rows)
+
+    def share(keys):
+        us = sum(e.self_device_time_total for e in rows
+                 if any(k in e.key for k in keys))
+        return us / device_us if device_us else 0.0
+
+    top = sorted(rows, key=lambda e: -e.self_device_time_total)[:8]
+    return dict(
+        profiled_step_ms=prof_s * 1e3, device_us=device_us,
+        device_busy_share=device_us * 1e-6 / prof_s,
+        kernels=sum(e.count for e in rows),
+        **{f"{k}_device_share": share(v) for k, v in shares.items()},
+        top=json.dumps([[e.key[:48], e.self_device_time_total, e.count]
+                        for e in top])), opt
+
+
+def flash_swapped_grads(torch, FA, wide, batch, pin=None):
+    """A float32 model's gradients on ``batch`` with the flash directions
+    swapped, in the order: both kernels, the forward kernel with the plain
+    backward on its out and lse, both plain versions, the plain forward
+    with the backward kernel (at most three sets of gradients held).  The
+    worst leaf, each leaf's max abs error over its largest value: the whole
+    kernel path against the plain path, the backward kernel alone and on
+    the kernel forward, the forward kernel alone; the kernel run's 3xTF32
+    forward and backward launches.  With ``pin`` (a ``PinnedRouting``,
+    entered) the first run records the MoE's routing and every later run
+    takes it; the tokens it moved are reported."""
+    from repro_torch.models import model as TM
+
     wide.requires_grad_(True)
     params = list(wide.parameters())
     names = [n for n, _ in wide.named_parameters()]
-    tb = batch_to_device(batch, card)
     real = FA.FlashAttention
 
     class Mixed(torch.autograd.Function):
@@ -2242,10 +2327,17 @@ def phase_train_smollm(torch, card, FA):
         Mixed.fwd_kernel = how == "fwd_kernel"
         FA.FlashAttention = Mixed if how.endswith("kernel") else real
         try:
-            loss, _ = TM.train_loss(wide, tb, remat=True)
-            return float(loss.detach()), torch.autograd.grad(loss, params)
+            loss, _ = TM.train_loss(wide, batch, remat=True)
+            grads = torch.autograd.grad(loss, params)
         finally:
             FA.FlashAttention = real
+        if pin is not None:
+            pin.replay()
+        for n, g in zip(names, grads):
+            if not bool(torch.isfinite(g).all()):
+                raise AssertionError(f"float32 gradient {n} ({how}) is not "
+                                     "finite")
+        return float(loss.detach()), grads
 
     def worst(a_grads, b_grads):
         out = (0.0, None)
@@ -2263,14 +2355,20 @@ def phase_train_smollm(torch, card, FA):
     if FA.bwd_kernel_launches[FA.BWD_F32[0]] != f32_bwd:
         raise AssertionError("float32 copy's backward not on the 3xTF32 "
                              "kernel")
-    loss_p, g_plain = grads_of("plain")
     _, g_fwd_kernel = grads_of("fwd_kernel")    # 3xTF32 forward only
-    _, g_bwd_kernel = grads_of("bwd_kernel")    # backward kernel only
-    path, path_leaf = worst(g_kernel, g_plain)
-    bwd_alone, bwd_leaf = worst(g_bwd_kernel, g_plain)
     bwd_on_kernel_fwd, bwd_fwd_leaf = worst(g_kernel, g_fwd_kernel)
+    loss_p, g_plain = grads_of("plain")
     fwd_alone, _ = worst(g_fwd_kernel, g_plain)
-    cons = dict(float32_loss_kernel=loss_k, float32_loss_plain=loss_p,
+    del g_fwd_kernel
+    path, path_leaf = worst(g_kernel, g_plain)
+    del g_kernel
+    _, g_bwd_kernel = grads_of("bwd_kernel")    # backward kernel only
+    bwd_alone, bwd_leaf = worst(g_bwd_kernel, g_plain)
+    del g_plain, g_bwd_kernel
+    moe = ({} if pin is None else
+           {"moe_tokens_routed_otherwise": pin.differ,
+            "moe_routed_tokens": pin.tokens})
+    return dict(float32_loss_kernel=loss_k, float32_loss_plain=loss_p,
                 float32_grad_worst_rel_err=path,
                 float32_grad_worst_leaf=path_leaf,
                 bwd_kernel_alone_worst_rel_err=bwd_alone,
@@ -2279,30 +2377,35 @@ def phase_train_smollm(torch, card, FA):
                 bwd_kernel_on_kernel_forward_worst_leaf=bwd_fwd_leaf,
                 fwd_kernel_alone_worst_rel_err=fwd_alone,
                 float32_flash_launches=f32_fwd,
-                float32_flash_bwd_launches=f32_bwd)
-    say("train_smollm", part="float32_grads", **cons)
-    # the backward kernel against the plain backward, on the plain
-    # forward's values and on the kernel forward's, every leaf of the
-    # model within TRAIN_GRAD_TOL of its largest value
-    for what, err, leaf in (("alone", bwd_alone, bwd_leaf),
-                            ("on the kernel forward", bwd_on_kernel_fwd,
-                             bwd_fwd_leaf)):
+                float32_flash_bwd_launches=f32_bwd, **moe)
+
+
+def check_flash_swapped(cons, tag, layers, FA):
+    """``flash_swapped_grads``'s numbers held: the backward kernel within
+    TRAIN_GRAD_TOL of each leaf's largest value against the plain backward,
+    on the plain forward's values and on the kernel forward's; the whole
+    kernel path within TRAIN_PATH_TOL; one 3xTF32 forward launch a layer
+    and its recompute, one backward call a layer."""
+    for what, err, leaf in (
+            ("alone", cons["bwd_kernel_alone_worst_rel_err"],
+             cons["bwd_kernel_alone_worst_leaf"]),
+            ("on the kernel forward",
+             cons["bwd_kernel_on_kernel_forward_worst_rel_err"],
+             cons["bwd_kernel_on_kernel_forward_worst_leaf"])):
         if not err <= TRAIN_GRAD_TOL:
-            raise AssertionError(f"float32 gradients, backward kernel "
+            raise AssertionError(f"{tag} float32 gradients, backward kernel "
                                  f"{what}: {err} at {leaf}, past "
                                  f"{TRAIN_GRAD_TOL}")
-    if not path <= TRAIN_PATH_TOL:
-        raise AssertionError(f"float32 gradients, kernel path vs plain: "
-                             f"{path} at {path_leaf}, past "
-                             f"{TRAIN_PATH_TOL}")
-    if (f32_fwd, f32_bwd) != (2 * cfg.num_layers,
-                              FA.BWD_LAUNCHES_PER_CALL * cfg.num_layers):
-        raise AssertionError(f"float32 copy launches {f32_fwd}, {f32_bwd}")
-    nums.update(cons)
-    del wide, params, g_kernel, g_plain, g_fwd_kernel, g_bwd_kernel
-    gc.collect()
-    torch.cuda.empty_cache()
-    return nums
+    if not cons["float32_grad_worst_rel_err"] <= TRAIN_PATH_TOL:
+        raise AssertionError(
+            f"{tag} float32 gradients, kernel path vs plain: "
+            f"{cons['float32_grad_worst_rel_err']} at "
+            f"{cons['float32_grad_worst_leaf']}, past {TRAIN_PATH_TOL}")
+    want = (2 * layers, FA.BWD_LAUNCHES_PER_CALL * layers)
+    got = (cons["float32_flash_launches"], cons["float32_flash_bwd_launches"])
+    if got != want:
+        raise AssertionError(f"{tag} float32 copy launches {got}, {want} "
+                             "expected")
 
 
 # --------------------------------------------------------------------------
@@ -2512,8 +2615,9 @@ def phase_train_scan(torch, card, FA, lib, tag, cfg, fn_name, fwd_name,
     """``cfg`` (random weights seeded 0) trained by the launcher's
     ``train_loop`` for TRAIN_SCAN_STEPS steps on ``SyntheticLM(seq 1,024,
     global batch 8, seed 0)``: remat, accum 2, int8 compression, lr 6e-4
-    with the launcher's warmup; the scan's and the flash kernels' counts
-    set to 0 before and read after, each held to ``_launch_plan``; the
+    with the launcher's warmup (``train_and_check``); the scan's and the
+    flash kernels' counts set to 0 before and read after, each held to
+    ``_launch_plan``; the
     loss finite and falling (mean of the last five steps below the first
     five's); step ms, tokens/s, peak memory, one more step profiled (busy
     share, the scan backward's and forward's shares of device time); then
@@ -2525,93 +2629,30 @@ def phase_train_scan(torch, card, FA, lib, tag, cfg, fn_name, fwd_name,
     each within TRAIN_GRAD_TOL of each leaf's largest value (the flash
     kernels run in every variant, so their rounding cancels; the scans'
     own readings were 2.5e-6 to 3.7e-5)."""
-    from repro_torch.data import SyntheticLM
     from repro_torch.kernels import scan_function
-    from repro_torch.launch.train import train_loop
     from repro_torch.models import model as TM
     from repro_torch.optim import AdamWConfig
     from repro_torch.train import make_train_step
     from repro_torch.train.train_step import batch_to_device
 
-    held_before = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    FA.launches, FA.bwd_launches = 0, 0
-    lib.launches, lib.bwd_launches = 0, 0
-    history = []
-    t0 = time.perf_counter()
-    model, opt, losses = train_loop(
-        cfg, steps=TRAIN_SCAN_STEPS, global_batch=TRAIN_B, seq_len=TRAIN_S,
-        accum=TRAIN_ACCUM, compress=True, lr=6e-4, seed=0, device=card,
-        history=history, log_every=5)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    got = {"scan": lib.launches, "scan_bwd": lib.bwd_launches,
-           "flash": FA.launches, "flash_bwd": FA.bwd_launches}
-    want = _launch_plan(cfg, FA, lib, TRAIN_ACCUM * TRAIN_SCAN_STEPS)
-    if got != want:
-        raise AssertionError(f"{tag} launches {got}, expected {want}")
-    if not all(math.isfinite(x) for x in losses):
-        raise AssertionError(f"{tag}: a train loss is not finite: {losses}")
-    first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
-    if not last < first:
-        raise AssertionError(f"{tag}: loss did not fall: {first} -> {last}")
-    step_ms = sorted(h["ms"] for h in history[1:])
-    median = step_ms[len(step_ms) // 2]
-    nums = dict(
-        params=sum(p.numel() for p in model.parameters()),
-        layers=cfg.num_layers, d_model=cfg.d_model, steps=TRAIN_SCAN_STEPS,
-        batch=json.dumps([TRAIN_B, TRAIN_S]), accum=TRAIN_ACCUM,
-        wall_s=wall, first_step_ms=history[0]["ms"],
-        median_step_ms=median, min_step_ms=step_ms[0],
-        tokens_per_s=TRAIN_B * TRAIN_S / (median * 1e-3),
-        loss_first5=first, loss_last5=last,
-        losses=json.dumps([round(x, 4) for x in losses]),
-        grad_norms=json.dumps([round(h["grad_norm"], 4) for h in history]),
-        max_memory_allocated=torch.cuda.max_memory_allocated(),
-        held_by_earlier_phases=held_before,
-        **{f"{k}_launches": v for k, v in got.items()})
-    say(tag, **nums)
+    model, opt, nums = train_and_check(
+        torch, card, tag, cfg, TRAIN_SCAN_STEPS,
+        {"scan": (lib, "launches"), "scan_bwd": (lib, "bwd_launches"),
+         "flash": (FA, "launches"), "flash_bwd": (FA, "bwd_launches")},
+        _launch_plan(cfg, FA, lib, TRAIN_ACCUM * TRAIN_SCAN_STEPS))
 
     step_fn = make_train_step(model, AdamWConfig(lr=6e-4), accum=TRAIN_ACCUM,
                               remat=True, compress=True,
                               schedule_kwargs={"warmup": 10,
                                                "total": TRAIN_SCAN_STEPS})
-    batch = SyntheticLM(cfg.vocab_size, TRAIN_S, TRAIN_B, seed=0).batch(
-        TRAIN_SCAN_STEPS)
-    state = {"opt": opt}
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        state["opt"], _ = step_fn(state["opt"], batch)
-        torch.cuda.synchronize()
-        prof_s = time.perf_counter() - t0
-    rows = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
-    device_us = sum(e.self_device_time_total for e in rows)
-
-    def share(*keys):
-        us = sum(e.self_device_time_total for e in rows
-                 if any(k in e.key for k in keys))
-        return us / device_us if device_us else 0.0
-
-    bwd_key = f"{fwd_name}_bwd_"
-    top = sorted(rows, key=lambda e: -e.self_device_time_total)[:8]
-    prof_nums = dict(
-        profiled_step_ms=prof_s * 1e3, device_us=device_us,
-        device_busy_share=device_us * 1e-6 / prof_s,
-        kernels=sum(e.count for e in rows),
-        scan_bwd_device_share=share(bwd_key),
-        scan_fwd_device_share=share(f"{fwd_name}_kernel",
-                                    f"{fwd_name}_sm90_kernel"),
-        flash_device_share=share("flash_", "bwd_prep", "bwd_dkdv",
-                                 "bwd_dq"),
-        top=json.dumps([[e.key[:48], e.self_device_time_total, e.count]
-                        for e in top]))
+    batch = launcher_batch(cfg, TRAIN_SCAN_STEPS)
+    prof_nums, opt = profiled_step(torch, step_fn, opt, batch, {
+        "scan_bwd": (f"{fwd_name}_bwd_",),
+        "scan_fwd": (f"{fwd_name}_kernel", f"{fwd_name}_sm90_kernel"),
+        "flash": ("flash_", "bwd_prep", "bwd_dkdv", "bwd_dq")})
     nums.update(prof_nums)
     say(tag, part="profile", **prof_nums)
-    del opt, state, step_fn
+    del opt, step_fn
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2623,8 +2664,7 @@ def phase_train_scan(torch, card, FA, lib, tag, cfg, fn_name, fwd_name,
     wide.requires_grad_(True)
     params = list(wide.parameters())
     names = [n for n, _ in wide.named_parameters()]
-    micro = TRAIN_B // TRAIN_ACCUM
-    tb = batch_to_device({k: v[:micro] for k, v in batch.items()}, card)
+    tb = batch_to_device(first_rows(batch, TRAIN_B // TRAIN_ACCUM), card)
     real = getattr(lib, fn_name)
     fwds = {"kernel": getattr(lib, fwd_name), "plain": fwd_plain}
     bwds = {"kernel": bwd, "plain": bwd_plain}
@@ -2714,6 +2754,129 @@ def phase_train_rwkv6(torch, card, FA, WKV):
     return phase_train_scan(torch, card, FA, WKV, "train_rwkv6", cfg,
                             "WKVScan", "wkv", WKV.wkv_plain, WKV.wkv_bwd,
                             WKV.wkv_bwd_plain)
+
+
+# The last three families train at full width on their first layer: one
+# card does not hold two with AdamW's state.  A step holds ~24 bytes a
+# parameter with int8 compression (bf16 weights; float32 master, m, v,
+# gradients and carried errors; a gradient's bf16 copy) and the
+# activations: qwen2-vl's first layer and lm_head, 2.12 B parameters,
+# peaked at 59.9 GB.  The MoE keeps top-k but fewer experts: qwen3-moe 64
+# of 128 (2.49 B parameters, 67.5 GB), dbrx 8 of 16 (2.91 B, 72.5 GB;
+# 60.9 GB without compression), under 90% of the card's 85.0 GB (NVIDIA
+# H100 80GB HBM3).
+# tag, arch, experts (None: as published)
+TRAIN_FAMILIES = [("qwen3moe", "qwen3-moe-235b-a22b", 64),
+                  ("dbrx", "dbrx-132b", 8),
+                  ("qwen2vl", "qwen2-vl-72b", None)]
+# a step's kernels of indexing, sorting, scanning and scatter / gather: the
+# MoE's routing and dispatch (the top-k sort, the positions' cumsum, the
+# one-hot, the buffer's fill and the gather back, and their gradients),
+# and the few small gathers of the loss and the token embedding
+DISPATCH_KEYS = ("index", "Index", "sort", "Sort", "scan", "Scan",
+                 "scatter", "gather")
+# the float32 copy's rows: half a microbatch, to keep the script near 800 s
+TRAIN_F32_ROWS = 2
+
+
+def train_cut(cfg, experts):
+    """``cfg`` on its first layer, an MoE with ``experts`` experts (more
+    than top-k, which it keeps)."""
+    cfg = first_layers(cfg, 1)
+    if not experts:
+        return cfg
+    if experts <= cfg.experts_per_tok:
+        raise ValueError(f"{experts} experts route every token to all")
+    return dataclasses.replace(cfg, num_experts=experts)
+
+
+def grads_twice(torch, model, batch):
+    """``model``'s loss and gradients on ``batch`` twice from the same
+    weights (what could differ between two runs of a train step: AdamW and
+    the compression are elementwise): whether they agree bit for bit, the
+    leaves that do not and the largest difference over a leaf's largest
+    value."""
+    from repro_torch.models import model as TM
+
+    named = dict(model.named_parameters())
+    runs = []
+    for _ in range(2):
+        loss, _ = TM.train_loss(model, batch, remat=True)
+        runs.append((loss.detach(), torch.autograd.grad(
+            loss, list(named.values()))))
+    (l0, g0), (l1, g1) = runs
+    differ = {n: float((a.float() - b.float()).abs().max()
+                       / b.float().abs().max().clamp_min(1e-30))
+              for n, a, b in zip(named, g0, g1) if not torch.equal(a, b)}
+    return dict(repeat_loss_bitwise_equal=bool(torch.equal(l0, l1)),
+                repeat_grads_bitwise_equal=not differ,
+                repeat_leaves_differing=json.dumps(differ))
+
+
+def phase_train_family(torch, np, card, FA, tag, cfg):
+    """``cfg`` (full width; ``train_cut``) through ``train_and_check`` for
+    TRAIN_SCAN_STEPS steps: the flash forward twice a layer a microbatch under remat and one backward
+    call a layer a microbatch, all on the wgmma libraries; one more step
+    profiled (busy share, top kernels, the flash kernels' and the
+    dispatch's shares of device time, ``DISPATCH_KEYS``); an MoE's bf16
+    loss and gradients on one microbatch twice from the same weights,
+    compared bit for bit (``grads_twice``); then on TRAIN_F32_ROWS rows a
+    float32 copy's gradients with the flash directions swapped
+    (``flash_swapped_grads``; an MoE's runs on the first run's routing,
+    layer by layer through remat's recomputes; qwen2-vl's at an image's
+    grid positions, so that its three M-RoPE streams differ), held by
+    ``check_flash_swapped``."""
+    from repro_torch.models.routing import PinnedRouting
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import make_train_step
+    from repro_torch.train.train_step import batch_to_device
+
+    calls = cfg.num_layers * TRAIN_ACCUM * TRAIN_SCAN_STEPS
+    fwd, bwd = 2 * calls, calls * FA.BWD_LAUNCHES_PER_CALL
+    model, opt, nums = train_and_check(
+        torch, card, tag, cfg, TRAIN_SCAN_STEPS, flash_counters(FA),
+        dict(flash_attention=fwd, flash_bwd=bwd, flash_sm90=fwd,
+             flash_bwd_sm90=bwd))
+    nums.update(experts=cfg.num_experts, experts_per_tok=cfg.experts_per_tok)
+
+    step_fn = make_train_step(model, AdamWConfig(lr=6e-4), accum=TRAIN_ACCUM,
+                              remat=True, compress=True,
+                              schedule_kwargs={"warmup": 10,
+                                               "total": TRAIN_SCAN_STEPS})
+    batch = launcher_batch(cfg, TRAIN_SCAN_STEPS)
+    prof_nums, opt = profiled_step(torch, step_fn, opt, batch, {
+        "flash": ("flash_", "bwd_prep", "bwd_dkdv", "bwd_dq"),
+        "dispatch": DISPATCH_KEYS})
+    nums.update(prof_nums)
+    say(tag, part="profile", **prof_nums)
+    del opt, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    if cfg.num_experts:
+        rep = grads_twice(torch, model, batch_to_device(
+            first_rows(batch, TRAIN_B // TRAIN_ACCUM), card))
+        say(tag, part="repeat", **rep)
+        nums.update(rep)
+    rows = first_rows(batch, TRAIN_F32_ROWS)
+    if cfg.mrope_sections:
+        B, S = rows["labels"].shape
+        rows["positions"] = mrope_grid_positions(np, B, S, QWEN2VL_GRID)
+    wide = widened(torch, model, cfg, card)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    with PinnedRouting() as pin:
+        cons = flash_swapped_grads(torch, FA, wide,
+                                   batch_to_device(rows, card),
+                                   pin if cfg.num_experts else None)
+    say(tag, part="float32_grads", **cons)
+    check_flash_swapped(cons, tag, cfg.num_layers, FA)
+    nums.update(cons)
+    del wide
+    gc.collect()
+    torch.cuda.empty_cache()
+    return nums
 
 
 # --------------------------------------------------------------------------
@@ -3428,14 +3591,15 @@ def phase_rollout_scale(torch, np, K, RT, card):
 # its 1,024-token window, so the window binds in prefill and in decode;
 # the MoE models keep the depth whose bf16 weights fit one card beside
 # their caches (8 of qwen3's 94 layers, 6 of dbrx's 40: ~42 GB each); the
-# dense ones half their depth (17 of gemma3's 34 layers, two of them
-# global; 24 of internlm2's 48, 31 of deepseek's 62), to keep the whole
+# dense ones half their depth or less (17 of gemma3's 34 layers, two of
+# them global; 12 of internlm2's 48, 12 of deepseek's 62 and 8 of rwkv6's
+# 32, 24, 31 and 16 until the MoE training phases came), to keep the whole
 # script near 800 s
-RWKV6_SERVE_LAYERS = 16
+RWKV6_SERVE_LAYERS = 8
 SERVE_FAMILIES = [
     ("gemma3", "gemma3-4b", 1025, 2048, 17, None),
-    ("internlm2", "internlm2-20b", 256, 1024, 24, 2),
-    ("deepseek33b", "deepseek-coder-33b", 256, 1024, 31, 2),
+    ("internlm2", "internlm2-20b", 256, 1024, 12, 2),
+    ("deepseek33b", "deepseek-coder-33b", 256, 1024, 12, 2),
     ("qwen3moe", "qwen3-moe-235b-a22b", 256, 1024, 8, 2),
     ("dbrx", "dbrx-132b", 256, 1024, 6, 2),
 ]
@@ -3910,7 +4074,7 @@ def main() -> int:
     done("flash_widths")
 
     # 26-30. the remaining model families at full width: gemma3-4b,
-    # internlm2-20b and deepseek-coder-33b at half depth, the MoE models at
+    # internlm2-20b and deepseek-coder-33b at cut depth, the MoE models at
     # the depth one card holds; the float32 kernel-vs-plain copy of the
     # large ones is their first two layers (a full float32 copy would not
     # fit beside the bf16 model)
@@ -3999,6 +4163,21 @@ def main() -> int:
     done("train_rwkv6")
     flash_paths["train_zamba2"] = tz["flash_launches"]
     bwd_paths["train_zamba2"] = tz["flash_bwd_launches"]
+
+    # 39-41. qwen3-moe, dbrx and qwen2-vl trained at full width on their
+    # first layer (the MoE on fewer experts) through the flash kernels at
+    # GQA groups 16, 6 and 8
+    for tag, arch, experts in TRAIN_FAMILIES:
+        name = f"train_{tag}"
+        hold_little(name)
+        with timers.phase(name):
+            fam = phase_train_family(torch, np, card, FA, name,
+                                     train_cut(get_config(arch), experts))
+        done(name)
+        flash_paths[name] = fam["flash_attention_launches"]
+        bwd_paths[name] = fam["flash_bwd_launches"]
+        f32_paths[name] = fam["float32_flash_launches"]
+        bwd_f32_paths[f"{name}_float32"] = fam["float32_flash_bwd_launches"]
     ssd_paths = {"serve_zamba2": serve["ssd_launches"],
                  "train_zamba2": tz["scan_launches"]}
     wkv_paths = {"serve_rwkv6": rserve["wkv_launches"],
@@ -4028,7 +4207,7 @@ def main() -> int:
             "bound_ms": cases[main]["bound_ms"],
             "bound_by": cases[main]["bound_by"], "library_ms": None}
 
-    # 39-40. the metric-pipeline bench and the colocation demo on the card
+    # 42-43. the metric-pipeline bench and the colocation demo on the card
     with timers.phase("metric_pipeline"):
         mp = phase_metric_pipeline(torch, K, card)
     done("metric_pipeline", **mp)

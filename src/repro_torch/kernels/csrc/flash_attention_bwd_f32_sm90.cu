@@ -19,7 +19,8 @@
 // 3xTF32 as in flash_attention_f32_sm90.cu: every operand x is split where
 // it is read into hi = rna_tf32(x) and lo = rna_tf32(x - hi), and a product
 // a b is taken as al bh + ah bl + ah bh on mma.sync m16n8k8 TF32 with
-// float32 sums (what is dropped is ~2^-21 of |a b|).
+// float32 sums (what is dropped is ~2^-21 of |a b|); each k-step's three
+// are summed from zero and added to the running sum in float32 (`mma3`).
 //
 // Bound (smollm-135m's train shape in float32: B 8, S 1,024, H 9 over 3, hd
 // 64, causal): five products over the kept pairs are ~24 GFLOP, 72.6 G in
@@ -143,14 +144,24 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// d += a b in 3xTF32: the two small cross terms first, then hi hi
+// d += a b in 3xTF32: the two small cross terms first, then hi hi, formed
+// from zero and then added to d in float32.  The tensor cores' own adds
+// drop the low bits of what they add to a larger sum rather than round
+// them, so chained in d over a whole sum they drift by its length: dk
+// (over G S / 8 steps) 1.3e-4 of its largest value from the float32 sum at
+// GQA group 16, S 1,024; at a trained dbrx layer's attention, with the
+// products of a k-step summed apart, dk still stood 3.6e-5 from float64
+// (the plain version 1.5e-6) where s and dp chained over hd / 8 steps
 __device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
                                      const uint32_t (&al)[4],
                                      const uint32_t (&bh)[2],
                                      const uint32_t (&bl)[2]) {
-  mma_tf32(d, al, bh[0], bh[1]);
-  mma_tf32(d, ah, bl[0], bl[1]);
-  mma_tf32(d, ah, bh[0], bh[1]);
+  float p[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_tf32(p, al, bh[0], bh[1]);
+  mma_tf32(p, ah, bl[0], bl[1]);
+  mma_tf32(p, ah, bh[0], bh[1]);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) d[e] += p[e];
 }
 
 // The A fragment of m16n8k8 TF32 (a0: row g, k t; a1: row g + 8, k t; a2:

@@ -149,14 +149,25 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// d += a b in 3xTF32: the two small cross terms first, then hi hi
+// d += a b in 3xTF32: the two small cross terms first, then hi hi, formed
+// from zero and then added to d in float32 (the tensor cores' own adds
+// drop the low bits of what they add to a larger sum rather than round
+// them, and chained in d over a whole sum they drift by its length: see
+// flash_attention_bwd_f32_sm90.cu).  Here O chains over S / 8 k-steps:
+// chained, out stood 1.1e-5 of its largest value from float64 at a
+// trained qwen3-moe layer (S 1,024), the plain float32 version 2.7e-6 and
+// this form 9.3e-7 (tools/flash_bwd_precision.py --forward), for 12-41%
+// more time
 __device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ah)[4],
                                      const uint32_t (&al)[4],
                                      const uint32_t (&bh)[2],
                                      const uint32_t (&bl)[2]) {
-  mma_tf32(d, al, bh[0], bh[1]);
-  mma_tf32(d, ah, bl[0], bl[1]);
-  mma_tf32(d, ah, bh[0], bh[1]);
+  float p[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_tf32(p, al, bh[0], bh[1]);
+  mma_tf32(p, ah, bl[0], bl[1]);
+  mma_tf32(p, ah, bh[0], bh[1]);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) d[e] += p[e];
 }
 
 // The A fragment of m16n8k8 TF32 (a0: row g, k t; a1: row g + 8, k t; a2:

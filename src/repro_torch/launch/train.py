@@ -9,8 +9,9 @@ Port of ``repro.launch.train``: the same arguments, plus ``--device``
 config resolution, the prefetched synthetic data pipeline, the train step
 (accumulation, remat, compression), checkpointing with auto-resume and
 straggler detection.  Weights are random, from a generator seeded
-``seed``.  On the card only the attention families train (ROADMAP Queue A
-item 3); on the CPU use ``--smoke``.
+``seed``.  Every family trains on the card, the large ones only cut: one
+card holds AdamW's state for a layer or two of them at full width (a step
+keeps ~24 bytes a parameter); on the CPU use ``--smoke``.
 """
 from __future__ import annotations
 

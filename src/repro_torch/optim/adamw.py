@@ -10,8 +10,11 @@ is decoupled and applied to the float32 master weights; the new compute
 parameters are the master weights cast to each parameter's dtype.
 
 JAX's update is pure; the port updates ``master``, ``m`` and ``v`` in
-place with ``torch._foreach_*`` (one call per operation over every leaf)
-and returns the same state dict with ``step`` advanced.
+place with ``torch._foreach_*`` (one call per operation over the leaves
+of a pass of about ``CHUNK`` values, so that its temporaries stay small
+beside a large model's state; elementwise, so the passes give the bits
+one call over every leaf gives) and returns the same state dict with
+``step`` advanced.
 """
 from __future__ import annotations
 
@@ -48,6 +51,35 @@ def _f32(x) -> float:
     return float(torch.as_tensor(x, dtype=torch.float32))
 
 
+# the values one pass of the update spans: its few float32 temporaries
+# (the clipped gradient, the update, its denominator) stay near 1 GB
+CHUNK = 1 << 26
+
+
+def _chunks(leaf_lists, chunk: int):
+    """The leaves of parallel lists (same shapes, contiguous but the first
+    list's) cut into passes of about ``chunk`` values each: every leaf
+    flattened, one larger than ``chunk`` split into slices of ``chunk``,
+    then consecutive pieces joined up to ``chunk``.  Yields one list of
+    pieces per input list; an in-place operation on a piece writes its
+    leaf."""
+    flat = [[a.reshape(-1) for a in leaf_lists[0]]] + [
+        [a.view(-1) for a in leaves] for leaves in leaf_lists[1:]]
+    out, size = [[] for _ in flat], 0
+    for i in range(len(flat[0])):
+        n = flat[0][i].numel()
+        for lo in range(0, n, chunk):
+            hi = min(lo + chunk, n)
+            if out[0] and size + hi - lo > chunk:
+                yield out
+                out, size = [[] for _ in flat], 0
+            for o, leaves in zip(out, flat):
+                o.append(leaves[i][lo:hi])
+            size += hi - lo
+    if out[0]:
+        yield out
+
+
 def adamw_update(params: dict, grads: dict, opt_state: dict,
                  cfg: AdamWConfig, lr_scale: float = 1.0):
     """One AdamW step.  Returns (new params {name: master cast to the
@@ -65,24 +97,27 @@ def adamw_update(params: dict, grads: dict, opt_state: dict,
     bc2 = _f32(1 - torch.tensor(cfg.b2, dtype=f32) ** float(step))
     lr = _f32(torch.tensor(cfg.lr, dtype=f32) * lr_scale)
 
-    master = [opt_state["master"][n] for n in names]
-    m = [opt_state["m"][n] for n in names]
-    v = [opt_state["v"][n] for n in names]
-    if scale != 1.0:
-        g = torch._foreach_mul(g, scale)
-    torch._foreach_mul_(m, cfg.b1)
-    torch._foreach_add_(m, g, alpha=1 - cfg.b1)
-    torch._foreach_mul_(v, cfg.b2)
-    torch._foreach_addcmul_(v, g, g, value=1 - cfg.b2)
-    mh = torch._foreach_div(m, bc1)
-    den = torch._foreach_sqrt(torch._foreach_div(v, bc2))
-    torch._foreach_add_(den, cfg.eps)
-    upd = torch._foreach_div(mh, den)
-    torch._foreach_add_(upd, master, alpha=cfg.weight_decay)
-    torch._foreach_mul_(upd, lr)
-    torch._foreach_sub_(master, upd)
+    for gs, ws, ms, vs in _chunks([g] + [[opt_state[k][n] for n in names]
+                                         for k in ("master", "m", "v")],
+                                  CHUNK):
+        if scale != 1.0:
+            gs = torch._foreach_mul(gs, scale)
+        torch._foreach_mul_(ms, cfg.b1)
+        torch._foreach_add_(ms, gs, alpha=1 - cfg.b1)
+        torch._foreach_mul_(vs, cfg.b2)
+        torch._foreach_addcmul_(vs, gs, gs, value=1 - cfg.b2)
+        upd = torch._foreach_div(ms, bc1)
+        den = torch._foreach_div(vs, bc2)
+        torch._foreach_sqrt_(den)
+        torch._foreach_add_(den, cfg.eps)
+        torch._foreach_div_(upd, den)
+        del den, gs
+        torch._foreach_add_(upd, ws, alpha=cfg.weight_decay)
+        torch._foreach_mul_(upd, lr)
+        torch._foreach_sub_(ws, upd)
+        del upd
 
-    new_params = {n: mst.to(params[n].dtype) for n, mst in zip(names,
-                                                                master)}
+    new_params = {n: opt_state["master"][n].to(params[n].dtype)
+                  for n in names}
     opt_state["step"] = step
     return new_params, opt_state, gnorm

@@ -16,6 +16,9 @@ import torch
 import torch.nn.functional as F
 
 BLOCK = 256
+# the values ``compress_roundtrip_`` takes at a time: whole blocks, and
+# its half-dozen float32 temporaries near 1.5 GB
+CHUNK = BLOCK << 18
 
 
 def _pad_len(n: int) -> int:
@@ -79,3 +82,69 @@ def decompress_grads(cgrads: list, like: dict) -> dict:
         for n, part in zip(names, flat.split(sizes)):
             out[n] = part.reshape(like[n].shape)
     return out
+
+
+def _pieces(flats: list, lo: int, hi: int):
+    """(tensor index, its start, its end, the start in [lo, hi)) of each
+    tensor's part in values lo..hi of ``flats`` joined."""
+    start = 0
+    for i, t in enumerate(flats):
+        end = start + t.numel()
+        if end > lo and start < hi:
+            a, b = max(lo, start), min(hi, end)
+            yield i, a - start, b - start, a - lo
+        start = end
+
+
+def _join(flats: list, lo: int, hi: int) -> torch.Tensor:
+    parts = [flats[i][a:b] for i, a, b, _ in _pieces(flats, lo, hi)]
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+
+def _split_into(flats: list, lo: int, hi: int, src: torch.Tensor) -> None:
+    for i, a, b, at in _pieces(flats, lo, hi):
+        flats[i][a:b].copy_(src[at:at + b - a])
+
+
+def compress_roundtrip_(grads: dict, err_state: dict | None,
+                        groups: list | None = None) -> dict:
+    """What ``compress_grads`` then ``decompress_grads`` give, a group at a
+    time, so that no temporary spans more than one group or CHUNK values:
+    each float32 gradient of ``grads`` becomes its decompressed value and
+    each carried error of ``err_state`` its new value (in a new dict when
+    ``err_state`` is None).  A group of at most CHUNK values is taken
+    whole, and its entries replaced by views of the new values; a larger
+    one is written in place, CHUNK values at a time.  CHUNK is whole blocks
+    and a group's blocks start at its first value, so every block holds the
+    values it holds in ``compress_grads``: the same bits.  Returns the
+    carried errors."""
+    groups = [[n] for n in grads] if groups is None else groups
+    fresh = err_state is None
+    errs = {} if fresh else err_state
+    for names in groups:
+        gs = [grads[n].reshape(-1) for n in names]
+        sizes = [g.numel() for g in gs]
+        total = sum(sizes)
+        if total <= CHUNK:
+            (q, scale), new_err = compress_leaf(
+                _join(gs, 0, total),
+                None if fresh else _join([errs[n].reshape(-1)
+                                          for n in names], 0, total))
+            deq = decompress_leaf(q, scale, (total,))
+            for n, d, e in zip(names, deq.split(sizes), new_err.split(sizes)):
+                grads[n] = d.view(grads[n].shape)
+                errs[n] = e.view(grads[n].shape)
+            continue
+        if fresh:
+            for n in names:
+                errs[n] = torch.empty(grads[n].shape, dtype=torch.float32,
+                                      device=grads[n].device)
+        gs = [grads[n].view(-1) for n in names]
+        es = [errs[n].view(-1) for n in names]
+        for lo in range(0, total, CHUNK):
+            hi = min(lo + CHUNK, total)
+            (q, scale), new_err = compress_leaf(
+                _join(gs, lo, hi), None if fresh else _join(es, lo, hi))
+            _split_into(gs, lo, hi, decompress_leaf(q, scale, (hi - lo,)))
+            _split_into(es, lo, hi, new_err)
+    return errs

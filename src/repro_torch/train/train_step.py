@@ -10,7 +10,12 @@ float32 in microbatch order and divided by ``accum``, as JAX's scan does;
 ``compress`` runs the int8 + error-feedback compressor between the
 gradients and the optimizer, over JAX's leaves (``jax_leaf_groups``: a
 pattern position's layers joined as JAX stacks them), its error state in
-``opt_state["comp_err"]``.
+``opt_state["comp_err"]``.  Beside the train state (the weights, AdamW's
+float32 master, m and v, the carried errors) a step holds the float32
+gradients and little else: the microbatches' gradients are added in
+place, compression takes a leaf group at a time (a large one in place),
+and AdamW works in place in passes, all with the bits of whole-tree
+calls.
 On a CUDA model the attention forward and backward run in the flash
 kernels (``models.attention.attention`` under grad).
 """
@@ -21,7 +26,7 @@ import torch
 from repro_torch.models import model as M
 from repro_torch.optim import AdamWConfig, adamw_update, lr_schedule
 from repro_torch.optim.adamw import init_opt_state
-from repro_torch.optim.compress import compress_grads, decompress_grads
+from repro_torch.optim.compress import compress_roundtrip_
 
 _INT_KEYS = ("tokens", "labels", "positions")
 
@@ -84,26 +89,24 @@ def make_train_step(model: M.Model, opt_cfg: AdamWConfig | None = None, *,
             if grads is None:
                 grads = [x.float() for x in g]
                 loss = l.detach()
-            else:
-                torch._foreach_add_(grads, [x.float() for x in g])
+            else:   # a float32 sum of each bf16 value widened, in place
+                torch._foreach_add_(grads, list(g))
                 loss = loss + l.detach()
             del g, l
         if accum > 1:
             torch._foreach_div_(grads, float(accum))
             loss = loss / accum
         grads = dict(zip(named, grads))
-        if compress:
-            cg, new_err = compress_grads(grads, opt_state.get("comp_err"),
-                                         groups)
-            grads = decompress_grads(cg, grads)
+        if compress:   # the gradients and carried errors in place
+            opt_state["comp_err"] = compress_roundtrip_(
+                grads, opt_state.get("comp_err"), groups)
         lr_scale = lr_schedule(opt_state["step"], **sk)
         new_params, opt_state, gnorm = adamw_update(named, grads, opt_state,
                                                     opt_cfg, lr_scale)
+        del grads
         with torch.no_grad():
             for n, p in named.items():
                 p.copy_(new_params[n])
-        if compress:
-            opt_state["comp_err"] = new_err
         metrics = {"loss": loss, "grad_norm": gnorm, "lr_scale": lr_scale,
                    "step": opt_state["step"]}
         return opt_state, metrics

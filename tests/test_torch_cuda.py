@@ -1033,6 +1033,35 @@ def test_flash_bwd_refuses_other_widths(card):
         FA.flash_attention_bwd(q, k, v, out, dout, lse)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1024, 300])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,KV,hd", [(64, 4, 64), (48, 8, 128),
+                                     (64, 8, 128)])
+def test_flash_bwd_kernel_at_the_moe_and_vlm_groups(card, exact_f32, H, KV,
+                                                    hd, dtype, S):
+    """The attention of the MoE and qwen2-vl training families at their
+    heads and widths (qwen3-moe 64 over 4, GQA group 16, hd 64;
+    dbrx 48 over 8, group 6, hd 128; qwen2-vl 64 over 8, group 8, hd 128),
+    causal, at a whole and a ragged S: dq, dk, dv within BWD_TOL of the
+    plain backward, three launches on the routed library, and a second
+    call bit-equal (no atomics in the sum over a group's heads)."""
+    q, k, v, out, dout, lse = _bwd_inputs(2, S, H, KV, hd, dtype, card,
+                                          True, 0, seed=H + KV + hd)
+    lib = FA.bwd_route(dtype, hd)[0]
+    before = FA.bwd_kernel_launches[lib]
+    got = FA.flash_attention_bwd(q, k, v, out, dout, lse)
+    again = FA.flash_attention_bwd(q, k, v, out, dout, lse)
+    torch.cuda.synchronize()
+    assert FA.bwd_kernel_launches[lib] == before + 2 * \
+        FA.BWD_LAUNCHES_PER_CALL
+    want = FA.flash_attention_bwd_plain(q, k, v, out, dout)
+    for name, a, b, c in zip(("dq", "dk", "dv"), got, want, again):
+        assert a.dtype == dtype and a.shape == b.shape, name
+        assert _rel_err(a, b) <= BWD_TOL[dtype], (name, _rel_err(a, b))
+        assert torch.equal(a, c), name
+
+
 # the forward kernels' log-sum-exp against the plain version's: float32
 # logs of the same sums in another order, over scores whose own error is
 # ~1e-6 of their size (bf16 inputs' products in float32, or 3xTF32)
@@ -1163,14 +1192,19 @@ def test_smoke_training_step_goes_through_both_flash_kernels(card):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["smollm-135m", "gemma3-4b",
-                                  "hubert-xlarge"])
+                                  "hubert-xlarge", "qwen3-moe-235b-a22b",
+                                  "dbrx-132b", "qwen2-vl-72b"])
 def test_training_gradients_kernel_path_equal_plain(card, exact_f32, arch):
     """Float32 smoke models on the card (causal, windowed at T 100 past
-    gemma3's window of 32, non-causal): every gradient leaf through the
-    kernels within 1e-4 of its largest value of the plain path's."""
+    gemma3's window of 32, non-causal, the two MoE, qwen2-vl at image-grid
+    M-RoPE positions so that its three streams differ): every gradient
+    leaf through the kernels within 1e-4 of its largest value of the plain
+    path's.  The MoE's plain run takes the kernel run's routing, layer by
+    layer through remat's recomputes (``PinnedRouting``)."""
     import dataclasses
 
     from repro_torch.models import model as TM
+    from repro_torch.models.routing import PinnedRouting
 
     cfg = dataclasses.replace(get_smoke_config(arch), dtype=torch.float32)
     model = Model(cfg, device=card).init_params(
@@ -1185,14 +1219,21 @@ def test_training_gradients_kernel_path_equal_plain(card, exact_f32, arch):
     else:
         batch["tokens"] = torch.randint(0, cfg.vocab_size, (2, 100),
                                         generator=g).to(card)
+    if cfg.mrope_sections:
+        batch["positions"] = _grid_positions(2, 100, 8).to(card)
     params = list(model.parameters())
     grads = {}
-    for use in (True, False):
-        model.cfg = dataclasses.replace(cfg, use_kernels=use)
-        bwd = FA.bwd_launches
-        loss, _ = TM.train_loss(model, batch)
-        grads[use] = torch.autograd.grad(loss, params)
-        assert (FA.bwd_launches - bwd > 0) == use
+    with PinnedRouting() as pin:
+        for use in (True, False):
+            model.cfg = dataclasses.replace(cfg, use_kernels=use)
+            bwd = FA.bwd_launches
+            loss, _ = TM.train_loss(model, batch)
+            grads[use] = torch.autograd.grad(loss, params)
+            assert (FA.bwd_launches - bwd > 0) == use
+            pin.replay()
+    # the kernel run's recomputes, the plain run's forwards and recomputes
+    assert pin.tokens == (3 * cfg.num_layers * 200 if cfg.num_experts
+                          else 0)
     for a, b in zip(grads[True], grads[False]):
         assert _rel_err(a, b) <= BWD_TOL[torch.float32]
 

@@ -34,7 +34,13 @@ from repro_torch.optim import (
     init_opt_state,
     lr_schedule,
 )
-from repro_torch.optim.compress import compress_leaf, decompress_leaf
+from repro_torch.optim import adamw as tadamw
+from repro_torch.optim import compress as tcompress
+from repro_torch.optim.compress import (
+    compress_leaf,
+    compress_roundtrip_,
+    decompress_leaf,
+)
 from repro_torch.train.train_step import jax_leaf_groups
 
 
@@ -154,6 +160,65 @@ def test_grad_clip_limits_update():
                                JAdamWConfig(grad_clip=1.0))
     np.testing.assert_allclose(new["w"].numpy(), np.asarray(jnp.asarray(
         jnew["w"], jnp.float32)), rtol=1e-6)
+
+
+@pytest.mark.parametrize("with_err", [True, False])
+@pytest.mark.parametrize("chunk", [256, 768, 1 << 20])
+def test_compress_roundtrip_equals_compress_then_decompress(
+        monkeypatch, chunk, with_err):
+    """The train step's round trip (a group whole, or in place by chunks)
+    against ``compress_grads`` then ``decompress_grads`` bit for bit:
+    chunks of one block, of three (which cut leaves and straddle a group's
+    members) and of the whole tree; groups of several members, one member,
+    and a ragged last block."""
+    rng = np.random.default_rng(5)
+    shapes = {"a": (3, 100), "b": (7,), "c": (2, 300), "d": (1000,),
+              "e": (33, 17)}
+    grads = {k: torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+             for k, s in shapes.items()}
+    err = ({k: torch.from_numpy((rng.standard_normal(s) * 1e-2).astype(
+        np.float32)) for k, s in shapes.items()} if with_err else None)
+    groups = [["a", "b", "c"], ["d"], ["e"]]
+    cg, want_err = compress_grads(grads, err, groups)
+    want = decompress_grads(cg, grads)
+    got = {k: v.clone() for k, v in grads.items()}
+    monkeypatch.setattr(tcompress, "CHUNK", chunk)
+    got_err = compress_roundtrip_(
+        got, None if err is None else {k: v.clone() for k, v in err.items()},
+        groups)
+    for k in shapes:
+        np.testing.assert_array_equal(_bits(got[k]), _bits(want[k]))
+        np.testing.assert_array_equal(_bits(got_err[k]), _bits(want_err[k]))
+
+
+@pytest.mark.parametrize("chunk", [1, 64, 300])
+def test_adamw_passes_give_the_bits_of_one_pass(monkeypatch, chunk):
+    """AdamW's passes over cut and joined leaves (``CHUNK`` values each)
+    against one pass over every leaf, bit for bit, clipped; the gradients
+    are left as they were."""
+    rng = np.random.default_rng(6)
+    shapes = {"a": (7, 5), "b": (300,), "c": (2, 3, 4), "d": (1,)}
+    params = {k: torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)).to(torch.bfloat16) for k, s in shapes.items()}
+    g = {k: torch.from_numpy((rng.standard_normal(s) * 3).astype(
+        np.float32)) for k, s in shapes.items()}
+    kept = {k: v.clone() for k, v in g.items()}
+    out = {}
+    for name, n in (("one", 1 << 30), ("passes", chunk)):
+        monkeypatch.setattr(tadamw, "CHUNK", n)
+        opt = init_opt_state(params)
+        for _ in range(2):
+            new, opt, gnorm = adamw_update(params, g, opt,
+                                           AdamWConfig(lr=1e-2), 0.7)
+        out[name] = (new, opt, gnorm)
+    for k in shapes:
+        assert torch.equal(out["one"][0][k], out["passes"][0][k])
+        for key in ("master", "m", "v"):
+            assert torch.equal(out["one"][1][key][k],
+                               out["passes"][1][key][k])
+        assert torch.equal(g[k], kept[k])
+    assert float(out["one"][2]) > 1.0     # the clip binds
+    assert torch.equal(out["one"][2], out["passes"][2])
 
 
 @pytest.mark.parametrize("clip", [1.0, 100.0])

@@ -214,14 +214,21 @@ def _check_flips(got: dict, want: dict, tol: float, flip_abs: float,
         off].max())
 
 
-@pytest.mark.parametrize("accum,compress,remat", [
-    (1, False, True), (2, False, True), (1, True, False), (2, True, True)])
-def test_train_steps_match_jax(accum, compress, remat):
+@pytest.mark.parametrize("arch,accum,compress,remat", [
+    pytest.param("smollm-135m", *case, id="-".join(map(str, case)))
+    for case in ((1, False, True), (2, False, True), (1, True, False),
+                 (2, True, True))] + [
+    pytest.param(arch, 2, True, True, id=f"{arch}-2-True-True")
+    for arch in ("qwen3-moe-235b-a22b", "qwen2-vl-72b")])
+def test_train_steps_match_jax(arch, accum, compress, remat):
     """Two ``make_train_step`` steps (a warmup of one step, so the second
     moves the weights) against JAX's jitted step: loss, grad norm, lr
     scale and step exactly or to rtol 1e-5, and the new params, master,
-    m and v leaf by leaf."""
-    jcfg, tcfg, params, model = _setup("smollm-135m", seed=1)
+    m and v leaf by leaf.  smollm takes every mode; the MoE (its stacked
+    experts among the compressed leaves) and qwen2-vl (an embedding-input
+    batch with M-RoPE positions) take accumulation, compression and remat
+    together."""
+    jcfg, tcfg, params, model = _setup(arch, seed=1)
     batches = [_batch(jcfg, seed=s) for s in (5, 6)]
     kw = dict(accum=accum, remat=remat, compress=compress,
               schedule_kwargs=SCHEDULE)

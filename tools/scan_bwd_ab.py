@@ -3,7 +3,8 @@
 
 Run from the root of a checkout, on a machine with a CUDA card::
 
-    python3 tools/scan_bwd_ab.py --parent DIR [--train] [--out FILE]
+    python3 tools/scan_bwd_ab.py --parent DIR [--train [ARCH ...]]
+        [--out FILE]
 
 ``DIR`` is an unpacked checkout of an earlier commit (``git archive``)
 with ``csrc/ssd_bwd_sm90.cu`` and ``csrc/wkv_bwd.cu``.  Their C entries
@@ -23,9 +24,14 @@ one without takes them per head (B, T, H, N).  Steps:
    device time from a CUDA graph (``chip_smoke.graph_ms``) in the order
    earlier, this, this, earlier;
 3. with ``--train``, ``tools/train_phases.py --arch A`` of each tree in a
-   child process, zamba2-1.2b and rwkv6-7b, in the order earlier, this:
-   the train phase's median step, its profiled step's device time and the
-   scan backward's share of it.
+   child process, for each architecture named (zamba2-1.2b and rwkv6-7b
+   if none is; any of ``train_phases.ARCHS``), in the order earlier, this:
+   the train phase's median step, its profiled step's device time, the
+   scan backward's share of it and the peak memory; then whether the two
+   trees' losses are the same, bit for bit where both trees print them
+   unrounded (``chip_smoke.train_and_check`` does since it moved the
+   step's AdamW and compression in place), else to the 4 places an
+   earlier tree printed.
 
 Prints the card's name and power limit and one JSON line per step, and
 with ``--out FILE`` also writes all of it to FILE as one JSON list.
@@ -225,9 +231,11 @@ def _passes(torch, fn, calls=3):
     return out
 
 
-def _train(parent: str, out_dir: str) -> None:
-    """train_phases.py of each tree in a child process (earlier, this)."""
-    for arch in ("zamba2-1.2b", "rwkv6-7b"):
+def _train(parent: str, out_dir: str, archs) -> None:
+    """train_phases.py of each tree in a child process (earlier, this),
+    and whether the two trees' losses agree."""
+    for arch in archs:
+        losses = {}
         for tag, root in (("earlier", parent), ("this", ROOT)):
             path = os.path.join(out_dir, f"scan_ab_{tag}_{arch}.json")
             proc = subprocess.run(
@@ -243,6 +251,7 @@ def _train(parent: str, out_dir: str) -> None:
                 phases = json.load(f)
             train = next(v for k, v in phases.items()
                          if k.startswith("train_"))
+            losses[tag] = json.loads(train["losses"])
             _out({"step": "train", "arch": arch, "tree": tag, **{
                 k: train[k] for k in (
                     "median_step_ms", "min_step_ms", "tokens_per_s",
@@ -250,13 +259,20 @@ def _train(parent: str, out_dir: str) -> None:
                     "scan_bwd_device_share", "scan_fwd_device_share",
                     "flash_device_share", "scan_bwd_launches",
                     "max_memory_allocated") if k in train}})
+        rounded = all(x == round(x, 4) for x in losses["earlier"])
+        mine = [round(x, 4) for x in losses["this"]] if rounded else \
+            losses["this"]
+        _out({"step": "train_losses", "arch": arch,
+              "compared_at": "4 places" if rounded else "bits",
+              "same_losses": mine == losses["earlier"],
+              "losses": losses["this"]})
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", required=True,
                     help="unpacked checkout of the earlier commit")
-    ap.add_argument("--train", action="store_true",
+    ap.add_argument("--train", nargs="*", default=None, metavar="ARCH",
                     help="also each tree's train phases (child processes)")
     ap.add_argument("--out", default=None, help="write the records here")
     args = ap.parse_args()
@@ -298,9 +314,9 @@ def main() -> int:
                 _out({"step": "build", "tree": tag, "lib": lib,
                       "entry": entry[-60:], **nums})
     _kernels(torch, cs, build, SSD, WKV, csrc)
-    if args.train:
+    if args.train is not None:
         out_dir = os.path.dirname(os.path.abspath(args.out or "x"))
-        _train(parent, out_dir)
+        _train(parent, out_dir, args.train or ("zamba2-1.2b", "rwkv6-7b"))
     if args.out:
         with open(args.out, "w") as f:
             json.dump(RECORDS, f, indent=1)

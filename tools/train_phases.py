@@ -16,9 +16,14 @@ against ``ssd_bwd_plain`` at zamba2-1.2b's train microbatch in bf16 and
 float32, a ragged T and the smoke width) and ``train_zamba2`` (the full
 model through the launcher's loop).  ``--arch rwkv6-7b``:
 ``wkv_bwd_kernel`` and ``train_rwkv6`` (full width, 4 of 32 layers).
-``--arch all`` runs the three in turn.
+``--arch qwen3-moe-235b-a22b`` (or ``dbrx-132b``, ``qwen2-vl-72b``):
+``flash_bwd_kernel`` at that family's attention alone (GQA group 16, 6
+or 8, in bf16 and float32) and ``train_qwen3moe`` (``train_dbrx``,
+``train_qwen2vl``: full width on the first layer, the MoE on 64 / 8
+experts, as ``chip_smoke.TRAIN_FAMILIES`` says).  Several ``--arch``
+run in turn; ``--arch all`` runs them all.
 
-    python3 tools/train_phases.py [--arch A] [--out train_phases.json]
+    python3 tools/train_phases.py [--arch A [A ...]] [--out FILE.json]
 """
 from __future__ import annotations
 
@@ -29,7 +34,10 @@ import subprocess
 import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-ARCHS = ("smollm-135m", "zamba2-1.2b", "rwkv6-7b")
+ARCHS = ("smollm-135m", "zamba2-1.2b", "rwkv6-7b", "qwen3-moe-235b-a22b",
+         "dbrx-132b", "qwen2-vl-72b")
+FLASH = ["flash_attention_bwd_sm90", "flash_attention_bwd_f32_sm90",
+         "flash_attention_sm90", "flash_attention_f32_sm90"]
 # the libraries each architecture's phases build
 LIBS = {"smollm-135m": ["flash_attention_bwd_sm90",
                         "flash_attention_bwd_f32_sm90",
@@ -39,12 +47,14 @@ LIBS = {"smollm-135m": ["flash_attention_bwd_sm90",
                         "flash_attention_bwd_sm90",
                         "flash_attention_bwd_f32_sm90",
                         "flash_attention_sm90", "flash_attention_f32_sm90"],
-        "rwkv6-7b": ["wkv_bwd", "wkv"]}
+        "rwkv6-7b": ["wkv_bwd", "wkv"],
+        "qwen3-moe-235b-a22b": FLASH, "dbrx-132b": FLASH,
+        "qwen2-vl-72b": FLASH}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", default="smollm-135m",
+    ap.add_argument("--arch", nargs="+", default=["smollm-135m"],
                     choices=(*ARCHS, "all"))
     ap.add_argument("--out", default=None, help="write the numbers here")
     args = ap.parse_args()
@@ -54,14 +64,17 @@ def main() -> int:
         print("train_phases: no CUDA device", file=sys.stderr)
         return 1
     sys.path[:0] = [ROOT, os.path.join(ROOT, "src")]
+    import numpy as np
+
     import chip_smoke as cs
+    from repro_torch.configs import get_config
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import rwkv_wkv as WKV
     from repro_torch.kernels import ssd as SSD
     from repro_torch.models import rwkv as R
 
-    archs = ARCHS if args.arch == "all" else (args.arch,)
+    archs = ARCHS if "all" in args.arch else args.arch
     libs = sorted({lib for a in archs for lib in LIBS[a]})
     build.build(libs)
     for lib in libs:
@@ -74,8 +87,11 @@ def main() -> int:
     card = torch.device("cuda")
     phases = {
         "smollm-135m": [
+            # the cases the SIMT kernel is timed at (not the MoE and
+            # qwen2-vl ones)
             ("flash_bwd_kernel", lambda: cs.phase_flash_bwd_kernel(
-                torch, FA, build, card, library_device=True)),
+                torch, FA, build, card, library_device=True,
+                cases=[c[0] for c in cs.BWD_CASES if c[-1]])),
             ("train_smollm", lambda: cs.phase_train_smollm(torch, card, FA))],
         "zamba2-1.2b": [
             ("ssd_bwd_kernel", lambda: cs.phase_ssd_bwd_kernel(
@@ -87,12 +103,20 @@ def main() -> int:
                 torch, R, WKV, card)),
             ("train_rwkv6", lambda: cs.phase_train_rwkv6(
                 torch, card, FA, WKV))]}
+    for tag, arch, experts in cs.TRAIN_FAMILIES:
+        phases[arch] = [
+            ("flash_bwd_kernel", lambda tag=tag: cs.phase_flash_bwd_kernel(
+                torch, FA, build, card, cases=(tag, f"{tag}_float32"))),
+            (f"train_{tag}", lambda tag=tag, arch=arch, experts=experts:
+             cs.phase_train_family(torch, np, card, FA, f"train_{tag}",
+                                   cs.train_cut(get_config(arch), experts)))]
     out = {}
     for a in archs:
         for name, run in phases[a]:
-            out[name] = run()
+            key = name if name not in out else f"{name}_{a}"
+            out[key] = run()
             if name.endswith("_kernel"):
-                for case, nums in out[name].items():
+                for case, nums in out[key].items():
                     cs.say(name, case=case, **nums)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
